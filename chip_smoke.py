@@ -1,0 +1,467 @@
+"""Drive the PyTorch / CUDA port of AIRSHIP on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--n 1000000] [--seed 0]
+
+Phases, any failure exits non-zero:
+
+  1. environment: the card's name and power limit (nvidia-smi), versions,
+     TF32 off for every float32 matrix product;
+  2. build: both CUDA kernels from src/repro_torch/csrc (one nvcc each,
+     started together);
+  3. kernels: each kernel against its plain PyTorch version on the card at
+     the search's shapes (n = 1M, d = 128, B = 256, M = 32 and 128) and on
+     edge cases (padding ids, M = 1, M not a multiple of 32, the three
+     constraint families with and without tombstones, words with bit 31
+     set): exact on integer-valued inputs, 1e-5 relative on float inputs,
+     masks exact; device time of each against its bound;
+  4. small world: the same search on the card and on the CPU (plain
+     versions) over an integer-valued world must agree bit for bit;
+  5. world: the airship-sift1m configuration (n = 1,000,000, d = 128, 10
+     k-means labels, degree 32, sample 128) generated and indexed on the card;
+  6. search: 256 queries, equal-label constraint, prefer mode, through
+     serve_256 (gather_distance), serve_256_beam4 and serve_256_fused
+     (fused_expand), with launch counts, fused == unfused, recall@10 >= 0.5.
+
+It prints a {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
+It imports nothing of JAX or of the JAX package.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+L2_BYTES = 50 * 2**20
+B, D_MAIN = 256, 128
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+# --------------------------------------------------------------------------- timing
+
+
+def device_ms(fn, arg_sets, reps: int = 100, replays: int = 5) -> float:
+    """Mean device time of one call: ``reps`` calls cycling through
+    ``arg_sets`` are captured in one CUDA graph and replayed back to back, so
+    host launch overhead stays out. The sets together exceed the L2 cache,
+    so each call finds its rows cold, as the search loop does."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for args in arg_sets[:3]:
+            fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            fn(*arg_sets[i % len(arg_sets)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * reps)
+
+
+def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# --------------------------------------------------------------------------- kernels
+
+
+def rand_words(gen, shape, dev):
+    """int32 words over all 32 bits (bit 31 set in about half)."""
+    return torch.randint(-2**31, 2**31, shape, generator=gen, dtype=torch.int64,
+                         device=dev).to(torch.int32)
+
+
+def kernel_inputs(gen, corpus, labels, m, pad_frac, family, n_labels, tomb):
+    dev = corpus.device
+    n = corpus.shape[0]
+    from repro_torch.common.bits import n_words
+
+    ids = torch.randint(0, n, (B, m), generator=gen, dtype=torch.int32, device=dev)
+    pad = torch.rand((B, m), generator=gen, device=dev) < pad_frac
+    ids = torch.where(pad, -1, ids)
+    ids[:, 0] = 31  # bit 31 of visited / tombstone word 0
+    visited = rand_words(gen, (B, n_words(n)), dev)
+    if family == "label":
+        meta = labels
+        cons = rand_words(gen, (B, n_words(n_labels)), dev)
+    elif family == "range":
+        meta = torch.randint(0, 100, (n,), generator=gen, device=dev).float()
+        lo = torch.randint(0, 60, (B,), generator=gen, device=dev).float()
+        cons = torch.stack([lo, lo + 40], -1)
+    else:
+        meta = torch.randint(-1, 2, (n,), generator=gen, dtype=torch.int32, device=dev)
+        cons = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    tombs = rand_words(gen, (n_words(n),), dev) if tomb else None
+    return ids, visited, meta, cons, tombs
+
+
+def compare_dists(name, got, want, exact):
+    check(torch.equal(torch.isinf(got), torch.isinf(want)), f"{name}: +inf pattern differs")
+    fin = torch.isfinite(want)
+    err = (got[fin] - want[fin]).abs()
+    max_err = float(err.max()) if err.numel() else 0.0
+    if exact:
+        check(max_err == 0.0, f"{name}: integer inputs differ (max abs {max_err})")
+    else:
+        rel = float((err / want[fin].abs().clamp_min(1e-30)).max()) if err.numel() else 0.0
+        check(rel <= 1e-5, f"{name}: relative error {rel} > 1e-5")
+    return max_err
+
+
+def gathered_bytes(queries, corpus, ids):
+    """Bytes a gather-distance call must read: each distinct row once, the
+    queries and the ids; and the number of valid candidates."""
+    valid = ids[ids >= 0]
+    rows = int(torch.unique(valid).numel())
+    return (rows * corpus.shape[1] * 4 + queries.numel() * 4 + ids.numel() * 4,
+            int(valid.numel()))
+
+
+def kernel_phase(args, dev):
+    from repro_torch.kernels.fused_expand import fused_expand_cuda, fused_expand_plain
+    from repro_torch.kernels.gather_distance import gather_distance_cuda, gather_distance_plain
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 11)
+    n, n_labels = args.n, 40
+    corpora = {
+        "int": torch.randint(-8, 9, (n, D_MAIN), generator=gen, device=dev).float(),
+        "float": torch.randn((n, D_MAIN), generator=gen, device=dev),
+    }
+    labels = torch.randint(0, n_labels, (n,), generator=gen, dtype=torch.int32, device=dev)
+    labels[31] = 31  # bit 31 of label word 0
+    max_err = {"gather_distance": 0.0, "fused_expand": 0.0}
+    n_checks = 0
+    for kind, corpus in corpora.items():
+        exact = kind == "int"
+        queries = (torch.randint(-8, 9, (B, D_MAIN), generator=gen, device=dev).float() if exact
+                   else torch.randn((B, D_MAIN), generator=gen, device=dev))
+        for m in (32, 128, 1, 45):
+            ids = kernel_inputs(gen, corpus, labels, m, 0.1, "label", n_labels, False)[0]
+            got = gather_distance_cuda(queries, corpus, ids)
+            torch.cuda.synchronize()
+            err = compare_dists(f"gather_distance {kind} M={m}", got,
+                                gather_distance_plain(queries, corpus, ids), exact)
+            max_err["gather_distance"] = max(max_err["gather_distance"], err)
+            n_checks += 1
+            for family in ("label", "range", "udf"):
+                for tomb in (False, True):
+                    ids, visited, meta, cons, tombs = kernel_inputs(
+                        gen, corpus, labels, m, 0.1, family, n_labels, tomb)
+                    d, s, f = fused_expand_cuda(queries, corpus, ids, visited, meta, cons, tombs,
+                                                family=family)
+                    torch.cuda.synchronize()
+                    pd, ps, pf = fused_expand_plain(queries, corpus, ids, visited, meta, cons,
+                                                    tombs, family=family)
+                    tag = f"fused_expand {kind} M={m} {family} tomb={tomb}"
+                    err = compare_dists(tag, d, pd, exact)
+                    max_err["fused_expand"] = max(max_err["fused_expand"], err)
+                    check(torch.equal(s, ps), f"{tag}: satisfied mask differs")
+                    check(torch.equal(f, pf), f"{tag}: fresh mask differs")
+                    check(torch.equal(d, gather_distance_cuda(queries, corpus, ids)),
+                          f"{tag}: fused and gather_distance distances differ")
+                    n_checks += 1
+    log(f"kernels: {n_checks} kernel/plain comparisons passed; max abs err "
+        f"gather_distance {max_err['gather_distance']:.3e}, "
+        f"fused_expand {max_err['fused_expand']:.3e}")
+
+    # Device time at the search's shapes, float corpus, label family (the
+    # smoke's constraint), no tombstones.
+    corpus = corpora["float"]
+    queries = torch.randn((B, D_MAIN), generator=gen, device=dev)
+    label_words = rand_words(gen, (B, 1), dev)
+    labels10 = torch.randint(0, 10, (n,), generator=gen, dtype=torch.int32, device=dev)
+    timings = {}
+    for m in (32, 128):
+        per_call = B * m * D_MAIN * 4
+        n_sets = max(2, math.ceil(2 * L2_BYTES / per_call))
+        gd_sets, fx_sets, gd_bytes, fx_bytes, cands = [], [], 0.0, 0.0, 0
+        for _ in range(n_sets):
+            ids, visited, _, _, _ = kernel_inputs(gen, corpus, labels10, m, 0.0, "label", 10,
+                                                  False)
+            gd_sets.append((queries, corpus, ids))
+            fx_sets.append((queries, corpus, ids, visited, labels10, label_words))
+            nb, c = gathered_bytes(queries, corpus, ids)
+            cands += c
+            gd_bytes += nb + ids.numel() * 4  # + the (B, M) float32 output
+            safe = ids.clamp_min(0).long()
+            vis_words = torch.unique(torch.arange(B, device=dev)[:, None] * visited.shape[1]
+                                     + (safe >> 5)).numel()
+            fx_bytes += (nb + torch.unique(safe).numel() * 4  # meta words
+                         + vis_words * 4 + label_words.numel() * 4 + ids.numel() * 6)
+        ops = 3.0 * D_MAIN * cands / n_sets
+
+        def fx_kernel(q, x, i, v, meta, cons):
+            return fused_expand_cuda(q, x, i, v, meta, cons, family="label")
+
+        def fx_plain(q, x, i, v, meta, cons):
+            return fused_expand_plain(q, x, i, v, meta, cons, family="label")
+
+        gd_bound = bound_ms(gd_bytes / n_sets, ops)
+        fx_bound = bound_ms(fx_bytes / n_sets, ops)
+        timings[m] = {
+            "gather_distance": dict(ms=device_ms(gather_distance_cuda, gd_sets),
+                                    plain_ms=device_ms(gather_distance_plain, gd_sets),
+                                    bound_ms=gd_bound[0], bound_by=gd_bound[1]),
+            "fused_expand": dict(ms=device_ms(fx_kernel, fx_sets),
+                                 plain_ms=device_ms(fx_plain, fx_sets),
+                                 bound_ms=fx_bound[0], bound_by=fx_bound[1]),
+        }
+        for name, t in timings[m].items():
+            log(f"time {name} B={B} M={m} d={D_MAIN} n={n}: kernel {t['ms'] * 1e3:.2f} us, "
+                f"plain {t['plain_ms'] * 1e3:.2f} us, bound {t['bound_ms'] * 1e3:.2f} us "
+                f"({t['bound_by']}), {n_sets} id sets cycled")
+    del corpora
+    torch.cuda.empty_cache()
+    return max_err, timings
+
+
+# --------------------------------------------------------------------------- search
+
+
+def small_world_phase(args, dev):
+    """The search on the card (kernels) and on the CPU (plain versions)
+    agree bit for bit on an integer-valued world, through both paths."""
+    from repro_torch import (
+        SearchParams,
+        build_index,
+        constrained_search,
+        equal_constraint,
+    )
+    from repro_torch.core.types import Corpus
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 5)
+    n, d = 8192, 16
+    vec = torch.randint(-6, 7, (n, d), generator=gen, device=dev).float()
+    lab = torch.randint(0, 10, (n,), generator=gen, dtype=torch.int32, device=dev)
+    corpus = Corpus(vectors=vec, labels=lab)
+    index = build_index(gen, corpus, degree=16, sample_size=64, device=dev)
+    queries = torch.randint(-6, 7, (64, d), generator=gen, device=dev).float()
+    qlab = torch.randint(0, 10, (64,), generator=gen, dtype=torch.int32, device=dev)
+    cpu = torch.device("cpu")
+    corpus_cpu = Corpus(vectors=vec.to(cpu), labels=lab.to(cpu))
+    index_cpu = type(index)(*(t.to(cpu) for t in (index.neighbors, index.sample_ids,
+                                                   index.entry_point)))
+    for beam, fuse in ((1, "off"), (4, "off"), (1, "on"), (4, "on")):
+        p = SearchParams(mode="prefer", k=10, ef_result=64, ef_sat=64, ef_other=64, n_start=16,
+                         max_iters=256, beam_width=beam, use_kernel=True, fuse_expand=fuse)
+        card = constrained_search(corpus, index, queries, equal_constraint(qlab, 10), p)
+        host = constrained_search(corpus_cpu, index_cpu, queries.to(cpu),
+                                  equal_constraint(qlab.to(cpu), 10), p)
+        for field in ("ids", "dists"):
+            check(torch.equal(getattr(card, field).cpu(), getattr(host, field)),
+                  f"small world beam={beam} fuse={fuse}: {field} differ card vs CPU")
+        for field in ("dist_evals", "hops", "visited", "iters", "beam_expansions"):
+            check(torch.equal(getattr(card.stats, field).cpu(), getattr(host.stats, field)),
+                  f"small world beam={beam} fuse={fuse}: {field} differ card vs CPU")
+    log("small world: card == CPU plain versions, bit for bit, beam {1,4} x fuse {off,on}")
+
+
+def search_phase(args, dev):
+    from repro_torch import (
+        SearchParams,
+        build_index,
+        constrained_search,
+        equal_constraint,
+        exact_constrained_search,
+        make_labeled_corpus,
+        make_queries,
+        recall,
+    )
+    from repro_torch.kernels.fused_expand import fused_expand
+    from repro_torch.kernels.gather_distance import gather_distance
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    corpus = make_labeled_corpus(gen, args.n, D_MAIN, 10, device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    index = build_index(gen, corpus, degree=32, sample_size=128, method="exact",
+                        reverse_edges=True, device=dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    log(f"world: airship-sift1m n={args.n} d={D_MAIN} labels=10 degree=32 sample=128; "
+        f"corpus {t1 - t0:.2f} s, exact kNN index + reverse edges {t2 - t1:.2f} s")
+    check(int((index.neighbors >= 0).sum(-1).min()) > 0, "index has an empty adjacency row")
+
+    queries, qlab = make_queries(gen, corpus, B)
+    cons = equal_constraint(qlab, 10)
+    _, true_ids = exact_constrained_search(corpus, queries, cons, 10)
+    base = dict(mode="prefer", k=10, ef_result=128, ef_sat=128, ef_other=128, n_start=32,
+                max_iters=512)
+    shapes = {
+        "serve_256": dict(use_kernel=True),
+        "serve_256_beam4": dict(use_kernel=True, beam_width=4),
+        # use_kernel also routes the entry vertex's distance through
+        # gather_distance, so the fused run scores every candidate with the
+        # same device function as serve_256 and must match it exactly.
+        "serve_256_fused": dict(use_kernel=True, fuse_expand="on"),
+    }
+    results, counts, rows = {}, {"gather_distance": 0, "fused_expand": 0}, []
+    for name, extra in shapes.items():
+        params = SearchParams(**base, **extra)
+        constrained_search(corpus, index, queries, cons, params)  # warm-up batch
+        torch.cuda.synchronize()
+        gather_distance.launches = 0
+        fused_expand.launches = 0
+        t0 = time.perf_counter()
+        res = constrained_search(corpus, index, queries, cons, params)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        shape_counts = {"gather_distance": gather_distance.launches,
+                        "fused_expand": fused_expand.launches}
+        for k, v in shape_counts.items():
+            counts[k] += v
+        results[name] = res
+        check(res.ids.shape == (B, 10) and bool(torch.isfinite(res.dists[res.ids >= 0]).all()),
+              f"{name}: bad result shape or non-finite distances")
+        rec = float(recall(res.ids, true_ids))
+        row = dict(shape=name, wall_s=wall, qps=B / wall, iters=int(res.stats.iters),
+                   dist_evals_mean=float(res.stats.dist_evals.float().mean()),
+                   hops_mean=float(res.stats.hops.float().mean()), recall_at_10=rec,
+                   filled_mean=float(res.filled.float().mean()), launches=shape_counts)
+        rows.append(row)
+        log(f"search {json.dumps(row)}")
+        check(rec >= 0.5, f"{name}: recall@10 {rec} < 0.5")
+
+    check(results["serve_256"].stats.iters.item() > 0, "serve_256 ran no iteration")
+    for name in ("serve_256", "serve_256_beam4"):
+        check(next(r for r in rows if r["shape"] == name)["launches"]["gather_distance"] > 0,
+              f"{name}: gather_distance was never launched")
+    check(next(r for r in rows if r["shape"] == "serve_256_fused")["launches"]["fused_expand"] > 0,
+          "serve_256_fused: fused_expand was never launched")
+    a, b = results["serve_256"], results["serve_256_fused"]
+    check(torch.equal(a.ids, b.ids) and torch.equal(a.dists, b.dists),
+          "serve_256_fused differs from serve_256 (ids or dists)")
+    for field in ("dist_evals", "hops", "visited", "iters", "beam_expansions"):
+        check(torch.equal(getattr(a.stats, field), getattr(b.stats, field)),
+              f"serve_256_fused differs from serve_256 in {field}")
+    log("search: serve_256_fused == serve_256 (ids, dists, every stat)")
+    for name in ("serve_256", "serve_256_fused"):
+        params = SearchParams(**base, **shapes[name])
+        profile_batch(name, lambda p=params: constrained_search(corpus, index, queries, cons, p))
+    return counts
+
+
+def profile_batch(name, run) -> None:
+    """Device busy share of one batch and its costliest kernels, from a
+    torch.profiler trace (prints "not measured" where the trace has no
+    device events)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    busy_us = sum(us for _, us in by_name.values())
+    if busy_us == 0:
+        log(f"profile {name}: device time not measured (the trace holds no device events)")
+        return
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    log(f"profile {name}: wall {wall * 1e3:.1f} ms (profiler on), device busy "
+        f"{busy_us / 1e3:.1f} ms = {busy_us / 1e6 / wall:.3f} of wall, "
+        f"{sum(n for n, _ in by_name.values())} kernels")
+    for kname, (n, us) in top:
+        log(f"profile {name}:   {us / 1e3:8.2f} ms {n:6d}x {kname[:90]}")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--n", type=int, default=1_000_000, help="corpus size (airship-sift1m: 1M)")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    # 1. environment
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a CUDA device")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    log(smi.stdout.strip().splitlines()[0])
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}; "
+        f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
+        f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+
+    # 2. build
+    from repro_torch.kernels import BUILD_LOGS, build_all
+
+    t0 = time.perf_counter()
+    paths = build_all()
+    log(f"build: {', '.join(p.name for p in paths.values())} in "
+        f"{time.perf_counter() - t0:.2f} s (set-up)")
+    for stem, out in BUILD_LOGS.items():
+        for line in out.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"ptxas {stem}: {line.strip()}")
+
+    # 3.-6.
+    max_err, timings = kernel_phase(args, dev)
+    small_world_phase(args, dev)
+    counts = search_phase(args, dev)
+
+    sources = {
+        "gather_distance": ("src/repro_torch/csrc/gather_distance.cu",
+                            "src/repro/kernels/gather_distance/gather_distance.py:85"),
+        "fused_expand": ("src/repro_torch/csrc/fused_expand.cu",
+                         "src/repro/kernels/fused_expand/fused_expand.py:216"),
+    }
+    kernels = []
+    for name, (source, replaces) in sources.items():
+        t = timings[32][name]
+        kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
+                            launches=counts[name], max_abs_err=max_err[name], ms=t["ms"],
+                            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                            bound_by=t["bound_by"], library_ms=None))
+    log(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                              "kind": torch.cuda.get_device_name(0),
+                                              "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,44 @@
+"""PyTorch / CUDA port of the AIRSHIP constrained graph search.
+
+The JAX package ``repro`` is the reference; this package imports neither
+it nor JAX. Tensor-creating entry points default to ``device="cuda"``;
+everything else runs where its tensors are.
+"""
+from repro_torch.core import (
+    ConstraintTables,
+    Corpus,
+    GraphIndex,
+    LabelSetConstraint,
+    RangeConstraint,
+    SearchParams,
+    SearchResult,
+    SearchStats,
+    constrained_search,
+    equal_constraint,
+    exact_constrained_search,
+    recall,
+    unequal_pct_constraint,
+)
+from repro_torch.data import make_labeled_corpus, make_queries
+from repro_torch.graph import build_index
+from repro_torch.interop import from_reference_arrays
+
+__all__ = [
+    "ConstraintTables",
+    "Corpus",
+    "GraphIndex",
+    "LabelSetConstraint",
+    "RangeConstraint",
+    "SearchParams",
+    "SearchResult",
+    "SearchStats",
+    "build_index",
+    "constrained_search",
+    "equal_constraint",
+    "exact_constrained_search",
+    "from_reference_arrays",
+    "make_labeled_corpus",
+    "make_queries",
+    "recall",
+    "unequal_pct_constraint",
+]

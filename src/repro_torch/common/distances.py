@@ -1,0 +1,30 @@
+"""Squared-L2 distance primitives (port of ``repro.common.distances``).
+
+Matrix products run in full float32: the port never enables TF32, because
+the seeding distances and the exact oracle go through ``squared_l2``.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def squared_l2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Pairwise squared L2 between rows of ``a`` (A, d) and ``b`` (B, d).
+
+    ``|a|^2 - 2 a.b + |b|^2`` clamped at 0, in float32. The terms are added
+    in place on the product, which gives the same bits as the expression
+    written out (negation and scaling by 2 are exact) with one (A, B)
+    buffer instead of three.
+    """
+    a = a.float()
+    b = b.float()
+    a2 = (a * a).sum(-1, keepdim=True)  # (A, 1)
+    b2 = (b * b).sum(-1, keepdim=True).T  # (1, B)
+    d = a @ b.T
+    return d.mul_(-2.0).add_(a2).add_(b2).clamp_(min=0.0)
+
+
+def batched_rowwise_sqdist(q: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """(B, d) queries vs (B, M, d) gathered rows -> (B, M) squared distances."""
+    diff = rows.float() - q.float()[:, None, :]
+    return (diff * diff).sum(-1)

@@ -1,0 +1,15 @@
+from repro_torch.data.synthetic import (
+    clustered_vectors,
+    kmeans_labels,
+    make_labeled_corpus,
+    make_queries,
+    randomize_labels,
+)
+
+__all__ = [
+    "clustered_vectors",
+    "kmeans_labels",
+    "make_labeled_corpus",
+    "make_queries",
+    "randomize_labels",
+]

@@ -1,0 +1,67 @@
+"""Carry the reference's state across: numpy arrays in, the port's objects out.
+
+Tests build worlds with the JAX package, call ``np.asarray`` on its arrays
+and hand them here. uint32 words (tombstones, label words) are
+reinterpreted as int32 with ``.view(np.int32)``: the same bits, no change
+of value. Nothing of the JAX package is imported.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.common.device import resolve_device
+from repro_torch.core.constraints import LabelSetConstraint, RangeConstraint
+from repro_torch.core.types import Corpus, GraphIndex
+
+
+def _tensor(a: np.ndarray, dtype, dev: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if dtype == np.int32 and a.dtype == np.uint32:
+        a = a.view(np.int32)
+    # np.array copies: the tensor owns writable, contiguous memory.
+    return torch.from_numpy(np.array(a, dtype=dtype)).to(dev)
+
+
+def from_reference_arrays(
+    *,
+    vectors: np.ndarray,
+    labels: np.ndarray,
+    neighbors: np.ndarray,
+    sample_ids: np.ndarray,
+    entry_point: np.ndarray,
+    attrs: Optional[np.ndarray] = None,
+    tombstones: Optional[np.ndarray] = None,
+    label_words: Optional[np.ndarray] = None,
+    lo: Optional[np.ndarray] = None,
+    hi: Optional[np.ndarray] = None,
+    col: int = 0,
+    device="cuda",
+):
+    """-> (Corpus, GraphIndex, constraint) on ``device``.
+
+    The constraint is a ``LabelSetConstraint`` when ``label_words`` is
+    given, a ``RangeConstraint`` over column ``col`` when ``lo``/``hi`` are,
+    else None (a UDF has no arrays to carry).
+    """
+    dev = resolve_device(device)
+    corpus = Corpus(
+        vectors=_tensor(vectors, np.float32, dev),
+        labels=_tensor(labels, np.int32, dev),
+        attrs=None if attrs is None else _tensor(attrs, np.float32, dev),
+        tombstones=None if tombstones is None else _tensor(tombstones, np.int32, dev),
+    )
+    graph = GraphIndex(
+        neighbors=_tensor(neighbors, np.int32, dev),
+        sample_ids=_tensor(sample_ids, np.int32, dev),
+        entry_point=_tensor(np.asarray(entry_point).reshape(()), np.int32, dev),
+    )
+    constraint = None
+    if label_words is not None:
+        constraint = LabelSetConstraint(words=_tensor(label_words, np.int32, dev))
+    elif lo is not None and hi is not None:
+        constraint = RangeConstraint(lo=_tensor(lo, np.float32, dev),
+                                     hi=_tensor(hi, np.float32, dev), col=int(col))
+    return corpus, graph, constraint

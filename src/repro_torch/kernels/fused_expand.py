@@ -1,0 +1,132 @@
+"""fused_expand: gather + distance + constraint + tombstone + visited probe
+in one pass over a (B, M) candidate batch -> (dists, satisfied, fresh).
+
+Replaces the TPU kernel ``repro/kernels/fused_expand/fused_expand.py``
+(``fused_expand_kernel``, exact rows), the fused main path
+(``fuse_expand="on"``). The PQ twin ``fused_expand_adc_kernel`` is not
+ported yet.
+
+Bound on the card: device-memory bytes, as ``gather_distance``: one d-float
+row, a 4-byte metadata word, a visited word and a label word (or two
+bounds) per candidate. The CUDA kernel (``csrc/fused_expand.cu``) keeps
+``gather_distance``'s layout and its warp reduction (``csrc/sqdist.cuh``,
+so fused and unfused distances are the same bits) and folds the probes into
+lane 0, issued before the row reduction so their latency hides behind it.
+The masks are written straight into ``torch.bool`` tensors.
+
+  satisfied = valid & constraint(meta[id]) & not tombstoned(id)
+  fresh     = valid & visited bit (b, id) clear
+  padding ids (< 0) give (+inf, False, False)
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.common.bits import bit_of, n_words
+from repro_torch.common.distances import batched_rowwise_sqdist
+from repro_torch.kernels import check_launch, current_stream_ptr, dispatch, kernel_entry, require
+from repro_torch.kernels.gather_distance import MAX_DIM
+
+FAMILIES = ("label", "range", "udf")
+# queries, corpus, ids, visited, meta, cons, tomb, dists, sat, fresh;
+# B, M, d, W, Lw, family, with_tomb, vec4; stream
+_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+
+
+def _fresh_and_sat(ids, visited, meta, cons, family, tomb=None):
+    """(valid & unvisited, valid & constraint-ok), as the reference's
+    ``fused_expand/ref.py::_fresh_and_sat``."""
+    safe = ids.clamp_min(0).long()
+    valid = ids >= 0
+    fresh = valid & ~bit_of(visited.gather(1, safe >> 5), safe)
+    if family == "label":
+        lab = meta[safe].long()
+        ok = bit_of(cons.gather(1, lab >> 5), lab)
+    elif family == "range":
+        val = meta.float()[safe]
+        ok = (val >= cons[:, 0:1]) & (val <= cons[:, 1:2])
+    elif family == "udf":
+        ok = meta[safe] != 0
+    else:
+        raise ValueError(f"unsupported in-kernel constraint family: {family}")
+    if tomb is not None:
+        ok = ok & ~bit_of(tomb[safe >> 5], safe)
+    return fresh, valid & ok
+
+
+def fused_expand_plain(queries, corpus, ids, visited, meta, cons, tomb=None, *, family):
+    """The reference's arithmetic (``fused_expand/ref.py``) in PyTorch."""
+    rows = corpus[ids.clamp_min(0).long()]
+    dists = torch.where(ids >= 0, batched_rowwise_sqdist(queries, rows), float("inf"))
+    fresh, sat = _fresh_and_sat(ids, visited, meta, cons, family, tomb)
+    return dists, sat, fresh
+
+
+def _check(queries, corpus, ids, visited, meta, cons, tomb, family) -> None:
+    require(family in FAMILIES, f"unsupported in-kernel constraint family: {family}")
+    dev = queries.device
+    meta_dtype = torch.float32 if family == "range" else torch.int32
+    cons_dtype = {"label": torch.int32, "range": torch.float32, "udf": cons.dtype}[family]
+    tensors = [("queries", queries, torch.float32), ("corpus", corpus, torch.float32),
+               ("ids", ids, torch.int32), ("visited", visited, torch.int32),
+               ("meta", meta, meta_dtype), ("cons", cons, cons_dtype)]
+    if tomb is not None:
+        tensors.append(("tomb", tomb, torch.int32))
+    for name, t, dtype in tensors:
+        require(t.device == dev, f"{name} is on {t.device}, queries on {dev}")
+        require(t.dtype == dtype, f"{name} must be {dtype}, got {t.dtype}")
+        require(t.is_contiguous(), f"{name} must be contiguous")
+    b, d = queries.shape
+    n = corpus.shape[0]
+    require(corpus.dim() == 2 and corpus.shape[1] == d, "queries and corpus widths differ")
+    require(ids.dim() == 2 and ids.shape[0] == b, "ids must be (B, M)")
+    require(visited.dim() == 2 and visited.shape[0] == b and visited.shape[1] >= n_words(n),
+            "visited must be (B, >= ceil(n/32))")
+    require(meta.shape == (n,), "meta must be (n,)")
+    if family == "label":
+        require(cons.dim() == 2 and cons.shape[0] == b, "label cons must be (B, Lw)")
+    if family == "range":
+        require(cons.shape == (b, 2), "range cons must be (B, 2)")
+    if tomb is not None:
+        require(tomb.dim() == 1 and tomb.shape[0] >= n_words(n), "tomb must be (>= ceil(n/32),)")
+    require(d <= MAX_DIM, f"d must be <= {MAX_DIM}")
+    require(b <= 65535, "batch must be <= 65535 (grid y)")
+
+
+def fused_expand_cuda(queries, corpus, ids, visited, meta, cons, tomb=None, *, family):
+    """Launch the CUDA kernel on the current stream; does not synchronise."""
+    _check(queries, corpus, ids, visited, meta, cons, tomb, family)
+    fn = kernel_entry("fused_expand", "repro_fused_expand", _ARGTYPES)
+    b, d = queries.shape
+    m = ids.shape[1]
+    dev = queries.device
+    dists = torch.empty((b, m), dtype=torch.float32, device=dev)
+    sat = torch.empty((b, m), dtype=torch.bool, device=dev)
+    fresh = torch.empty((b, m), dtype=torch.bool, device=dev)
+    vec4 = int(d % 4 == 0 and corpus.data_ptr() % 16 == 0)
+    status = fn(queries.data_ptr(), corpus.data_ptr(), ids.data_ptr(), visited.data_ptr(),
+                meta.data_ptr(), cons.data_ptr(), 0 if tomb is None else tomb.data_ptr(),
+                dists.data_ptr(), sat.data_ptr(), fresh.data_ptr(),
+                b, m, d, visited.shape[1], cons.shape[-1], FAMILIES.index(family),
+                int(tomb is not None), vec4, current_stream_ptr(dev))
+    check_launch("fused_expand", status)
+    fused_expand.launches += 1
+    return dists, sat, fresh
+
+
+def fused_expand(queries, corpus, ids, visited, meta, cons, tomb=None, *, family):
+    """(B, d) f32, (n, d) f32, (B, M) i32 ids, (B, W) i32 visited words,
+    (n,) meta (int32 labels / float32 values / int32 verdicts), cons
+    ((B, Lw) int32 words / (B, 2) float32 bounds / (1, 1) dummy), optional
+    (Wt,) int32 tombstones -> ((B, M) f32, (B, M) bool, (B, M) bool).
+
+    CUDA tensors launch the kernel (or raise); CPU tensors take the plain
+    version. ``fused_expand.launches`` counts kernel launches.
+    """
+    fn = dispatch(queries.device, fused_expand_cuda, fused_expand_plain)
+    return fn(queries, corpus, ids, visited, meta, cons, tomb, family=family)
+
+
+fused_expand.launches = 0

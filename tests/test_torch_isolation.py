@@ -1,0 +1,89 @@
+"""The port stands alone: no file under src/repro_torch/ nor chip_smoke.py
+imports jax, jaxlib or the reference package, importing the port leaves
+jax out of sys.modules, and tensor-creating entry points without
+``device=`` raise where there is no CUDA device instead of dropping to the
+CPU."""
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.core.queue import queue_init
+from repro_torch.core.visited import visited_init
+from repro_torch.data import make_labeled_corpus
+from repro_torch.graph import build_index
+from repro_torch.interop import from_reference_arrays
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _port_files():
+    return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_no_reference_imports():
+    files = _port_files()
+    assert all(p.exists() for p in files) and len(files) > 20
+    bad = {str(p.relative_to(ROOT)): sorted(_imported_roots(p) & set(FORBIDDEN))
+           for p in files if _imported_roots(p) & set(FORBIDDEN)}
+    assert not bad, bad
+
+
+def test_importing_the_port_leaves_jax_out():
+    code = (
+        "import sys, importlib, pkgutil, repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=ROOT, env={"PYTHONPATH": str(ROOT / "src"), "PATH": ""},
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_package_exports_resolve():
+    for name in repro_torch.__all__:
+        assert getattr(repro_torch, name) is not None
+
+
+def test_tensor_creators_default_to_cuda_and_raise_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+    g = torch.Generator()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_labeled_corpus(g, 64, 4, 3)
+    corpus = make_labeled_corpus(g, 64, 4, 3, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_index(g, corpus, degree=4, sample_size=8)
+    with pytest.raises(RuntimeError):
+        visited_init(2, 64)
+    with pytest.raises(RuntimeError):
+        queue_init(2, 4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        from_reference_arrays(vectors=corpus.vectors.numpy(), labels=corpus.labels.numpy(),
+                              neighbors=corpus.labels.numpy()[:, None],
+                              sample_ids=corpus.labels.numpy(), entry_point=0)
+
+
+def test_generator_must_match_device():
+    with pytest.raises(ValueError, match="generator"):
+        make_labeled_corpus(torch.Generator(), 64, 4, 3, device="meta")
