@@ -6,21 +6,31 @@ Phases, any failure exits non-zero:
 
   1. environment: the card's name and power limit (nvidia-smi), versions,
      TF32 off for every float32 matrix product;
-  2. build: both CUDA kernels from src/repro_torch/csrc (one nvcc each,
+  2. build: the four CUDA kernels from src/repro_torch/csrc (one nvcc each,
      started together);
   3. kernels: each kernel against its plain PyTorch version on the card at
-     the search's shapes (n = 1M, d = 128, B = 256, M = 32 and 128) and on
-     edge cases (padding ids, M = 1, M not a multiple of 32, the three
-     constraint families with and without tombstones, words with bit 31
-     set): exact on integer-valued inputs, 1e-5 relative on float inputs,
-     masks exact; device time of each against its bound;
-  4. small world: the same search on the card and on the CPU (plain
-     versions) over an integer-valued world must agree bit for bit;
+     the search's shapes (n = 1M, d = 128, B = 256, M = 32 and 128; PQ
+     m_sub = 16, n_cent = 256) and on edge cases (padding ids, M = 1, M not
+     a multiple of 32, the three constraint families with and without
+     tombstones, words with bit 31 set, codes at 0 and n_cent - 1, B = 1,
+     N = 1000, n_cent = 16): the exact-row kernels exact on integer-valued
+     inputs and within 1e-5 relative on float inputs, the PQ kernels exact
+     on integer and float LUTs alike (every path adds the m_sub entries in
+     one pinned order), masks exact; device time of each against its bound,
+     and pq_adc's against one torch.nn.functional.embedding_bag call;
+  4. small world: the same searches on the card and on the CPU (plain
+     versions) over an integer-valued world, exact and PQ, plus the PQ
+     linear scan, must agree bit for bit;
   5. world: the airship-sift1m configuration (n = 1,000,000, d = 128, 10
-     k-means labels, degree 32, sample 128) generated and indexed on the card;
+     k-means labels, degree 32, sample 128) generated and indexed on the
+     card, and its PQ codebooks trained there (m_sub = 16, n_cent = 256);
   6. search: 256 queries, equal-label constraint, prefer mode, through
-     serve_256 (gather_distance), serve_256_beam4 and serve_256_fused
-     (fused_expand), with launch counts, fused == unfused, recall@10 >= 0.5.
+     serve_256 (gather_distance), serve_256_beam4, serve_256_fused
+     (fused_expand), serve_256_pq (ADC walk + exact re-rank),
+     serve_256_pq_fused (fused_expand_adc) and pq_scan_256 (the PQ linear
+     scan, pq_adc), with launch counts, fused == unfused for both backends,
+     recall@10 >= 0.5 on every graph walk, and the scan equal to its plain
+     version on the card.
 
 It prints a {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
 It imports nothing of JAX or of the JAX package.
@@ -102,9 +112,11 @@ def rand_words(gen, shape, dev):
                          device=dev).to(torch.int32)
 
 
-def kernel_inputs(gen, corpus, labels, m, pad_frac, family, n_labels, tomb):
-    dev = corpus.device
-    n = corpus.shape[0]
+def kernel_inputs(gen, labels, m, pad_frac, family, n_labels, tomb):
+    """Candidate ids, visited words and the family's meta / cons (and
+    tombstones) over the corpus that ``labels`` (n,) labels."""
+    dev = labels.device
+    n = labels.shape[0]
     from repro_torch.common.bits import n_words
 
     ids = torch.randint(0, n, (B, m), generator=gen, dtype=torch.int32, device=dev)
@@ -167,7 +179,7 @@ def kernel_phase(args, dev):
         queries = (torch.randint(-8, 9, (B, D_MAIN), generator=gen, device=dev).float() if exact
                    else torch.randn((B, D_MAIN), generator=gen, device=dev))
         for m in (32, 128, 1, 45):
-            ids = kernel_inputs(gen, corpus, labels, m, 0.1, "label", n_labels, False)[0]
+            ids = kernel_inputs(gen, labels, m, 0.1, "label", n_labels, False)[0]
             got = gather_distance_cuda(queries, corpus, ids)
             torch.cuda.synchronize()
             err = compare_dists(f"gather_distance {kind} M={m}", got,
@@ -177,7 +189,7 @@ def kernel_phase(args, dev):
             for family in ("label", "range", "udf"):
                 for tomb in (False, True):
                     ids, visited, meta, cons, tombs = kernel_inputs(
-                        gen, corpus, labels, m, 0.1, family, n_labels, tomb)
+                        gen, labels, m, 0.1, family, n_labels, tomb)
                     d, s, f = fused_expand_cuda(queries, corpus, ids, visited, meta, cons, tombs,
                                                 family=family)
                     torch.cuda.synchronize()
@@ -207,7 +219,7 @@ def kernel_phase(args, dev):
         n_sets = max(2, math.ceil(2 * L2_BYTES / per_call))
         gd_sets, fx_sets, gd_bytes, fx_bytes, cands = [], [], 0.0, 0.0, 0
         for _ in range(n_sets):
-            ids, visited, _, _, _ = kernel_inputs(gen, corpus, labels10, m, 0.0, "label", 10,
+            ids, visited, _, _, _ = kernel_inputs(gen, labels10, m, 0.0, "label", 10,
                                                   False)
             gd_sets.append((queries, corpus, ids))
             fx_sets.append((queries, corpus, ids, visited, labels10, label_words))
@@ -244,6 +256,139 @@ def kernel_phase(args, dev):
     del corpora
     torch.cuda.empty_cache()
     return max_err, timings
+
+
+def pq_inputs(gen, b, n, m_sub, n_cent, integer, dev):
+    """(lut (b, m_sub, n_cent), codes (n, m_sub)); rows 0 and 1 hold the
+    codes 0 and n_cent - 1."""
+    if integer:
+        lut = torch.randint(0, 300, (b, m_sub, n_cent), generator=gen, device=dev).float()
+    else:
+        lut = torch.randn((b, m_sub, n_cent), generator=gen, device=dev) ** 2 * 50
+    codes = torch.randint(0, n_cent, (n, m_sub), generator=gen, dtype=torch.int32, device=dev)
+    codes[0], codes[1] = 0, n_cent - 1
+    return lut, codes
+
+
+def pq_kernel_phase(args, dev):
+    """fused_expand_adc and pq_adc against their plain versions (exact on
+    integer and float LUTs), then their device times against bounds."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.engine.context import PQBackend
+    from repro_torch.kernels.fused_expand import fused_expand_adc_cuda, fused_expand_adc_plain
+    from repro_torch.kernels.pq_adc import pq_adc_cuda, pq_adc_plain
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 13)
+    n, n_labels, m_sub, n_cent = args.n, 40, 16, 256
+    labels = torch.randint(0, n_labels, (n,), generator=gen, dtype=torch.int32, device=dev)
+    labels[31] = 31
+    max_err = {"fused_expand_adc": 0.0, "pq_adc": 0.0}
+    n_checks = 0
+    for integer in (True, False):
+        kind = "int" if integer else "float"
+        lut, codes = pq_inputs(gen, B, n, m_sub, n_cent, integer, dev)
+        for m in (32, 128, 1, 45):
+            for family in ("label", "range", "udf"):
+                for tomb in (False, True):
+                    ids, visited, meta, cons, tombs = kernel_inputs(
+                        gen, labels, m, 0.1, family, n_labels, tomb)
+                    if m > 2:  # rows 0 and 1 hold the extreme codes
+                        ids[:, 1], ids[:, 2] = 0, 1
+                    d, s, f = fused_expand_adc_cuda(lut, codes, ids, visited, meta, cons, tombs,
+                                                    family=family)
+                    torch.cuda.synchronize()
+                    pd, ps, pf = fused_expand_adc_plain(lut, codes, ids, visited, meta, cons,
+                                                        tombs, family=family)
+                    tag = f"fused_expand_adc {kind} M={m} {family} tomb={tomb}"
+                    max_err["fused_expand_adc"] = max(max_err["fused_expand_adc"],
+                                                      compare_dists(tag, d, pd, True))
+                    check(torch.equal(s, ps), f"{tag}: satisfied mask differs")
+                    check(torch.equal(f, pf), f"{tag}: fresh mask differs")
+                    unfused = PQBackend(codes=codes, lut=lut).distances(None, ids)
+                    check(torch.equal(d, torch.where(ids >= 0, unfused, float("inf"))),
+                          f"{tag}: fused and unfused PQ distances differ")
+                    n_checks += 1
+        for b, nn, nc in ((B, n, n_cent), (1, n, n_cent), (B, 1000, n_cent), (B, n, 16),
+                          (1, 1000, 16)):
+            lut_s, codes_s = pq_inputs(gen, b, nn, m_sub, nc, integer, dev)
+            got = pq_adc_cuda(lut_s, codes_s)
+            torch.cuda.synchronize()
+            tag = f"pq_adc {kind} B={b} N={nn} n_cent={nc}"
+            max_err["pq_adc"] = max(max_err["pq_adc"],
+                                    compare_dists(tag, got, pq_adc_plain(lut_s, codes_s), True))
+            n_checks += 1
+            del lut_s, codes_s, got
+    log(f"kernels: {n_checks} PQ kernel/plain comparisons passed, all exact; max abs err "
+        f"fused_expand_adc {max_err['fused_expand_adc']:.3e}, pq_adc {max_err['pq_adc']:.3e}")
+
+    # Device time at the search's shapes: float LUT, label family, no
+    # tombstones. The code matrix (64 MB) exceeds the L2 cache; the LUT of
+    # the 256 queries (4 MB) stays in it, as it does in the search loop.
+    lut, codes = pq_inputs(gen, B, n, m_sub, n_cent, False, dev)
+    label_words = rand_words(gen, (B, 1), dev)
+    labels10 = torch.randint(0, 10, (n,), generator=gen, dtype=torch.int32, device=dev)
+    visited = rand_words(gen, (B, (n + 31) // 32), dev)
+    timings = {}
+    for m in (32, 128):
+        n_sets = min(100, max(2, math.ceil(2 * L2_BYTES / (B * m * m_sub * 4))))
+        sets, n_bytes, adds = [], 0.0, 0.0
+        rows = torch.arange(B, device=dev)[:, None]
+        for _ in range(n_sets):
+            ids = torch.randint(0, n, (B, m), generator=gen, dtype=torch.int32, device=dev)
+            sets.append((lut, codes, ids, visited, labels10, label_words))
+            safe = ids.long()
+            distinct = torch.unique(safe).numel()
+            vis_words = torch.unique(rows * visited.shape[1] + (safe >> 5)).numel()
+            entries = codes[safe].long() + torch.arange(m_sub, device=dev) * n_cent
+            lut_entries = torch.unique(rows[:, :, None] * (m_sub * n_cent) + entries).numel()
+            # code rows, meta words, visited words, label words, LUT entries
+            # read (each distinct one once); ids read; dists + 2 masks written.
+            n_bytes += (distinct * m_sub * 4 + distinct * 4 + vis_words * 4
+                        + label_words.numel() * 4 + lut_entries * 4 + ids.numel() * (4 + 6))
+            adds += ids.numel() * (m_sub - 1)
+
+        def fx_kernel(*a):
+            return fused_expand_adc_cuda(*a, family="label")
+
+        def fx_plain(*a):
+            return fused_expand_adc_plain(*a, family="label")
+
+        bd = bound_ms(n_bytes / n_sets, adds / n_sets)
+        timings[m] = dict(ms=device_ms(fx_kernel, sets), plain_ms=device_ms(fx_plain, sets),
+                          bound_ms=bd[0], bound_by=bd[1], library_ms=None)
+        t = timings[m]
+        log(f"time fused_expand_adc B={B} M={m} m_sub={m_sub} n_cent={n_cent} n={n}: kernel "
+            f"{t['ms'] * 1e3:.2f} us, plain {t['plain_ms'] * 1e3:.2f} us, bound "
+            f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}), {n_sets} id sets cycled; no "
+            f"single PyTorch call computes it (library: none)")
+
+    # pq_adc: the (B, N) output written once, the codes and the LUT read
+    # once; m_sub - 1 adds a distance.
+    scan_bytes = B * n * 4 + codes.numel() * 4 + lut.numel() * 4
+    bd = bound_ms(scan_bytes, B * n * (m_sub - 1))
+    # The library yardstick: one embedding_bag call, sum mode, gives the
+    # transposed scan (N, B); its offset codes and (m_sub * n_cent, B)
+    # table are made once, outside the timing.
+    offsets = codes.long() + torch.arange(m_sub, device=dev) * n_cent
+    table = lut.permute(1, 2, 0).reshape(m_sub * n_cent, B).contiguous()
+    lib = F.embedding_bag(offsets, table, mode="sum")
+    got = pq_adc_cuda(lut, codes)
+    lib_err = float((lib.T - got).abs().max())
+    check(lib_err <= 1e-3 * float(got.abs().max()), f"embedding_bag disagrees with pq_adc by {lib_err}")
+    del lib, got
+    scan = dict(ms=device_ms(pq_adc_cuda, [(lut, codes)], reps=20, replays=3),
+                plain_ms=device_ms(pq_adc_plain, [(lut, codes)], reps=3, replays=2),
+                bound_ms=bd[0], bound_by=bd[1],
+                library_ms=device_ms(lambda o, t: F.embedding_bag(o, t, mode="sum"),
+                                     [(offsets, table)], reps=5, replays=3))
+    log(f"time pq_adc B={B} N={n} m_sub={m_sub} n_cent={n_cent}: kernel {scan['ms']:.4f} ms, "
+        f"plain {scan['plain_ms']:.4f} ms, bound {scan['bound_ms']:.4f} ms ({scan['bound_by']}, "
+        f"{scan_bytes / 1e9:.3f} GB), library embedding_bag {scan['library_ms']:.4f} ms "
+        f"(max abs diff {lib_err:.3e})")
+    del offsets, table, lut, codes, visited
+    torch.cuda.empty_cache()
+    return max_err, {"fused_expand_adc": timings, "pq_adc": scan}
 
 
 # --------------------------------------------------------------------------- search
@@ -286,6 +431,56 @@ def small_world_phase(args, dev):
                   f"small world beam={beam} fuse={fuse}: {field} differ card vs CPU")
     log("small world: card == CPU plain versions, bit for bit, beam {1,4} x fuse {off,on}")
 
+    # PQ over the same world: integer codebooks (m_sub = 16, d_sub = 1,
+    # n_cent = 16) and codes at the argmin, so every LUT entry, ADC sum and
+    # re-rank distance is an exact integer.
+    from repro_torch import PQIndex, pq_constrained_search
+
+    m_sub, n_cent = 16, 16
+    cb = torch.randint(-6, 7, (m_sub, n_cent, d // m_sub), generator=gen, device=dev).float()
+    codes = ((vec.reshape(n, m_sub, 1, -1) - cb[None]) ** 2).sum(-1).argmin(-1)
+    pq = PQIndex(codebooks=cb, codes=codes.to(torch.int32).contiguous())
+    pq_cpu = PQIndex(codebooks=cb.cpu(), codes=pq.codes.cpu())
+    runs = {}
+    for beam, fuse in ((1, "off"), (4, "off"), (1, "on"), (4, "on")):
+        p = SearchParams(mode="prefer", k=10, ef_result=64, ef_sat=64, ef_other=64, n_start=16,
+                         max_iters=256, beam_width=beam, fuse_expand=fuse, approx="pq")
+        card = constrained_search(corpus, index, queries, equal_constraint(qlab, 10), p,
+                                  pq_index=pq)
+        host = constrained_search(corpus_cpu, index_cpu, queries.to(cpu),
+                                  equal_constraint(qlab.to(cpu), 10), p, pq_index=pq_cpu)
+        runs[beam, fuse] = card
+        for field in ("ids", "dists"):
+            check(torch.equal(getattr(card, field).cpu(), getattr(host, field)),
+                  f"small PQ world beam={beam} fuse={fuse}: {field} differ card vs CPU")
+        for field in ("dist_evals", "hops", "visited", "iters", "beam_expansions"):
+            check(torch.equal(getattr(card.stats, field).cpu(), getattr(host.stats, field)),
+                  f"small PQ world beam={beam} fuse={fuse}: {field} differ card vs CPU")
+    for beam in (1, 4):
+        a, b = runs[beam, "off"], runs[beam, "on"]
+        check(torch.equal(a.ids, b.ids) and torch.equal(a.dists, b.dists)
+              and torch.equal(a.stats.dist_evals, b.stats.dist_evals),
+              f"small PQ world beam={beam}: fused differs from unfused on the card")
+    card = pq_constrained_search(corpus, pq, queries, equal_constraint(qlab, 10), k=32,
+                                 use_kernel=True)
+    host = pq_constrained_search(corpus_cpu, pq_cpu, queries.to(cpu),
+                                 equal_constraint(qlab.to(cpu), 10), k=32, use_kernel=True)
+    for got, want, name in zip(card, host, ("dists", "ids")):
+        check(torch.equal(got.cpu(), want), f"small PQ world scan: {name} differ card vs CPU")
+    log("small world: PQ walk card == CPU plain versions, bit for bit, beam {1,4} x fuse "
+        "{off,on}, fused == unfused; PQ scan (pq_adc) card == CPU")
+
+
+KERNEL_NAMES = ("gather_distance", "fused_expand", "fused_expand_adc", "pq_adc")
+
+
+def kernel_counters():
+    from repro_torch.kernels.fused_expand import fused_expand, fused_expand_adc
+    from repro_torch.kernels.gather_distance import gather_distance
+    from repro_torch.kernels.pq_adc import pq_adc
+
+    return dict(zip(KERNEL_NAMES, (gather_distance, fused_expand, fused_expand_adc, pq_adc)))
+
 
 def search_phase(args, dev):
     from repro_torch import (
@@ -296,10 +491,10 @@ def search_phase(args, dev):
         exact_constrained_search,
         make_labeled_corpus,
         make_queries,
+        pq_constrained_search,
+        pq_train,
         recall,
     )
-    from repro_torch.kernels.fused_expand import fused_expand
-    from repro_torch.kernels.gather_distance import gather_distance
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     torch.cuda.synchronize()
@@ -318,59 +513,100 @@ def search_phase(args, dev):
     queries, qlab = make_queries(gen, corpus, B)
     cons = equal_constraint(qlab, 10)
     _, true_ids = exact_constrained_search(corpus, queries, cons, 10)
+    # The codebooks draw after the queries, so the exact shapes see the
+    # same world and queries as before the PQ path existed.
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    pq = pq_train(gen, corpus.vectors, m_sub=16, n_cent=256, iters=20)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    recon = torch.cat([pq.codebooks[s][pq.codes[:, s].long()] for s in range(16)], -1)
+    rel_err = float(((corpus.vectors - recon) ** 2).sum() / (corpus.vectors ** 2).sum())
+    del recon
+    log(f"world: pq_train m_sub=16 n_cent=256 iters=20 on the card {t4 - t3:.2f} s (set-up); "
+        f"relative quantisation error {rel_err:.4f}")
+    check(pq.codes.shape == (args.n, 16) and int(pq.codes.max()) < 256, "bad PQ codes")
     base = dict(mode="prefer", k=10, ef_result=128, ef_sat=128, ef_other=128, n_start=32,
                 max_iters=512)
-    shapes = {
+    walks = {
         "serve_256": dict(use_kernel=True),
         "serve_256_beam4": dict(use_kernel=True, beam_width=4),
         # use_kernel also routes the entry vertex's distance through
         # gather_distance, so the fused run scores every candidate with the
         # same device function as serve_256 and must match it exactly.
         "serve_256_fused": dict(use_kernel=True, fuse_expand="on"),
+        "serve_256_pq": dict(approx="pq"),
+        "serve_256_pq_fused": dict(approx="pq", fuse_expand="on"),
     }
-    results, counts, rows = {}, {"gather_distance": 0, "fused_expand": 0}, []
-    for name, extra in shapes.items():
-        params = SearchParams(**base, **extra)
-        constrained_search(corpus, index, queries, cons, params)  # warm-up batch
+
+    def walk(extra):
+        res = constrained_search(corpus, index, queries, cons, SearchParams(**base, **extra),
+                                 pq_index=pq)
+        return res.ids, res.dists, res
+
+    runs = {name: (lambda e=extra: walk(e)) for name, extra in walks.items()}
+    runs["pq_scan_256"] = lambda: (*pq_constrained_search(corpus, pq, queries, cons, k=10,
+                                                          use_kernel=True)[::-1], None)
+    counters = kernel_counters()
+    results, counts, rows = {}, dict.fromkeys(KERNEL_NAMES, 0), []
+    for name, run in runs.items():
+        run()  # warm-up batch
         torch.cuda.synchronize()
-        gather_distance.launches = 0
-        fused_expand.launches = 0
+        for c in counters.values():
+            c.launches = 0
         t0 = time.perf_counter()
-        res = constrained_search(corpus, index, queries, cons, params)
+        ids, dists, res = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        shape_counts = {"gather_distance": gather_distance.launches,
-                        "fused_expand": fused_expand.launches}
+        shape_counts = {k: c.launches for k, c in counters.items()}
         for k, v in shape_counts.items():
             counts[k] += v
-        results[name] = res
-        check(res.ids.shape == (B, 10) and bool(torch.isfinite(res.dists[res.ids >= 0]).all()),
+        results[name] = (ids, dists, res)
+        check(ids.shape == (B, 10) and bool(torch.isfinite(dists[ids >= 0]).all()),
               f"{name}: bad result shape or non-finite distances")
-        rec = float(recall(res.ids, true_ids))
-        row = dict(shape=name, wall_s=wall, qps=B / wall, iters=int(res.stats.iters),
-                   dist_evals_mean=float(res.stats.dist_evals.float().mean()),
-                   hops_mean=float(res.stats.hops.float().mean()), recall_at_10=rec,
-                   filled_mean=float(res.filled.float().mean()), launches=shape_counts)
+        rec = float(recall(ids, true_ids))
+        row = dict(shape=name, wall_s=wall, qps=B / wall, recall_at_10=rec,
+                   filled_mean=float((ids >= 0).float().sum(-1).mean()), launches=shape_counts)
+        if res is not None:
+            row.update(iters=int(res.stats.iters),
+                       dist_evals_mean=float(res.stats.dist_evals.float().mean()),
+                       hops_mean=float(res.stats.hops.float().mean()))
         rows.append(row)
         log(f"search {json.dumps(row)}")
-        check(rec >= 0.5, f"{name}: recall@10 {rec} < 0.5")
+        # The floor catches a broken graph walk. The linear scan ranks by
+        # ADC alone (the paper's PQ baseline, no exact re-rank), so its
+        # recall measures the quantiser; it is held to its plain version
+        # below instead.
+        if res is not None:
+            check(rec >= 0.5, f"{name}: recall@10 {rec} < 0.5")
 
-    check(results["serve_256"].stats.iters.item() > 0, "serve_256 ran no iteration")
+    launches = {r["shape"]: r["launches"] for r in rows}
+    check(results["serve_256"][2].stats.iters.item() > 0, "serve_256 ran no iteration")
     for name in ("serve_256", "serve_256_beam4"):
-        check(next(r for r in rows if r["shape"] == name)["launches"]["gather_distance"] > 0,
-              f"{name}: gather_distance was never launched")
-    check(next(r for r in rows if r["shape"] == "serve_256_fused")["launches"]["fused_expand"] > 0,
+        check(launches[name]["gather_distance"] > 0, f"{name}: gather_distance was never launched")
+    check(launches["serve_256_fused"]["fused_expand"] > 0,
           "serve_256_fused: fused_expand was never launched")
-    a, b = results["serve_256"], results["serve_256_fused"]
-    check(torch.equal(a.ids, b.ids) and torch.equal(a.dists, b.dists),
-          "serve_256_fused differs from serve_256 (ids or dists)")
-    for field in ("dist_evals", "hops", "visited", "iters", "beam_expansions"):
-        check(torch.equal(getattr(a.stats, field), getattr(b.stats, field)),
-              f"serve_256_fused differs from serve_256 in {field}")
-    log("search: serve_256_fused == serve_256 (ids, dists, every stat)")
-    for name in ("serve_256", "serve_256_fused"):
-        params = SearchParams(**base, **shapes[name])
-        profile_batch(name, lambda p=params: constrained_search(corpus, index, queries, cons, p))
+    check(launches["serve_256_pq_fused"]["fused_expand_adc"]
+          == int(results["serve_256_pq_fused"][2].stats.iters),
+          "serve_256_pq_fused: fused_expand_adc not launched once per iteration")
+    check(launches["pq_scan_256"]["pq_adc"] == 1, "pq_scan_256: pq_adc not launched exactly once")
+    for unfused, fused in (("serve_256", "serve_256_fused"), ("serve_256_pq", "serve_256_pq_fused")):
+        a, b = results[unfused][2], results[fused][2]
+        check(torch.equal(a.ids, b.ids) and torch.equal(a.dists, b.dists),
+              f"{fused} differs from {unfused} (ids or dists)")
+        for field in ("dist_evals", "hops", "visited", "iters", "beam_expansions"):
+            check(torch.equal(getattr(a.stats, field), getattr(b.stats, field)),
+                  f"{fused} differs from {unfused} in {field}")
+        log(f"search: {fused} == {unfused} (ids, dists, every stat)")
+    # The scan is held to its plain version at full size: the same ids and
+    # ADC distances from PQBackend.scan_all (plain PyTorch on the card).
+    plain_d, plain_i = pq_constrained_search(corpus, pq, queries, cons, k=10, use_kernel=False)
+    check(torch.equal(plain_i, results["pq_scan_256"][0])
+          and torch.equal(plain_d, results["pq_scan_256"][1]),
+          "pq_scan_256 differs from the plain scan")
+    log("search: pq_scan_256 == its plain version (ids, ADC dists)")
+    for name in ("pq_scan_256", "serve_256", "serve_256_fused", "serve_256_pq_fused"):
+        profile_batch(name, runs[name])
     return counts
 
 
@@ -402,6 +638,17 @@ def profile_batch(name, run) -> None:
         f"{sum(n for n, _ in by_name.values())} kernels")
     for kname, (n, us) in top:
         log(f"profile {name}:   {us / 1e3:8.2f} ms {n:6d}x {kname[:90]}")
+    # The ported kernels inside the batch (they launch from their own
+    # libraries, outside PyTorch's dispatcher).
+    found = False
+    for kernel in KERNEL_NAMES:
+        hits = [(n, us) for kname, (n, us) in by_name.items() if f"{kernel}_kernel" in kname]
+        if hits:
+            found = True
+            log(f"profile {name}:   {kernel}: {sum(us for _, us in hits) / 1e3:.3f} ms in "
+                f"{sum(n for n, _ in hits)} launches")
+    if not found:
+        log(f"profile {name}:   no ported kernel in the trace")
 
 
 def main() -> int:
@@ -440,22 +687,30 @@ def main() -> int:
 
     # 3.-6.
     max_err, timings = kernel_phase(args, dev)
+    pq_err, pq_timings = pq_kernel_phase(args, dev)
     small_world_phase(args, dev)
     counts = search_phase(args, dev)
 
+    max_err.update(pq_err)
+    rows = {name: timings[32][name] for name in ("gather_distance", "fused_expand")}
+    rows["fused_expand_adc"] = pq_timings["fused_expand_adc"][32]
+    rows["pq_adc"] = pq_timings["pq_adc"]
     sources = {
         "gather_distance": ("src/repro_torch/csrc/gather_distance.cu",
                             "src/repro/kernels/gather_distance/gather_distance.py:85"),
         "fused_expand": ("src/repro_torch/csrc/fused_expand.cu",
                          "src/repro/kernels/fused_expand/fused_expand.py:216"),
+        "fused_expand_adc": ("src/repro_torch/csrc/fused_expand_adc.cu",
+                             "src/repro/kernels/fused_expand/fused_expand.py:408"),
+        "pq_adc": ("src/repro_torch/csrc/pq_adc.cu", "src/repro/kernels/pq_adc/pq_adc.py:41"),
     }
     kernels = []
     for name, (source, replaces) in sources.items():
-        t = timings[32][name]
+        t = rows[name]
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                             launches=counts[name], max_abs_err=max_err[name], ms=t["ms"],
                             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-                            bound_by=t["bound_by"], library_ms=None))
+                            bound_by=t["bound_by"], library_ms=t.get("library_ms")))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

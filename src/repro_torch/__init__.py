@@ -9,6 +9,8 @@ from repro_torch.core import (
     Corpus,
     GraphIndex,
     LabelSetConstraint,
+    PQBackend,
+    PQIndex,
     RangeConstraint,
     SearchParams,
     SearchResult,
@@ -16,18 +18,23 @@ from repro_torch.core import (
     constrained_search,
     equal_constraint,
     exact_constrained_search,
+    pq_constrained_search,
+    pq_train,
     recall,
+    three_stage_pipeline,
     unequal_pct_constraint,
 )
 from repro_torch.data import make_labeled_corpus, make_queries
 from repro_torch.graph import build_index
-from repro_torch.interop import from_reference_arrays
+from repro_torch.interop import from_reference_arrays, pq_index_from_reference
 
 __all__ = [
     "ConstraintTables",
     "Corpus",
     "GraphIndex",
     "LabelSetConstraint",
+    "PQBackend",
+    "PQIndex",
     "RangeConstraint",
     "SearchParams",
     "SearchResult",
@@ -39,6 +46,10 @@ __all__ = [
     "from_reference_arrays",
     "make_labeled_corpus",
     "make_queries",
+    "pq_constrained_search",
+    "pq_index_from_reference",
+    "pq_train",
     "recall",
+    "three_stage_pipeline",
     "unequal_pct_constraint",
 ]

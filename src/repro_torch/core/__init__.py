@@ -9,7 +9,14 @@ from repro_torch.core.constraints import (
     unequal_pct_constraint,
 )
 from repro_torch.core.exact import exact_constrained_search, recall
-from repro_torch.core.search import constrained_search
+from repro_torch.core.pipeline import three_stage_pipeline
+from repro_torch.core.search import (
+    PQBackend,
+    PQIndex,
+    constrained_search,
+    pq_constrained_search,
+    pq_train,
+)
 from repro_torch.core.types import (
     Corpus,
     GraphIndex,
@@ -23,6 +30,8 @@ __all__ = [
     "Corpus",
     "GraphIndex",
     "LabelSetConstraint",
+    "PQBackend",
+    "PQIndex",
     "RangeConstraint",
     "SearchParams",
     "SearchResult",
@@ -33,6 +42,9 @@ __all__ = [
     "exact_constrained_search",
     "label_set_from_lists",
     "make_satisfied_fn",
+    "pq_constrained_search",
+    "pq_train",
     "recall",
+    "three_stage_pipeline",
     "unequal_pct_constraint",
 ]

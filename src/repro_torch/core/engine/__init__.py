@@ -6,6 +6,7 @@ from repro_torch.core.engine.context import (
     DistanceBackend,
     ExactBackend,
     L2KernelBackend,
+    PQBackend,
     TraversalContext,
     build_context,
     resolve_auto_fuse,
@@ -40,6 +41,7 @@ __all__ = [
     "ExactBackend",
     "FrontierPolicy",
     "L2KernelBackend",
+    "PQBackend",
     "TraversalContext",
     "TraversalState",
     "build_context",

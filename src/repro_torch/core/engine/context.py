@@ -6,12 +6,17 @@ Distance backends:
   * ``ExactBackend``: gathered corpus rows + ``batched_rowwise_sqdist``.
   * ``L2KernelBackend``: the ``gather_distance`` kernel over the same rows
     (``SearchParams.use_kernel``).
+  * ``PQBackend``: ADC lookups of m_sub code words per candidate against a
+    per-query LUT (``SearchParams.approx == "pq"``); the loop re-ranks its
+    survivors exactly.
 
-Both expose ``distances(queries, ids)``, ``sample_distances(queries,
-sample_ids)`` (the pairwise matmul expansion over the shared build sample)
-and ``fused_expand(queries, ids, visited, tables)`` (the one-pass kernel).
-The PQ backend is not ported yet. The reference's kernel tuning-table
-lookup is dropped: the CUDA kernels take no block-shape parameters.
+Each exposes ``distances(queries, ids)``, ``sample_distances(queries,
+sample_ids)`` (the exact backends use the pairwise matmul expansion over
+the shared build sample), ``fused_expand(queries, ids, visited, tables)``
+(the one-pass kernel: ``fused_expand`` over exact rows,
+``fused_expand_adc`` over code rows) and the ``fusable`` / ``approximate``
+properties. The reference's kernel tuning-table lookup is dropped: the
+CUDA kernels take no block-shape parameters.
 """
 from __future__ import annotations
 
@@ -26,9 +31,11 @@ from repro_torch.core.constraints import (
     constraint_tables,
     make_satisfied_fn,
 )
+from repro_torch.core.pq import adc_table
 from repro_torch.core.types import Corpus, SatisfiedFn, SearchParams
-from repro_torch.kernels.fused_expand import fused_expand
+from repro_torch.kernels.fused_expand import fused_expand, fused_expand_adc
 from repro_torch.kernels.gather_distance import gather_distance
+from repro_torch.kernels.pq_adc import adc_lookup, pq_adc_plain
 
 # "auto" fuses only where the fused path has been measured to win. It
 # returns the same results as the unfused path; flip this once a chip
@@ -82,7 +89,46 @@ class L2KernelBackend(_RowBackend):
         return gather_distance(queries, self.vectors, ids.to(torch.int32).contiguous())
 
 
-DistanceBackend = Union[ExactBackend, L2KernelBackend]
+@dataclass(frozen=True)
+class PQBackend:
+    """PQ / ADC distances: per-candidate code rows + the per-query LUT.
+
+    The walk ranks by these; the loop re-ranks the surviving result list
+    exactly (``approximate``). ``distances`` does not mask padding ids (it
+    scores row 0), as the reference's does; the fused kernel writes +inf.
+    """
+
+    codes: torch.Tensor  # (n, m_sub) int32
+    lut: torch.Tensor  # (B, m_sub, n_cent) float32, per-query ADC table
+
+    @property
+    def fusable(self) -> bool:
+        return True
+
+    @property
+    def approximate(self) -> bool:
+        return True
+
+    def distances(self, queries, ids):
+        del queries  # the LUT already encodes the query side
+        return adc_lookup(self.lut, self.codes[ids.clamp_min(0).long()])
+
+    def sample_distances(self, queries, sample_ids):
+        b = self.lut.shape[0]
+        return self.distances(queries, sample_ids[None, :].expand(b, -1))
+
+    def scan_all(self):
+        """ADC distances to every corpus row, (B, n): the linear-scan
+        baseline's hot loop (core/pq.py), in plain PyTorch."""
+        return pq_adc_plain(self.lut, self.codes)
+
+    def fused_expand(self, queries, ids, visited, tables: ConstraintTables):
+        del queries
+        return fused_expand_adc(self.lut, self.codes, ids, visited, tables.meta, tables.cons,
+                                tables.tomb, family=tables.family)
+
+
+DistanceBackend = Union[ExactBackend, L2KernelBackend, PQBackend]
 
 
 @dataclass(frozen=True)
@@ -97,18 +143,23 @@ class TraversalContext:
     fuse: bool = False
 
 
-def build_context(corpus: Corpus, constraint, queries, params: SearchParams
-                  ) -> TraversalContext:
+def build_context(corpus: Corpus, constraint, queries, params: SearchParams,
+                  pq_index=None) -> TraversalContext:
     """Resolve (params, constraint, corpus) into one TraversalContext: the
-    distance backend, the constraint closure and its raw table views (the
-    UDF verdict column only where the fused path is reachable), and the
-    fuse decision."""
-    if params.approx == "pq":
-        raise NotImplementedError("the PQ path is not ported yet")
+    distance backend (``PQBackend`` over ``pq_index`` for approx="pq",
+    which raises without one), the constraint closure and its raw table
+    views (the UDF verdict column only where the fused path is reachable),
+    and the fuse decision."""
     satisfied = make_satisfied_fn(constraint, corpus)
     tables = constraint_tables(constraint, corpus, include_udf=params.fuse_expand != "off")
-    backend_cls = L2KernelBackend if params.use_kernel else ExactBackend
-    backend = backend_cls(vectors=corpus.vectors)
+    if params.approx == "pq":
+        if pq_index is None:
+            raise ValueError("approx='pq' requires pq_index")
+        backend = PQBackend(codes=pq_index.codes, lut=adc_table(pq_index, queries).contiguous())
+    elif params.use_kernel:
+        backend = L2KernelBackend(vectors=corpus.vectors)
+    else:
+        backend = ExactBackend(vectors=corpus.vectors)
     fusable = tables is not None and backend.fusable
     if params.fuse_expand == "on" and not fusable:
         raise ValueError("fuse_expand='on' requires constraint tables (got a non-constraint "

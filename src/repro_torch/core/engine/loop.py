@@ -16,7 +16,7 @@ import torch
 from repro_torch.core import queue as q
 from repro_torch.core import visited as vis
 from repro_torch.core.alter_ratio import estimate_alter_ratio
-from repro_torch.core.engine.context import TraversalContext, build_context
+from repro_torch.core.engine.context import ExactBackend, TraversalContext, build_context
 from repro_torch.core.engine.expand import (
     expand_beam,
     expand_beam_fused,
@@ -193,14 +193,24 @@ def search_with_context(ctx: TraversalContext, corpus: Corpus, graph: GraphIndex
         iters=torch.tensor(iters, dtype=torch.int32, device=queries.device),
         beam_expansions=st.beam_expanded,
     )
+    out_d, out_i = st.topk.dists, st.topk.ids
+    if ctx.backend.approximate:
+        # Exact re-rank of the ef_result survivors: the approximate backend
+        # ordered the walk, exact distances order the answer. The sort is
+        # stable, as the reference's argsort.
+        exact_d = ExactBackend(vectors=corpus.vectors).distances(queries, out_i)
+        exact_d = torch.where(out_i >= 0, exact_d, float("inf"))
+        out_d, order = torch.sort(exact_d, dim=-1, stable=True)
+        out_i = out_i.gather(1, order)
+        out_i = torch.where(torch.isfinite(out_d), out_i, -1)
     # The ef_result-sized list is cut to the requested top-k.
-    return SearchResult(dists=st.topk.dists[:, : params.k], ids=st.topk.ids[:, : params.k],
-                        stats=stats)
+    return SearchResult(dists=out_d[:, : params.k], ids=out_i[:, : params.k], stats=stats)
 
 
 def constrained_search(corpus: Corpus, graph: GraphIndex, queries, constraint,
                        params: SearchParams, *, entry: Optional[torch.Tensor] = None,
-                       generator: Optional[torch.Generator] = None) -> SearchResult:
+                       generator: Optional[torch.Generator] = None,
+                       pq_index=None) -> SearchResult:
     """Top-k constrained similarity search for a (B, d) batch of queries.
 
     Returns ascending (B, K) distances and ids; unreachable slots hold
@@ -211,6 +221,10 @@ def constrained_search(corpus: Corpus, graph: GraphIndex, queries, constraint,
     those vertices explicitly (the tests pass the reference's draw),
     otherwise they are drawn from ``generator``; with neither, and in the
     other modes, every query enters at ``graph.entry_point``.
+
+    With ``params.approx == "pq"``, ``pq_index`` (``core.pq.PQIndex``)
+    drives the walk with ADC distances (``PQBackend``) and the ef_result
+    survivors are re-ranked exactly before the cut to k.
     """
     b = queries.shape[0]
     if params.mode != "vanilla":
@@ -218,5 +232,5 @@ def constrained_search(corpus: Corpus, graph: GraphIndex, queries, constraint,
     elif entry is None and generator is not None:
         entry = torch.randint(0, corpus.n, (b,), generator=generator, dtype=torch.int32,
                               device=queries.device)
-    ctx = build_context(corpus, constraint, queries, params)
+    ctx = build_context(corpus, constraint, queries, params, pq_index)
     return search_with_context(ctx, corpus, graph, queries, params, entry)

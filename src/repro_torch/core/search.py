@@ -13,17 +13,23 @@ from repro_torch.core.engine.context import (
     DistanceBackend,
     ExactBackend,
     L2KernelBackend,
+    PQBackend,
     TraversalContext,
     build_context,
 )
 from repro_torch.core.engine.loop import constrained_search, search_with_context
+from repro_torch.core.pq import PQIndex, pq_constrained_search, pq_train
 
 __all__ = [
     "DistanceBackend",
     "ExactBackend",
     "L2KernelBackend",
+    "PQBackend",
+    "PQIndex",
     "TraversalContext",
     "build_context",
     "constrained_search",
+    "pq_constrained_search",
+    "pq_train",
     "search_with_context",
 ]

@@ -11,16 +11,17 @@
 // kWarps candidates, one warp per candidate, the shared sqdist.cuh
 // reduction, so fused and unfused distances are identical bits); lane 0
 // issues the meta and visited loads before the row reduction so they
-// overlap it, then evaluates the constraint and writes the two bool masks.
-// Templated on the family (label / range / udf) and on the tombstone probe.
+// overlap it, then evaluates the verdicts (probe.cuh, shared with
+// fused_expand_adc.cu) and writes the two bool masks. Templated on the
+// family (label / range / udf) and on the tombstone probe.
 #include <cuda_runtime.h>
 
+#include "probe.cuh"
 #include "sqdist.cuh"
 
 namespace {
 
 constexpr int kWarps = 8;
-enum Family : int { kLabel = 0, kRange = 1, kUdf = 2 };
 
 template <int FAMILY, bool WITH_TOMB>
 __global__ void __launch_bounds__(kWarps * repro_torch::kWarpSize)
@@ -47,45 +48,16 @@ fused_expand_kernel(const float* __restrict__ queries, const float* __restrict__
     }
     return;
   }
-  int vword = 0, mval = 0, tword = 0;
-  if (lane == 0) {
-    vword = __ldg(visited + static_cast<size_t>(b) * W + (id >> 5));
-    mval = __ldg(meta + id);
-    if (WITH_TOMB) tword = __ldg(tomb + (id >> 5));
-  }
+  repro_torch::Probe probe{};
+  if (lane == 0) probe = repro_torch::probe_load<WITH_TOMB>(visited, meta, tomb, b, W, id);
   const float dist =
       repro_torch::warp_sqdist(q, corpus + static_cast<size_t>(id) * d, d, vec4, lane);
   if (lane != 0) return;
-  const unsigned bit = static_cast<unsigned>(id) & 31u;
-  bool ok;
-  if (FAMILY == kLabel) {
-    const int lab = mval;
-    ok = false;
-    if (lab >= 0 && (lab >> 5) < Lw) {
-      const unsigned cw = static_cast<unsigned>(__ldg(cons + static_cast<size_t>(b) * Lw + (lab >> 5)));
-      ok = ((cw >> (static_cast<unsigned>(lab) & 31u)) & 1u) != 0u;
-    }
-  } else if (FAMILY == kRange) {
-    const float v = __int_as_float(mval);
-    const float lo = __int_as_float(__ldg(cons + 2 * b));
-    const float hi = __int_as_float(__ldg(cons + 2 * b + 1));
-    ok = (v >= lo) && (v <= hi);
-  } else {
-    ok = mval != 0;
-  }
-  if (WITH_TOMB) ok = ok && (((static_cast<unsigned>(tword) >> bit) & 1u) == 0u);
+  bool ok, fr;
+  repro_torch::probe_verdicts<FAMILY, WITH_TOMB>(probe, cons, b, Lw, id, &ok, &fr);
   dists[slot] = dist;
   sat[slot] = ok;
-  fresh[slot] = ((static_cast<unsigned>(vword) >> bit) & 1u) == 0u;
-}
-
-template <int FAMILY, bool WITH_TOMB>
-void launch(dim3 grid, size_t smem, cudaStream_t stream, const float* queries,
-            const float* corpus, const int* ids, const int* visited, const int* meta,
-            const int* cons, const int* tomb, float* dists, bool* sat, bool* fresh, int M,
-            int d, int W, int Lw, bool vec4) {
-  fused_expand_kernel<FAMILY, WITH_TOMB><<<grid, kWarps * repro_torch::kWarpSize, smem, stream>>>(
-      queries, corpus, ids, visited, meta, cons, tomb, dists, sat, fresh, M, d, W, Lw, vec4);
+  fresh[slot] = fr;
 }
 
 }  // namespace
@@ -104,18 +76,12 @@ extern "C" int repro_fused_expand(const float* queries, const float* corpus, con
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* mt = static_cast<const int*>(meta);
   const int* cs = static_cast<const int*>(cons);
-  const bool v4 = vec4 != 0;
-#define REPRO_LAUNCH(F, T) \
-  launch<F, T>(grid, smem, s, queries, corpus, ids, visited, mt, cs, tomb, dists, sat, fresh, M, d, W, Lw, v4)
-  switch (family * 2 + (with_tomb ? 1 : 0)) {
-    case 0: REPRO_LAUNCH(kLabel, false); break;
-    case 1: REPRO_LAUNCH(kLabel, true); break;
-    case 2: REPRO_LAUNCH(kRange, false); break;
-    case 3: REPRO_LAUNCH(kRange, true); break;
-    case 4: REPRO_LAUNCH(kUdf, false); break;
-    case 5: REPRO_LAUNCH(kUdf, true); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef REPRO_LAUNCH
+  const int status = repro_torch::with_family(family, with_tomb, [&](auto fam, auto tmb) {
+    fused_expand_kernel<decltype(fam)::value, decltype(tmb)::value>
+        <<<grid, kWarps * repro_torch::kWarpSize, smem, s>>>(
+            queries, corpus, ids, visited, mt, cs, tomb, dists, sat, fresh, M, d, W, Lw,
+            vec4 != 0);
+  });
+  if (status != 0) return status;
   return static_cast<int>(cudaGetLastError());
 }

@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.common.device import resolve_device
 from repro_torch.core.constraints import LabelSetConstraint, RangeConstraint
+from repro_torch.core.pq import PQIndex
 from repro_torch.core.types import Corpus, GraphIndex
 
 
@@ -65,3 +66,12 @@ def from_reference_arrays(
         constraint = RangeConstraint(lo=_tensor(lo, np.float32, dev),
                                      hi=_tensor(hi, np.float32, dev), col=int(col))
     return corpus, graph, constraint
+
+
+def pq_index_from_reference(*, codebooks: np.ndarray, codes: np.ndarray, device="cuda") -> PQIndex:
+    """The reference's ``PQIndex`` arrays ((m_sub, n_cent, d_sub) float32
+    codebooks, (n, m_sub) int32 codes) -> the port's ``PQIndex`` on
+    ``device``."""
+    dev = resolve_device(device)
+    return PQIndex(codebooks=_tensor(codebooks, np.float32, dev),
+                   codes=_tensor(codes, np.int32, dev))

@@ -16,7 +16,7 @@ from repro_torch.core.queue import queue_init
 from repro_torch.core.visited import visited_init
 from repro_torch.data import make_labeled_corpus
 from repro_torch.graph import build_index
-from repro_torch.interop import from_reference_arrays
+from repro_torch.interop import from_reference_arrays, pq_index_from_reference
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro")
@@ -82,6 +82,9 @@ def test_tensor_creators_default_to_cuda_and_raise_without_it():
         from_reference_arrays(vectors=corpus.vectors.numpy(), labels=corpus.labels.numpy(),
                               neighbors=corpus.labels.numpy()[:, None],
                               sample_ids=corpus.labels.numpy(), entry_point=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pq_index_from_reference(codebooks=corpus.vectors.numpy()[None],
+                                codes=corpus.labels.numpy()[:, None])
 
 
 def test_generator_must_match_device():
