@@ -6,7 +6,7 @@ Phases, any failure exits non-zero:
 
   1. environment: the card's name and power limit (nvidia-smi), versions,
      TF32 off for every float32 matrix product;
-  2. build: the four CUDA kernels from src/repro_torch/csrc (one nvcc each,
+  2. build: the five CUDA kernels from src/repro_torch/csrc (one nvcc each,
      started together);
   3. kernels: each kernel against its plain PyTorch version on the card at
      the search's shapes (n = 1M, d = 128, B = 256, M = 32 and 128; PQ
@@ -16,21 +16,34 @@ Phases, any failure exits non-zero:
      N = 1000, n_cent = 16): the exact-row kernels exact on integer-valued
      inputs and within 1e-5 relative on float inputs, the PQ kernels exact
      on integer and float LUTs alike (every path adds the m_sub entries in
-     one pinned order), masks exact; device time of each against its bound,
-     and pq_adc's against one torch.nn.functional.embedding_bag call;
+     one pinned order), masks exact; l2_matmul at the index build's
+     (1024, n, 128) and on edge cases (M = 1, ragged M / N / d, d = 1,
+     identical rows), exact on integer inputs and within
+     1e-5 * (|q|^2 + |x|^2) on float inputs; device time of each against
+     its bound, pq_adc's against one torch.nn.functional.embedding_bag call
+     and l2_matmul's against one torch.cdist call;
   4. small world: the same searches on the card and on the CPU (plain
      versions) over an integer-valued world, exact and PQ, plus the PQ
-     linear scan, must agree bit for bit;
+     linear scan, must agree bit for bit; so must nn_descent with the same
+     draws, and a 4-shard build_partitioned_index must give the same
+     padded corpus and entries and the same kNN adjacency up to distance
+     ties;
   5. world: the airship-sift1m configuration (n = 1,000,000, d = 128, 10
      k-means labels, degree 32, sample 128) generated and indexed on the
-     card, and its PQ codebooks trained there (m_sub = 16, n_cent = 256);
+     card: the exact kNN graph through l2_matmul (its time split into
+     products, top-k and reverse edges, and its launch count checked), an
+     NN-descent index of the same world through gather_distance
+     (NND_ITERS rounds; its time, its graph invariants and its kNN
+     recall@32 against the exact graph), and the PQ codebooks (m_sub = 16,
+     n_cent = 256);
   6. search: 256 queries, equal-label constraint, prefer mode, through
      serve_256 (gather_distance), serve_256_beam4, serve_256_fused
      (fused_expand), serve_256_pq (ADC walk + exact re-rank),
-     serve_256_pq_fused (fused_expand_adc) and pq_scan_256 (the PQ linear
-     scan, pq_adc), with launch counts, fused == unfused for both backends,
-     recall@10 >= 0.5 on every graph walk, and the scan equal to its plain
-     version on the card.
+     serve_256_pq_fused (fused_expand_adc), serve_256_nnd (serve_256 over
+     the NN-descent index) and pq_scan_256 (the PQ linear scan, pq_adc),
+     with launch counts, fused == unfused for both backends, recall@10 >=
+     0.5 on every graph walk, and the scan equal to its plain version on
+     the card.
 
 It prints a {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
 It imports nothing of JAX or of the JAX package.
@@ -51,6 +64,11 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 L2_BYTES = 50 * 2**20
 B, D_MAIN = 256, 128
+BUILD_BLOCK = 1024  # rows of one pairwise block of the exact kNN build
+# NN-descent rounds of the serve_256_nnd index. The reference's default of
+# 8 leaves the walk below its recall floor at n = 1M (its kNN recall@32 is
+# 0.03 there); 128 rounds reach 0.32 and hold the floor (PERF.md).
+NND_ITERS = 128
 
 
 def log(msg: str) -> None:
@@ -391,6 +409,95 @@ def pq_kernel_phase(args, dev):
     return max_err, {"fused_expand_adc": timings, "pq_adc": scan}
 
 
+def events_ms(fn, args, reps: int) -> float:
+    """Mean device time of one eager call, by CUDA events around ``reps``
+    calls after one warm-up (for ms-scale calls, whose launch cost is
+    negligible beside them)."""
+    fn(*args)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn(*args)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def l2_kernel_phase(args, dev):
+    """l2_matmul against its plain version (exact on integer inputs, within
+    1e-5 * (|q|^2 + |x|^2) on float inputs), then its device time at the
+    build's shape against its bound, the plain version and torch.cdist."""
+    from repro_torch.kernels.l2_matmul import l2_matmul_cuda, l2_matmul_plain
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 17)
+    n = args.n
+    shapes = ((BUILD_BLOCK, n, D_MAIN), (1, n, D_MAIN), (130, 257, 13), (129, 131, 1),
+              (200, 301, 37))
+    max_err, n_checks = 0.0, 0
+    for integer in (True, False):
+        kind = "int" if integer else "float"
+        for m, nn, d in shapes:
+            if integer:
+                q = torch.randint(-8, 9, (m, d), generator=gen, device=dev).float()
+                x = torch.randint(-8, 9, (nn, d), generator=gen, device=dev).float()
+            else:
+                q = torch.randn((m, d), generator=gen, device=dev)
+                x = torch.randn((nn, d), generator=gen, device=dev)
+            for qq, tag in ((q, f"l2_matmul {kind} M={m} N={nn} d={d}"),
+                            (x[: min(m, nn)].contiguous(), f"l2_matmul {kind} identical rows "
+                                                           f"M={min(m, nn)} N={nn} d={d}")):
+                got = l2_matmul_cuda(qq, x)
+                torch.cuda.synchronize()
+                want = l2_matmul_plain(qq, x)
+                check(bool((got >= 0).all()), f"{tag}: a negative distance")
+                err = (got - want).abs()
+                if integer:
+                    check(torch.equal(got, want), f"{tag}: integer inputs differ "
+                                                  f"(max abs {float(err.max())})")
+                else:
+                    tol = ((qq * qq).sum(-1)[:, None] + (x * x).sum(-1)[None, :]).mul_(1e-5)
+                    check(bool((err <= tol).all()), f"{tag}: error above 1e-5 * (|q|^2 + |x|^2)")
+                    del tol
+                max_err = max(max_err, float(err.max()))
+                if qq is not q:
+                    diag = torch.diagonal(got)
+                    check(torch.equal(diag, torch.zeros_like(diag)) if integer
+                          else float(diag.max()) <= 1e-3 * float((qq * qq).sum(-1).max()),
+                          f"{tag}: the diagonal is not 0")
+                n_checks += 1
+                del got, want, err
+            del q, x
+    log(f"kernels: {n_checks} l2_matmul kernel/plain comparisons passed (integer inputs exact); "
+        f"max abs err {max_err:.3e}")
+
+    # Device time at the build's shape: one (1024, n) row block of the exact
+    # kNN graph, float inputs. The output (4 GB at n = 1M) is far beyond
+    # L2; x (512 MB) too, q stays in it.
+    q = torch.randn((BUILD_BLOCK, D_MAIN), generator=gen, device=dev)
+    x = torch.randn((n, D_MAIN), generator=gen, device=dev)
+    ops = 2.0 * BUILD_BLOCK * n * D_MAIN
+    n_bytes = (q.numel() + x.numel() + BUILD_BLOCK * n) * 4
+    bd = bound_ms(n_bytes, ops)
+    lib = lambda a, b: torch.cdist(a, b, compute_mode="use_mm_for_euclid_dist")
+    got = l2_matmul_cuda(q, x)
+    lib_err = float((lib(q, x) ** 2 - got).abs().max())
+    del got
+    t = dict(ms=events_ms(l2_matmul_cuda, (q, x), reps=10),
+             plain_ms=events_ms(l2_matmul_plain, (q, x), reps=5),
+             library_ms=events_ms(lib, (q, x), reps=5), bound_ms=bd[0], bound_by=bd[1])
+    t["ms_again"] = events_ms(l2_matmul_cuda, (q, x), reps=10)
+    log(f"time l2_matmul M={BUILD_BLOCK} N={n} d={D_MAIN}: kernel {t['ms']:.4f} ms "
+        f"(again {t['ms_again']:.4f} ms), plain {t['plain_ms']:.4f} ms, bound "
+        f"{t['bound_ms']:.4f} ms ({t['bound_by']}, {ops / 1e12:.3f} TFLOP, "
+        f"{n_bytes / 1e9:.3f} GB), {ops / t['ms'] / 1e9:.2f} TFLOP/s; library "
+        f"torch.cdist(compute_mode='use_mm_for_euclid_dist') {t['library_ms']:.4f} ms (it "
+        f"returns the root; max abs diff of its square {lib_err:.3e})")
+    del q, x
+    torch.cuda.empty_cache()
+    return max_err, t
+
+
 # --------------------------------------------------------------------------- search
 
 
@@ -470,16 +577,98 @@ def small_world_phase(args, dev):
     log("small world: PQ walk card == CPU plain versions, bit for bit, beam {1,4} x fuse "
         "{off,on}, fused == unfused; PQ scan (pq_adc) card == CPU")
 
+    # The build over the same world: nn_descent with one set of draws
+    # (gather_distance on the card, its plain version on the CPU) bit for
+    # bit, and a 4-shard partitioned layout over n - 2 rows (so the last
+    # shard is padded) through l2_matmul. Its kNN graphs (no reverse edges)
+    # are compared up to distance ties: topk orders ties freely.
+    from repro_torch import build_partitioned_index
+    from repro_torch.graph import nn_descent
 
-KERNEL_NAMES = ("gather_distance", "fused_expand", "fused_expand_adc", "pq_adc")
+    dgen = torch.Generator().manual_seed(args.seed + 7)
+    degree, iters = 16, 8
+    draws = dict(k0=torch.randint(0, n, (n, degree), generator=dgen, dtype=torch.int32),
+                 cols=[torch.randint(0, degree, (n, degree, 2), generator=dgen, dtype=torch.int32)
+                       for _ in range(iters)],
+                 rand=[torch.randint(0, n, (n, degree), generator=dgen, dtype=torch.int32)
+                       for _ in range(iters)])
+    card = nn_descent(None, vec, degree, iters=iters, draws=draws, device=dev)
+    host = nn_descent(None, vec.to(cpu), degree, iters=iters, draws=draws, device=cpu)
+    check(torch.equal(card.cpu(), host), "small world: nn_descent differs card vs CPU")
+    graph_invariants("small world nn_descent", vec, card, strict=True)
+    m = n - 2
+    parts = {}
+    for where in (dev, cpu):
+        sub = Corpus(vectors=vec[:m].to(where), labels=lab[:m].to(where))
+        parts[where.type] = build_partitioned_index(
+            torch.Generator(device=where).manual_seed(args.seed + 9), sub, 4, degree=degree,
+            sample_size_per_shard=64, reverse_edges=False, device=where)
+    (cc, cg), (hc, hg) = parts["cuda"], parts["cpu"]
+    check(torch.equal(cc.vectors.cpu(), hc.vectors) and torch.equal(cc.labels.cpu(), hc.labels)
+          and hc.n == n and torch.equal(hc.vectors[m:], hc.vectors[:2]),
+          "small world: partitioned corpus (padding) differs card vs CPU")
+    check(cg.entry_point.shape == (4,) and torch.equal(cg.entry_point.cpu(), hg.entry_point),
+          "small world: partitioned entries differ card vs CPU")
+    n_local = n // 4
+    for s in range(4):
+        rows = slice(s * n_local, (s + 1) * n_local)
+        check(equal_up_to_ties(hc.vectors[rows], hg.neighbors[rows], cg.neighbors[rows].cpu()),
+              f"small world: partitioned shard {s} kNN graph differs card vs CPU beyond ties")
+        samp = cg.sample_ids[s * 64 : (s + 1) * 64]
+        check(int(samp.min()) >= 0 and int(samp.max()) < n_local
+              and torch.unique(samp).numel() == 64, f"small world: shard {s} sample not local")
+    log(f"small world: nn_descent ({iters} rounds, same draws) card == CPU bit for bit; "
+        f"build_partitioned_index (4 shards over {m} rows, 2 padded) card == CPU in corpus, "
+        f"entries and kNN graphs up to distance ties")
+
+
+def equal_up_to_ties(vec, want, got) -> bool:
+    """The same distance profile per row, and the same ids strictly below
+    each row's last distance (integer-valued vectors: exact distances)."""
+    def dists(nbrs):
+        d = ((vec[nbrs.clamp_min(0).long()] - vec[:, None, :]) ** 2).sum(-1)
+        return torch.where(nbrs >= 0, d, float("inf"))
+
+    want_d, got_d = dists(want), dists(got)
+    strict = want_d < want_d[:, -1:]
+    return torch.equal(want_d, got_d) and torch.equal(
+        torch.where(strict, want, -1).sort(-1).values, torch.where(strict, got, -1).sort(-1).values)
+
+
+def graph_invariants(name, vectors, nbrs, strict, chunk=65535) -> None:
+    """Self-free, duplicate-free, padded with -1 only at a row's end, no
+    empty row, rows distance-ascending. ``strict``: by gather_distance's
+    distances, which ordered an NN-descent graph; otherwise within 1e-6
+    relative (add_reverse_edges ordered by another reduction)."""
+    from repro_torch.kernels.gather_distance import gather_distance_cuda
+
+    n = nbrs.shape[0]
+    valid = nbrs >= 0
+    check(not bool((nbrs == torch.arange(n, device=nbrs.device)[:, None]).any()),
+          f"{name}: a self edge")
+    check(bool(valid[:, 0].all()), f"{name}: an empty row")
+    check(bool((valid[:, :-1] | ~valid[:, 1:]).all()), f"{name}: padding before an edge")
+    srt = torch.where(valid, nbrs, 2**31 - 1).sort(-1).values
+    check(not bool(((srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] < 2**31 - 1)).any()),
+          f"{name}: a duplicate edge")
+    for s in range(0, n, chunk):
+        ids = nbrs[s : s + chunk].contiguous()
+        d = gather_distance_cuda(vectors[s : s + chunk].contiguous(), vectors, ids)
+        ok = d[:, 1:] >= d[:, :-1] if strict else d[:, 1:] >= d[:, :-1] * (1 - 1e-6)
+        check(bool((ok | torch.isinf(d[:, 1:])).all()), f"{name}: a row not distance-ascending")
+
+
+KERNEL_NAMES = ("gather_distance", "fused_expand", "fused_expand_adc", "pq_adc", "l2_matmul")
 
 
 def kernel_counters():
     from repro_torch.kernels.fused_expand import fused_expand, fused_expand_adc
     from repro_torch.kernels.gather_distance import gather_distance
+    from repro_torch.kernels.l2_matmul import pairwise_sqdist
     from repro_torch.kernels.pq_adc import pq_adc
 
-    return dict(zip(KERNEL_NAMES, (gather_distance, fused_expand, fused_expand_adc, pq_adc)))
+    return dict(zip(KERNEL_NAMES, (gather_distance, fused_expand, fused_expand_adc, pq_adc,
+                                   pairwise_sqdist)))
 
 
 def search_phase(args, dev):
@@ -496,19 +685,61 @@ def search_phase(args, dev):
         recall,
     )
 
+    from repro_torch import GraphIndex
+    from repro_torch.graph import add_reverse_edges
+    from repro_torch.graph.build import span_seconds
+
+    counters = kernel_counters()
+    build_counts = dict.fromkeys(KERNEL_NAMES, 0)
+
+    def reset_counts():
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+
+    def read_counts():
+        torch.cuda.synchronize()
+        got = {k: c.launches for k, c in counters.items()}
+        for k, v in got.items():
+            build_counts[k] += v
+        return got
+
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     corpus = make_labeled_corpus(gen, args.n, D_MAIN, 10, device=dev)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    index = build_index(gen, corpus, degree=32, sample_size=128, method="exact",
-                        reverse_edges=True, device=dev)
+    # The exact index, as build_index(reverse_edges=True) builds it, in two
+    # calls so the kNN graph before reverse edges is kept for the
+    # NN-descent recall below. The products (l2_matmul) and the masks and
+    # top-k are timed by CUDA events inside the build.
+    reset_counts()
+    spans = {}
+    knn = build_index(gen, corpus, degree=32, sample_size=128, method="exact",
+                      reverse_edges=False, device=dev, spans=spans)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
+    nbrs = add_reverse_edges(knn.neighbors, corpus.vectors, 32)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    exact_launches = read_counts()
+    index = GraphIndex(neighbors=nbrs, sample_ids=knn.sample_ids, entry_point=knn.entry_point)
+    sec = span_seconds(spans)
+    blocks = math.ceil(args.n / BUILD_BLOCK)
     log(f"world: airship-sift1m n={args.n} d={D_MAIN} labels=10 degree=32 sample=128; "
-        f"corpus {t1 - t0:.2f} s, exact kNN index + reverse edges {t2 - t1:.2f} s")
+        f"corpus {t1 - t0:.2f} s, exact kNN index + reverse edges {t3 - t1:.2f} s")
+    log(f"build exact: kNN graph + sample + medoid {t2 - t1:.3f} s (host clock) = products "
+        f"{sec['products']:.3f} s ({blocks} l2_matmul launches of ({BUILD_BLOCK}, {args.n}, "
+        f"{D_MAIN})) + masks and top-k {sec['topk']:.3f} s + the rest "
+        f"{t2 - t1 - sec['products'] - sec['topk']:.3f} s; reverse edges {t3 - t2:.3f} s; "
+        f"launches {json.dumps(exact_launches)}")
+    check(exact_launches["l2_matmul"] == blocks + 1,
+          f"exact build: {exact_launches['l2_matmul']} l2_matmul launches, expected {blocks} "
+          f"row blocks + 1 medoid")
     check(int((index.neighbors >= 0).sum(-1).min()) > 0, "index has an empty adjacency row")
+    build_times = dict(products_s=sec["products"], topk_s=sec["topk"], knn_s=t2 - t1,
+                       reverse_s=t3 - t2)
 
     queries, qlab = make_queries(gen, corpus, B)
     cons = equal_constraint(qlab, 10)
@@ -526,29 +757,63 @@ def search_phase(args, dev):
     log(f"world: pq_train m_sub=16 n_cent=256 iters=20 on the card {t4 - t3:.2f} s (set-up); "
         f"relative quantisation error {rel_err:.4f}")
     check(pq.codes.shape == (args.n, 16) and int(pq.codes.max()) < 256, "bad PQ codes")
+
+    # The NN-descent index of the same world, from a generator of its own
+    # (the exact shapes keep their world, queries and codebooks).
+    ngen = torch.Generator(device=dev).manual_seed(args.seed + 23)
+    reset_counts()
+    spans = {}
+    t5 = time.perf_counter()
+    nnd = build_index(ngen, corpus, degree=32, sample_size=128, method="nn_descent",
+                      reverse_edges=False, nn_descent_iters=NND_ITERS, device=dev,
+                      spans=spans)
+    torch.cuda.synchronize()
+    t6 = time.perf_counter()
+    nnd_nbrs = add_reverse_edges(nnd.neighbors, corpus.vectors, 32)
+    torch.cuda.synchronize()
+    t7 = time.perf_counter()
+    nnd_launches = read_counts()
+    nnd_index = GraphIndex(neighbors=nnd_nbrs, sample_ids=nnd.sample_ids,
+                           entry_point=nnd.entry_point)
+    chunks = math.ceil(args.n / 65535)
+    check(nnd_launches["gather_distance"] == (NND_ITERS + 1) * chunks,
+          f"nn_descent build: {nnd_launches['gather_distance']} gather_distance launches, "
+          f"expected {(NND_ITERS + 1) * chunks}")
+    graph_invariants("nn_descent kNN graph", corpus.vectors, nnd.neighbors, strict=True)
+    graph_invariants("nn_descent index", corpus.vectors, nnd_nbrs, strict=False)
+    knn_recall = knn_graph_recall(nnd.neighbors, knn.neighbors)
+    log(f"build nn_descent: {NND_ITERS} rounds, kNN graph + sample + medoid "
+        f"{t6 - t5:.3f} s (host clock; nn_descent {span_seconds(spans)['nn_descent']:.3f} s "
+        f"by events), reverse edges {t7 - t6:.3f} s; invariants hold (self-free, duplicate-free, "
+        f"-1 padded, no empty row, rows distance-ascending); kNN recall@32 against the exact "
+        f"graph {knn_recall:.4f} over all {args.n} rows (both before reverse edges); launches "
+        f"{json.dumps(nnd_launches)}")
+    build_times.update(nnd_s=t6 - t5, nnd_reverse_s=t7 - t6, nnd_knn_recall=knn_recall)
+    del knn
+
     base = dict(mode="prefer", k=10, ef_result=128, ef_sat=128, ef_other=128, n_start=32,
                 max_iters=512)
     walks = {
-        "serve_256": dict(use_kernel=True),
-        "serve_256_beam4": dict(use_kernel=True, beam_width=4),
+        "serve_256": (index, dict(use_kernel=True)),
+        "serve_256_beam4": (index, dict(use_kernel=True, beam_width=4)),
         # use_kernel also routes the entry vertex's distance through
         # gather_distance, so the fused run scores every candidate with the
         # same device function as serve_256 and must match it exactly.
-        "serve_256_fused": dict(use_kernel=True, fuse_expand="on"),
-        "serve_256_pq": dict(approx="pq"),
-        "serve_256_pq_fused": dict(approx="pq", fuse_expand="on"),
+        "serve_256_fused": (index, dict(use_kernel=True, fuse_expand="on")),
+        "serve_256_pq": (index, dict(approx="pq")),
+        "serve_256_pq_fused": (index, dict(approx="pq", fuse_expand="on")),
+        "serve_256_nnd": (nnd_index, dict(use_kernel=True)),
     }
 
-    def walk(extra):
-        res = constrained_search(corpus, index, queries, cons, SearchParams(**base, **extra),
+    def walk(graph, extra):
+        res = constrained_search(corpus, graph, queries, cons, SearchParams(**base, **extra),
                                  pq_index=pq)
         return res.ids, res.dists, res
 
-    runs = {name: (lambda e=extra: walk(e)) for name, extra in walks.items()}
+    runs = {name: (lambda g=graph, e=extra: walk(g, e)) for name, (graph, extra) in walks.items()}
     runs["pq_scan_256"] = lambda: (*pq_constrained_search(corpus, pq, queries, cons, k=10,
                                                           use_kernel=True)[::-1], None)
-    counters = kernel_counters()
-    results, counts, rows = {}, dict.fromkeys(KERNEL_NAMES, 0), []
+    results, counts, rows = {}, dict(build_counts), []
     for name, run in runs.items():
         run()  # warm-up batch
         torch.cuda.synchronize()
@@ -582,7 +847,7 @@ def search_phase(args, dev):
 
     launches = {r["shape"]: r["launches"] for r in rows}
     check(results["serve_256"][2].stats.iters.item() > 0, "serve_256 ran no iteration")
-    for name in ("serve_256", "serve_256_beam4"):
+    for name in ("serve_256", "serve_256_beam4", "serve_256_nnd"):
         check(launches[name]["gather_distance"] > 0, f"{name}: gather_distance was never launched")
     check(launches["serve_256_fused"]["fused_expand"] > 0,
           "serve_256_fused: fused_expand was never launched")
@@ -607,7 +872,16 @@ def search_phase(args, dev):
     log("search: pq_scan_256 == its plain version (ids, ADC dists)")
     for name in ("pq_scan_256", "serve_256", "serve_256_fused", "serve_256_pq_fused"):
         profile_batch(name, runs[name])
-    return counts
+    return counts, build_times
+
+
+def knn_graph_recall(graph, exact, chunk=65536) -> float:
+    """Share of the exact graph's edges that ``graph`` holds, over all rows."""
+    hits = 0
+    for s in range(0, graph.shape[0], chunk):
+        a, b = graph[s : s + chunk], exact[s : s + chunk]
+        hits += int(((a[:, :, None] == b[:, None, :]) & (b >= 0)[:, None, :]).sum())
+    return hits / int((exact >= 0).sum())
 
 
 def profile_batch(name, run) -> None:
@@ -688,13 +962,15 @@ def main() -> int:
     # 3.-6.
     max_err, timings = kernel_phase(args, dev)
     pq_err, pq_timings = pq_kernel_phase(args, dev)
+    l2_err, l2_timing = l2_kernel_phase(args, dev)
     small_world_phase(args, dev)
-    counts = search_phase(args, dev)
+    counts, _ = search_phase(args, dev)
 
-    max_err.update(pq_err)
+    max_err.update(pq_err, l2_matmul=l2_err)
     rows = {name: timings[32][name] for name in ("gather_distance", "fused_expand")}
     rows["fused_expand_adc"] = pq_timings["fused_expand_adc"][32]
     rows["pq_adc"] = pq_timings["pq_adc"]
+    rows["l2_matmul"] = l2_timing
     sources = {
         "gather_distance": ("src/repro_torch/csrc/gather_distance.cu",
                             "src/repro/kernels/gather_distance/gather_distance.py:85"),
@@ -703,6 +979,8 @@ def main() -> int:
         "fused_expand_adc": ("src/repro_torch/csrc/fused_expand_adc.cu",
                              "src/repro/kernels/fused_expand/fused_expand.py:408"),
         "pq_adc": ("src/repro_torch/csrc/pq_adc.cu", "src/repro/kernels/pq_adc/pq_adc.py:41"),
+        "l2_matmul": ("src/repro_torch/csrc/l2_matmul.cu",
+                      "src/repro/kernels/l2_matmul/l2_matmul.py:48"),
     }
     kernels = []
     for name, (source, replaces) in sources.items():

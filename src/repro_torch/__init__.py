@@ -25,7 +25,7 @@ from repro_torch.core import (
     unequal_pct_constraint,
 )
 from repro_torch.data import make_labeled_corpus, make_queries
-from repro_torch.graph import build_index
+from repro_torch.graph import build_index, build_partitioned_index
 from repro_torch.interop import from_reference_arrays, pq_index_from_reference
 
 __all__ = [
@@ -40,6 +40,7 @@ __all__ = [
     "SearchResult",
     "SearchStats",
     "build_index",
+    "build_partitioned_index",
     "constrained_search",
     "equal_constraint",
     "exact_constrained_search",

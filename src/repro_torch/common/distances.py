@@ -2,6 +2,13 @@
 
 Matrix products run in full float32: the port never enables TF32, because
 the seeding distances and the exact oracle go through ``squared_l2``.
+
+``squared_l2`` is also the plain version of the ``l2_matmul`` kernel
+(``kernels/l2_matmul.py::pairwise_sqdist``), which carries the index
+build's pairwise blocks on the card. The exact oracle
+(``core/exact.py``), the seeding distances (``core/engine/context.py``) and
+k-means stay on ``squared_l2`` on purpose: the yardstick of recall must not
+share the kernel under test.
 """
 from __future__ import annotations
 

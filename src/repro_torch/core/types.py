@@ -44,7 +44,8 @@ class GraphIndex:
 
     neighbors: (n, deg) int32 adjacency, rows distance-ascending, -1 padded.
     sample_ids: (s,) int32 pre-drawn corpus sample for AIRSHIP-Start.
-    entry_point: () int32 medoid entry vertex.
+    entry_point: () int32 medoid entry vertex; (n_shards,) int32, one local
+        medoid per shard, in the layout of ``build_partitioned_index``.
     """
 
     neighbors: Tensor

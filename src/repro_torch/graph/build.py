@@ -1,38 +1,183 @@
 """Proximity-graph construction (port of ``repro.graph.build``).
 
-``build_knn_graph`` is the blocked exact kNN graph; ``add_reverse_edges``
-symmetrises it under the degree bound. Both emit the invariants the
-searcher and the Eq.-1 estimator rely on: rows distance-ascending,
-self-free, duplicate-free, padded with -1. ``nn_descent`` is not ported
-yet.
+Two builders, one contract: ``build_knn_graph`` is the blocked exact kNN
+graph, whose pairwise blocks come from the ``l2_matmul`` kernel
+(``kernels/l2_matmul.py::pairwise_sqdist``); ``nn_descent`` is the
+reference's neighbour-of-neighbour refinement, whose row-wise distances
+come from the ``gather_distance`` kernel. ``add_reverse_edges`` symmetrises
+either under the degree bound. All emit the invariants the searcher and the
+Eq.-1 estimator rely on: rows distance-ascending, self-free,
+duplicate-free, padded with -1.
 """
 from __future__ import annotations
 
+import time
+from contextlib import contextmanager
+from typing import Dict, List, Optional
+
 import torch
 
-from repro_torch.common.distances import squared_l2
+from repro_torch.common.device import check_generator, resolve_device
 from repro_torch.core.queue import _dist_bits
+from repro_torch.kernels.gather_distance import gather_distance
+from repro_torch.kernels.l2_matmul import pairwise_sqdist
 
 PAD = -1
+INT32_MAX = 2**31 - 1
+GATHER_ROWS = 65535  # gather_distance's batch limit (grid y)
+PLAIN_GATHER_ELEMS = 1 << 24  # elements of one (rows, C, d) gather on the CPU
 
 
-def build_knn_graph(vectors, degree: int, block: int = 1024):
+@contextmanager
+def span(spans: Optional[Dict[str, List]], name: str, device: torch.device):
+    """Record the span's device time under ``spans[name]``: a pair of CUDA
+    events on the card, seconds of host time on the CPU. No-op for None."""
+    if spans is None:
+        yield
+        return
+    if device.type == "cuda":
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        yield
+        end.record()
+        spans.setdefault(name, []).append((start, end))
+    else:
+        t0 = time.perf_counter()
+        yield
+        spans.setdefault(name, []).append(time.perf_counter() - t0)
+
+
+def span_seconds(spans: Dict[str, List]) -> Dict[str, float]:
+    """Total seconds per span name (synchronises the card first)."""
+    if any(isinstance(v, tuple) for vals in spans.values() for v in vals):
+        torch.cuda.synchronize()
+    return {name: sum(v[0].elapsed_time(v[1]) / 1e3 if isinstance(v, tuple) else v for v in vals)
+            for name, vals in spans.items()}
+
+
+def build_knn_graph(vectors, degree: int, block: int = 1024, *, spans=None):
     """Exact kNN adjacency (n, degree) int32, distance-ascending, self excluded.
 
     Ties in distance may order differently from the reference (``topk``
-    does not promise an order among equal keys).
+    does not promise an order among equal keys). The self mask stays
+    explicit: the expansion does not give exactly 0 on the diagonal for
+    float data. ``spans`` (a dict, optional) collects the device time of
+    the products ("products") and of the masks and top-k ("topk").
     """
+    vectors = vectors.float().contiguous()
     n = vectors.shape[0]
-    out = torch.empty((n, degree), dtype=torch.int32, device=vectors.device)
+    dev = vectors.device
+    out = torch.empty((n, degree), dtype=torch.int32, device=dev)
     for start in range(0, n, block):
         rows = vectors[start : start + block]
-        d = squared_l2(rows, vectors)  # (blk, n)
-        rid = torch.arange(start, start + rows.shape[0], device=vectors.device)
-        d[torch.arange(rows.shape[0], device=vectors.device), rid] = float("inf")  # no self
-        dist, idx = torch.topk(d, degree, dim=-1, largest=False, sorted=True)
-        out[start : start + rows.shape[0]] = torch.where(torch.isfinite(dist), idx, PAD)
+        with span(spans, "products", dev):
+            d = pairwise_sqdist(rows, vectors)  # (blk, n)
+        with span(spans, "topk", dev):
+            rid = torch.arange(start, start + rows.shape[0], device=dev)
+            d[torch.arange(rows.shape[0], device=dev), rid] = float("inf")  # no self
+            dist, idx = torch.topk(d, degree, dim=-1, largest=False, sorted=True)
+            out[start : start + rows.shape[0]] = torch.where(torch.isfinite(dist), idx, PAD)
         del d
     return out
+
+
+def _dedup_sorted_by_dist(ids, dists, degree: int):
+    """Per row: drop duplicate and invalid ids, keep the ``degree`` closest.
+
+    ids: (n, C) int32 (PAD for invalid), dists: (n, C) float32. The
+    reference's two stable argsorts, as ``torch.sort(stable=True)``: by id
+    (invalid keyed as int32 max), so duplicates meet and all but the first
+    become +inf; then by distance, ties in ascending id.
+    """
+    invalid = ids < 0
+    d = torch.where(invalid, float("inf"), dists)
+    key = torch.where(invalid, INT32_MAX, ids)
+    id_order = torch.sort(key, dim=-1, stable=True).indices
+    ids_s = ids.gather(-1, id_order)
+    d_s = d.gather(-1, id_order)
+    dup = torch.zeros_like(invalid)
+    dup[:, 1:] = ids_s[:, 1:] == ids_s[:, :-1]
+    d_s = torch.where(dup, float("inf"), d_s)
+    order = torch.sort(d_s, dim=-1, stable=True).indices[:, :degree]
+    ids_f = ids_s.gather(-1, order)
+    d_f = d_s.gather(-1, order)
+    return torch.where(torch.isfinite(d_f), ids_f, PAD), d_f
+
+
+def _row_dists(vectors, cand):
+    """(n, C) candidate ids -> ||x_cand - x_row||^2, +inf for self and PAD.
+
+    Row chunks go through ``gather_distance`` with the rows' own vectors
+    as queries, so the (n, C, d) gather is never whole on the card (64 GB
+    at n = 1M, C = 128, d = 128). Chunks stay within the kernel's batch
+    limit; on the CPU, whose plain version materialises the gather,
+    within ``PLAIN_GATHER_ELEMS``.
+    """
+    n, c = cand.shape
+    dev = vectors.device
+    chunk = GATHER_ROWS
+    if dev.type != "cuda":
+        chunk = min(chunk, max(1, PLAIN_GATHER_ELEMS // (c * vectors.shape[1])))
+    out = torch.empty((n, c), dtype=torch.float32, device=dev)
+    for s in range(0, n, chunk):
+        ids = cand[s : s + chunk]
+        d = gather_distance(vectors[s : s + chunk], vectors, ids)
+        rid = torch.arange(s, s + ids.shape[0], device=dev, dtype=torch.int32)[:, None]
+        out[s : s + chunk] = torch.where(ids == rid, float("inf"), d)
+    return out
+
+
+def nn_descent(generator: torch.Generator, vectors, degree: int, iters: int = 8,
+               n_extra: int = 2, *, draws: Optional[Dict[str, object]] = None,
+               device="cuda"):
+    """NN-descent approximate kNN graph (n, degree) int32 (port of
+    ``repro.graph.build.nn_descent``).
+
+    Each round considers, per vertex: its current neighbours, ``n_extra``
+    edges of each neighbour (neighbours of neighbours), and ``degree``
+    fresh random vertices; it keeps the ``degree`` closest.
+
+    ``draws`` replaces the random ints with given ones: ``k0`` (n, degree)
+    in [0, n), and per round ``cols[r]`` (n, degree, n_extra) in
+    [0, degree) and ``rand[r]`` (n, degree) in [0, n), integer tensors on
+    any device. Without it they are drawn from ``generator``. The graph is
+    built on ``device``, where ``vectors`` must lie.
+    """
+    n = vectors.shape[0]
+    dev = resolve_device(device)
+    if vectors.device.type != dev.type:
+        raise ValueError(f"vectors are on {vectors.device}, the graph goes to {dev}")
+    vectors = vectors.float().contiguous()
+    if draws is None:
+        check_generator(generator, dev)
+
+        def randint(high, shape):
+            return torch.randint(0, high, shape, generator=generator, device=dev,
+                                 dtype=torch.int32)
+
+        k0 = randint(n, (n, degree))
+    else:
+        k0, cols_r, rand_r = draws["k0"], draws["cols"], draws["rand"]
+        if len(cols_r) != iters or len(rand_r) != iters:
+            raise ValueError(f"draws hold {len(cols_r)} / {len(rand_r)} rounds, iters={iters}")
+    k0 = k0.to(device=dev, dtype=torch.int32).contiguous()
+    nbrs, _ = _dedup_sorted_by_dist(k0, _row_dists(vectors, k0), degree)
+    for r in range(iters):
+        if draws is None:
+            cols, rand = randint(degree, (n, degree, n_extra)), randint(n, (n, degree))
+        else:
+            cols, rand = cols_r[r], rand_r[r]
+        # nbrs[nbrs[i, j], cols[i, j, e]] by flat index, without the
+        # (n, degree, degree) gather; a PAD neighbour reads row 0, as in
+        # the reference.
+        safe = nbrs.clamp_min(0).long()
+        flat = safe[:, :, None] * degree + cols.to(device=dev).long()
+        nn2 = nbrs.reshape(-1)[flat.reshape(n, degree * n_extra)]
+        del flat, safe
+        cand = torch.cat([nbrs, nn2, rand.to(device=dev, dtype=torch.int32)], dim=-1)
+        nbrs, _ = _dedup_sorted_by_dist(cand, _row_dists(vectors, cand), degree)
+        del cand, nn2
+    return nbrs
 
 
 def _edge_sqdist(vectors, rows, cands, chunk: int = 1 << 20):
@@ -85,4 +230,4 @@ def add_reverse_edges(neighbors, vectors, degree: int):
 def medoid(vectors):
     """Approximate medoid: the vector closest to the corpus mean, () int32."""
     mean = vectors.float().mean(0, keepdim=True)
-    return squared_l2(mean, vectors)[0].argmin().to(torch.int32)
+    return pairwise_sqdist(mean, vectors.float().contiguous())[0].argmin().to(torch.int32)

@@ -1,7 +1,8 @@
 """The port's index build against the reference: ``build_knn_graph``
 (adjacency equal up to distance ties), ``add_reverse_edges`` (equal),
 ``medoid`` (equal) on integer-valued vectors, plus the invariants of the
-port's own ``build_index`` and data generators on the CPU."""
+port's own ``build_index`` (exact and NN-descent) and data generators on
+the CPU."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,6 +13,7 @@ from repro.graph.build import build_knn_graph as ref_knn
 from repro.graph.build import medoid as ref_medoid
 from repro_torch.data import make_labeled_corpus, make_queries
 from repro_torch.graph import add_reverse_edges, build_index, build_knn_graph, medoid
+from repro_torch.graph.build import span_seconds
 from test_torch_parity_world import torch_threads  # noqa: F401 (autouse fixture)
 
 
@@ -67,7 +69,10 @@ def test_port_world_build_invariants_on_cpu():
     assert corpus.labels.dtype == torch.int32
     assert 0 <= int(corpus.labels.min()) and int(corpus.labels.max()) < 10
     assert len(torch.unique(corpus.labels)) >= 5  # k-means labels spread out
-    index = build_index(g, corpus, degree=8, sample_size=64, device="cpu")
+    spans = {}
+    index = build_index(g, corpus, degree=8, sample_size=64, device="cpu", spans=spans)
+    assert set(span_seconds(spans)) == {"products", "topk", "reverse_edges"}
+    assert len(spans["products"]) == 1  # one row block at n = 600
     nbrs = index.neighbors
     assert nbrs.shape == (600, 8) and nbrs.dtype == torch.int32
     assert not (nbrs == torch.arange(600)[:, None]).any()
@@ -77,5 +82,10 @@ def test_port_world_build_invariants_on_cpu():
     assert index.entry_point.dim() == 0
     queries, qlab = make_queries(g, corpus, 12)
     assert queries.shape == (12, 8) and qlab.shape == (12,)
-    with pytest.raises(NotImplementedError):
-        build_index(g, corpus, method="nn_descent", device="cpu")
+    nnd = build_index(g, corpus, degree=8, sample_size=64, method="nn_descent", device="cpu")
+    nbrs = nnd.neighbors
+    assert nbrs.shape == (600, 8) and nbrs.dtype == torch.int32
+    assert not (nbrs == torch.arange(600)[:, None]).any()
+    assert (nbrs[:, 0] >= 0).all()
+    d = torch.from_numpy(_row_dists(corpus.vectors.numpy(), nbrs.numpy()))
+    assert (d[:, 1:] >= d[:, :-1]).all()

@@ -15,7 +15,7 @@ import repro_torch
 from repro_torch.core.queue import queue_init
 from repro_torch.core.visited import visited_init
 from repro_torch.data import make_labeled_corpus
-from repro_torch.graph import build_index
+from repro_torch.graph import build_index, build_partitioned_index, nn_descent
 from repro_torch.interop import from_reference_arrays, pq_index_from_reference
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -74,6 +74,10 @@ def test_tensor_creators_default_to_cuda_and_raise_without_it():
     corpus = make_labeled_corpus(g, 64, 4, 3, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         build_index(g, corpus, degree=4, sample_size=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_partitioned_index(g, corpus, 2, degree=4, sample_size_per_shard=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        nn_descent(g, corpus.vectors, 4, iters=1)
     with pytest.raises(RuntimeError):
         visited_init(2, 64)
     with pytest.raises(RuntimeError):
