@@ -6,7 +6,7 @@ Phases, any failure exits non-zero:
 
   1. environment: the card's name and power limit (nvidia-smi), versions,
      TF32 off for every float32 matrix product;
-  2. build: the five CUDA kernels from src/repro_torch/csrc (one nvcc each,
+  2. build: the six CUDA kernels from src/repro_torch/csrc (one nvcc each,
      started together);
   3. kernels: each kernel against its plain PyTorch version on the card at
      the search's shapes (n = 1M, d = 128, B = 256, M = 32 and 128; PQ
@@ -21,13 +21,22 @@ Phases, any failure exits non-zero:
      identical rows), exact on integer inputs and within
      1e-5 * (|q|^2 + |x|^2) on float inputs; device time of each against
      its bound, pq_adc's against one torch.nn.functional.embedding_bag call
-     and l2_matmul's against one torch.cdist call;
+     and l2_matmul's against one torch.cdist call; embedding_bag over the
+     two-tower item table ((50,000,128, 256), 51.2 GB) at serve_bulk's
+     (262,144 x 50) and serve_p99's (512 x 50) bags and on edge cases (a bag
+     of padding only, L = 1, B = 1, D = 10 and 50 on the scalar path, rows
+     V - 1 and around the 2**31-element mark, mode="mean"), exact on integer
+     and float tables, timed against its bound, its plain version and one
+     torch.nn.functional.embedding_bag call;
   4. small world: the same searches on the card and on the CPU (plain
      versions) over an integer-valued world, exact and PQ, plus the PQ
      linear scan, must agree bit for bit; so must nn_descent with the same
      draws, and a 4-shard build_partitioned_index must give the same
      padded corpus and entries and the same kNN adjacency up to distance
-     ties;
+     ties; the two-tower model at the published widths with a 4,096-row
+     vocab and 64 users, the same weights on the card and the CPU: bags bit
+     for bit, towers within 1e-5 abs, retrieval top-100 ids equal above
+     every score gap > 1e-4;
   5. world: the airship-sift1m configuration (n = 1,000,000, d = 128, 10
      k-means labels, degree 32, sample 128) generated and indexed on the
      card: the exact kNN graph through l2_matmul (its time split into
@@ -43,7 +52,19 @@ Phases, any failure exits non-zero:
      the NN-descent index) and pq_scan_256 (the PQ linear scan, pq_adc),
      with launch counts, fused == unfused for both backends, recall@10 >=
      0.5 on every graph walk, and the scan equal to its plain version on
-     the card.
+     the card;
+  7. two-tower-retrieval (RecSys'19 YouTube two-tower: dim 256, towers
+     1024-512-256, history 50; item_vocab 50M as published, user_vocab cut
+     to 10M to fit the card), after the airship-sift1m world is freed,
+     random weights from --seed: serve_p99 (512 users), serve_bulk
+     (262,144) and retrieval_cand (1 user against the item tower's
+     embeddings of items 0..n-1, top-100), each one embedding_bag launch;
+     then AIRSHIP constrained retrieval over those n embeddings (10 random
+     categories, exact index, degree 32, sample 128; 256 user-tower
+     queries, one wanted category each; prefer, use_kernel, ef_result and
+     max_iters TT_EF_RESULT / TT_MAX_ITERS) with recall@10 >= 0.5 against
+     the exact oracle and every returned item in its category; the device
+     busy share of one serve_bulk batch; peak device memory.
 
 It prints a {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
 It imports nothing of JAX or of the JAX package.
@@ -69,6 +90,19 @@ BUILD_BLOCK = 1024  # rows of one pairwise block of the exact kNN build
 # 8 leaves the walk below its recall floor at n = 1M (its kNN recall@32 is
 # 0.03 there); 128 rounds reach 0.32 and hold the floor (PERF.md).
 NND_ITERS = 128
+# two-tower-retrieval (phase 7): the published item table (50M rows,
+# 51.2 GB) is kept; two 50M-row tables (102.4 GB) exceed the card, so the
+# user table, of which each user reads one row, is cut to 10M rows.
+TT_USER_VOCAB = 10_000_000
+TT_P99, TT_BULK = 512, 262_144  # serve_p99 and serve_bulk batches (RECSYS_SHAPES)
+TT_QUERIES = 256  # users of the constrained walk over the item tower
+# The walk's result capacity and iteration cap. examples/constrained_serving.py
+# uses 128 and 800; over 1M item-tower rows with random weights, whose user
+# queries lie far from the items, that reaches recall@10 0.19, and 2048 and
+# 8000 hold the 0.5 floor (PERF.md records the settings measured). Every
+# query runs to the cap: the floor holds by the iteration budget, not
+# because the graph steers the walk to its neighbours.
+TT_EF_RESULT, TT_MAX_ITERS = 2048, 8000
 
 
 def log(msg: str) -> None:
@@ -498,6 +532,136 @@ def l2_kernel_phase(args, dev):
     return max_err, t
 
 
+def tt_config():
+    """two-tower-retrieval at its published widths, with the one cut the
+    card forces: user_vocab 50M -> TT_USER_VOCAB (see the module note)."""
+    import dataclasses
+
+    from repro_torch.configs import two_tower_retrieval
+
+    return dataclasses.replace(two_tower_retrieval(), user_vocab=TT_USER_VOCAB)
+
+
+def bag_bytes_ops(ids, d):
+    """Bytes an embedding_bag call must move (each distinct valid row read
+    once, the ids read, the (B, D) output written) and its adds."""
+    valid = ids[ids >= 0]
+    rows = int(torch.unique(valid).numel())
+    return rows * d * 4 + ids.numel() * 4 + ids.shape[0] * d * 4, float(valid.numel()) * d
+
+
+def bag_kernel_phase(args, dev):
+    """embedding_bag against its plain version on the two-tower item table
+    ((50,000,128, 256) float32, 51.2 GB), exact on integer and float tables,
+    at serve_bulk's and serve_p99's bags and on edge cases; then its device
+    time at both shapes against its bound, the plain version and one
+    torch.nn.functional.embedding_bag call."""
+    import torch.nn.functional as F
+
+    from repro_torch.data import two_tower_batch
+    from repro_torch.kernels.embedding_bag import embedding_bag_cuda, embedding_bag_plain
+    from repro_torch.models.recsys.models import VOCAB_PAD, fill_normal_
+
+    cfg = tt_config()
+    d, hist = cfg.embed_dim, cfg.hist_len
+    v = cfg.padded_vocab(cfg.item_vocab, VOCAB_PAD)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 19)
+
+    def bags(step, b):
+        return two_tower_batch(args.seed, step, b, cfg.user_vocab, cfg.item_vocab, hist,
+                               device=dev)["hist"]
+
+    bulk, p99 = bags(0, TT_BULK), bags(1, TT_P99)
+    # Edge bags: all padding, the last row, rows around the 2**31-element
+    # mark (row 2**31 / D), row 0; L = 1; B = 1.
+    mark = min(2**31 // d, v - hist)  # 2**31 // d on the published table
+    edge = torch.full((6, hist), -1, dtype=torch.int32, device=dev)
+    edge[1, :6] = torch.tensor([v - 1, -1, mark, mark - 1, 0, v - 1])
+    edge[2] = torch.arange(v - hist, v, dtype=torch.int32, device=dev)
+    edge[3] = torch.arange(mark - hist // 2, mark + hist - hist // 2, dtype=torch.int32,
+                           device=dev)
+    edge[3, 1::7] = -1
+    edge[4:] = bulk[:2]
+    table = torch.empty((v, d), device=dev)
+    max_err, n_checks = 0.0, 0
+    for kind in ("int", "float"):
+        if kind == "int":
+            rows = (1 << 28) // d
+            for s in range(0, v, rows):
+                table[s : s + rows].random_(-8, 9, generator=gen)
+        else:
+            fill_normal_(table, gen, 0.02)  # the model's law
+        cases = [("serve_bulk", table, bulk, "sum"), ("serve_p99", table, p99, "sum"),
+                 ("serve_bulk mean", table, bulk, "mean"), ("edge", table, edge, "sum"),
+                 ("edge mean", table, edge, "mean"),
+                 ("L=1", table, bulk[:, :1].contiguous(), "sum"), ("B=1", table, p99[:1], "sum")]
+        for dd in (10, 50):  # the scalar path over the same memory, (V * 256 / D, D)
+            narrow = table.view(-1)[: table.numel() // dd * dd].view(-1, dd)
+            vv = narrow.shape[0]
+            ids = torch.randint(0, vv, (TT_P99, hist), generator=gen, dtype=torch.int32,
+                                device=dev)
+            ids[torch.rand(ids.shape, generator=gen, device=dev) < 0.3] = -1
+            ids[0] = -1
+            ids[1, :3] = torch.tensor([vv - 1, 0, min(2**31 // dd + 1, vv - 1)])
+            cases += [(f"D={dd}", narrow, ids, "sum"), (f"D={dd} mean", narrow, ids, "mean"),
+                      (f"D={dd} L=1", narrow, ids[:, 1:2].contiguous(), "sum")]
+        for name, tab, ids, mode in cases:
+            got = embedding_bag_cuda(tab, ids, mode)
+            torch.cuda.synchronize()
+            want = embedding_bag_plain(tab, ids, mode)
+            err = float((got - want).abs().max())
+            check(torch.equal(got, want), f"embedding_bag {kind} {name} B={ids.shape[0]} "
+                  f"L={ids.shape[1]} D={tab.shape[1]}: differs from its plain version "
+                  f"(max abs {err})")
+            max_err = max(max_err, err)
+            n_checks += 1
+        check(bool((embedding_bag_cuda(table, edge)[0] == 0).all()),
+              "embedding_bag: a bag of padding only is not 0")
+    log(f"kernels: {n_checks} embedding_bag kernel/plain comparisons passed, all exact (integer "
+        f"and float tables; sum and mean; serve_bulk {TT_BULK} x {hist}, serve_p99 {TT_P99} x "
+        f"{hist} over ({v}, {d}); all-padding bag, rows V - 1 and around 2**31 elements, L = 1, "
+        f"B = 1, D = 10 and 50); max abs err {max_err:.3e}")
+
+    # Device time on the float table (the model's law, normal * 0.02): the
+    # rows are scattered over 51 GB, so they come from device memory.
+    timings = {}
+    for shape, ids_sets in (("serve_bulk", [bulk]),
+                            ("serve_p99", [p99] + [bags(2 + i, TT_P99) for i in range(7)])):
+        nb, ops = zip(*(bag_bytes_ops(ids, d) for ids in ids_sets))
+        bd = bound_ms(sum(nb) / len(nb), sum(ops) / len(ops))
+        lib_sets = [(ids.clamp(min=0), (ids >= 0).float()) for ids in ids_sets]
+
+        def lib(i, w):
+            return F.embedding_bag(i, table, per_sample_weights=w, mode="sum")
+
+        got = embedding_bag_cuda(table, ids_sets[0])
+        lib_err = float((lib(*lib_sets[0]) - got).abs().max())
+        check(lib_err <= 1e-5, f"F.embedding_bag disagrees with embedding_bag by {lib_err}")
+        del got
+        if shape == "serve_bulk":
+            t = dict(ms=events_ms(embedding_bag_cuda, (table, bulk), reps=10),
+                     plain_ms=events_ms(embedding_bag_plain, (table, bulk), reps=3),
+                     library_ms=events_ms(lib, lib_sets[0], reps=5))
+            t["ms_again"] = events_ms(embedding_bag_cuda, (table, bulk), reps=10)
+        else:
+            t = dict(ms=device_ms(embedding_bag_cuda, [(table, ids) for ids in ids_sets]),
+                     plain_ms=device_ms(embedding_bag_plain, [(table, ids) for ids in ids_sets],
+                                        reps=20, replays=3),
+                     library_ms=device_ms(lib, lib_sets))
+        t.update(bound_ms=bd[0], bound_by=bd[1], bytes=sum(nb) / len(nb))
+        timings[shape] = t
+        log(f"time embedding_bag {shape} B={ids_sets[0].shape[0]} L={hist} D={d} V={v}: kernel "
+            f"{t['ms']:.4f} ms{' (again %.4f ms)' % t['ms_again'] if 'ms_again' in t else ''}, "
+            f"plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
+            f"{t['bytes'] / 1e9:.4f} GB: each distinct valid row once + ids + output), "
+            f"{t['bytes'] / t['ms'] / 1e6:.1f} GB/s; library F.embedding_bag(ids.clamp(min=0), "
+            f"table, per_sample_weights=(ids >= 0).float(), mode='sum') {t['library_ms']:.4f} ms "
+            f"(max abs diff {lib_err:.3e}); {len(ids_sets)} id sets cycled")
+    del table
+    torch.cuda.empty_cache()
+    return max_err, timings
+
+
 # --------------------------------------------------------------------------- search
 
 
@@ -622,6 +786,54 @@ def small_world_phase(args, dev):
         f"entries and kNN graphs up to distance ties")
 
 
+def two_tower_small_phase(args, dev):
+    """The two-tower model at the published widths with a small vocab, the
+    same weights on the card (kernels) and on the CPU (plain versions): bags
+    bit for bit, towers within 1e-5 abs (cuBLAS and CPU BLAS add in other
+    orders), retrieval top-100 ids equal above every score gap > 1e-4."""
+    import copy
+    import dataclasses
+
+    from repro_torch.data import two_tower_batch
+    from repro_torch.kernels.embedding_bag import embedding_bag
+    from repro_torch.models.recsys import two_tower_init
+
+    cpu = torch.device("cpu")
+    cfg = dataclasses.replace(tt_config(), item_vocab=4096, user_vocab=4096)
+    host = two_tower_init(torch.Generator().manual_seed(args.seed + 29), cfg, device=cpu)
+    card = copy.deepcopy(host).to(dev)
+    hb = two_tower_batch(args.seed, 0, 64, cfg.user_vocab, cfg.item_vocab, cfg.hist_len,
+                         device=cpu)
+    cb = {k: t.to(dev) for k, t in hb.items()}
+    check(torch.equal(embedding_bag(card.item_emb, cb["hist"]).cpu(),
+                      embedding_bag(host.item_emb, hb["hist"])),
+          "two-tower small: history bags differ card vs CPU")
+    items = torch.arange(cfg.item_vocab, dtype=torch.int32)
+    pairs = ((card.user(cb), host.user(hb), "user"),
+             (card.item(cb["item_id"]), host.item(hb["item_id"]), "item"),
+             (card.item(items.to(dev)), host.item(items), "item corpus"))
+    errs = {}
+    for got, want, name in pairs:
+        errs[name] = float((got.cpu() - want).abs().max())
+        check(errs[name] <= 1e-5, f"two-tower small: {name} tower differs card vs CPU by "
+                                  f"{errs[name]} > 1e-5")
+    cand_c, cand_h = pairs[2][0], pairs[2][1]
+    (gv, gi), (wv, wi) = (card.score_candidates(dict(cb, candidates=cand_c)),
+                          host.score_candidates(dict(hb, candidates=cand_h)))
+    gi = gi.cpu()
+    n_gaps = 0
+    for b in range(wv.shape[0]):
+        for j in torch.nonzero(wv[b, :-1] - wv[b, 1:] > 1e-4).flatten().tolist():
+            check(torch.equal(gi[b, : j + 1].sort().values, wi[b, : j + 1].sort().values),
+                  f"two-tower small: user {b}'s top-{j + 1} ids differ card vs CPU across a "
+                  f"score gap > 1e-4")
+            n_gaps += 1
+    log(f"small two-tower (published widths, vocab {cfg.item_vocab}, B = 64): bags card == CPU "
+        f"bit for bit; max abs diff user {errs['user']:.3e}, item {errs['item']:.3e}, item "
+        f"corpus {errs['item corpus']:.3e} (<= 1e-5); retrieval top-100 ids equal above all "
+        f"{n_gaps} score gaps > 1e-4")
+
+
 def equal_up_to_ties(vec, want, got) -> bool:
     """The same distance profile per row, and the same ids strictly below
     each row's last distance (integer-valued vectors: exact distances)."""
@@ -658,20 +870,45 @@ def graph_invariants(name, vectors, nbrs, strict, chunk=65535) -> None:
         check(bool((ok | torch.isinf(d[:, 1:])).all()), f"{name}: a row not distance-ascending")
 
 
-KERNEL_NAMES = ("gather_distance", "fused_expand", "fused_expand_adc", "pq_adc", "l2_matmul")
+KERNEL_NAMES = ("gather_distance", "fused_expand", "fused_expand_adc", "pq_adc", "l2_matmul",
+                "embedding_bag")
 
 
 def kernel_counters():
+    from repro_torch.kernels.embedding_bag import embedding_bag
     from repro_torch.kernels.fused_expand import fused_expand, fused_expand_adc
     from repro_torch.kernels.gather_distance import gather_distance
     from repro_torch.kernels.l2_matmul import pairwise_sqdist
     from repro_torch.kernels.pq_adc import pq_adc
 
     return dict(zip(KERNEL_NAMES, (gather_distance, fused_expand, fused_expand_adc, pq_adc,
-                                   pairwise_sqdist)))
+                                   pairwise_sqdist, embedding_bag)))
 
 
-def search_phase(args, dev):
+class LaunchCounts:
+    """The ported kernels' launch counters: ``reset`` sets them to 0 just
+    before a main-path run, ``read`` reads them just after and adds them to
+    ``total`` (launches outside the main path, such as the comparisons with
+    the plain versions and the profiled batches, are never read)."""
+
+    def __init__(self):
+        self.counters = kernel_counters()
+        self.total = dict.fromkeys(KERNEL_NAMES, 0)
+
+    def reset(self):
+        torch.cuda.synchronize()
+        for c in self.counters.values():
+            c.launches = 0
+
+    def read(self):
+        torch.cuda.synchronize()
+        got = {k: c.launches for k, c in self.counters.items()}
+        for k, v in got.items():
+            self.total[k] += v
+        return got
+
+
+def search_phase(args, dev, launch: LaunchCounts):
     from repro_torch import (
         SearchParams,
         build_index,
@@ -689,21 +926,6 @@ def search_phase(args, dev):
     from repro_torch.graph import add_reverse_edges
     from repro_torch.graph.build import span_seconds
 
-    counters = kernel_counters()
-    build_counts = dict.fromkeys(KERNEL_NAMES, 0)
-
-    def reset_counts():
-        torch.cuda.synchronize()
-        for c in counters.values():
-            c.launches = 0
-
-    def read_counts():
-        torch.cuda.synchronize()
-        got = {k: c.launches for k, c in counters.items()}
-        for k, v in got.items():
-            build_counts[k] += v
-        return got
-
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -714,7 +936,7 @@ def search_phase(args, dev):
     # calls so the kNN graph before reverse edges is kept for the
     # NN-descent recall below. The products (l2_matmul) and the masks and
     # top-k are timed by CUDA events inside the build.
-    reset_counts()
+    launch.reset()
     spans = {}
     knn = build_index(gen, corpus, degree=32, sample_size=128, method="exact",
                       reverse_edges=False, device=dev, spans=spans)
@@ -723,7 +945,7 @@ def search_phase(args, dev):
     nbrs = add_reverse_edges(knn.neighbors, corpus.vectors, 32)
     torch.cuda.synchronize()
     t3 = time.perf_counter()
-    exact_launches = read_counts()
+    exact_launches = launch.read()
     index = GraphIndex(neighbors=nbrs, sample_ids=knn.sample_ids, entry_point=knn.entry_point)
     sec = span_seconds(spans)
     blocks = math.ceil(args.n / BUILD_BLOCK)
@@ -738,8 +960,6 @@ def search_phase(args, dev):
           f"exact build: {exact_launches['l2_matmul']} l2_matmul launches, expected {blocks} "
           f"row blocks + 1 medoid")
     check(int((index.neighbors >= 0).sum(-1).min()) > 0, "index has an empty adjacency row")
-    build_times = dict(products_s=sec["products"], topk_s=sec["topk"], knn_s=t2 - t1,
-                       reverse_s=t3 - t2)
 
     queries, qlab = make_queries(gen, corpus, B)
     cons = equal_constraint(qlab, 10)
@@ -761,7 +981,7 @@ def search_phase(args, dev):
     # The NN-descent index of the same world, from a generator of its own
     # (the exact shapes keep their world, queries and codebooks).
     ngen = torch.Generator(device=dev).manual_seed(args.seed + 23)
-    reset_counts()
+    launch.reset()
     spans = {}
     t5 = time.perf_counter()
     nnd = build_index(ngen, corpus, degree=32, sample_size=128, method="nn_descent",
@@ -772,7 +992,7 @@ def search_phase(args, dev):
     nnd_nbrs = add_reverse_edges(nnd.neighbors, corpus.vectors, 32)
     torch.cuda.synchronize()
     t7 = time.perf_counter()
-    nnd_launches = read_counts()
+    nnd_launches = launch.read()
     nnd_index = GraphIndex(neighbors=nnd_nbrs, sample_ids=nnd.sample_ids,
                            entry_point=nnd.entry_point)
     chunks = math.ceil(args.n / 65535)
@@ -788,7 +1008,6 @@ def search_phase(args, dev):
         f"-1 padded, no empty row, rows distance-ascending); kNN recall@32 against the exact "
         f"graph {knn_recall:.4f} over all {args.n} rows (both before reverse edges); launches "
         f"{json.dumps(nnd_launches)}")
-    build_times.update(nnd_s=t6 - t5, nnd_reverse_s=t7 - t6, nnd_knn_recall=knn_recall)
     del knn
 
     base = dict(mode="prefer", k=10, ef_result=128, ef_sat=128, ef_other=128, n_start=32,
@@ -813,19 +1032,15 @@ def search_phase(args, dev):
     runs = {name: (lambda g=graph, e=extra: walk(g, e)) for name, (graph, extra) in walks.items()}
     runs["pq_scan_256"] = lambda: (*pq_constrained_search(corpus, pq, queries, cons, k=10,
                                                           use_kernel=True)[::-1], None)
-    results, counts, rows = {}, dict(build_counts), []
+    results, rows = {}, []
     for name, run in runs.items():
         run()  # warm-up batch
-        torch.cuda.synchronize()
-        for c in counters.values():
-            c.launches = 0
+        launch.reset()
         t0 = time.perf_counter()
         ids, dists, res = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        shape_counts = {k: c.launches for k, c in counters.items()}
-        for k, v in shape_counts.items():
-            counts[k] += v
+        shape_counts = launch.read()
         results[name] = (ids, dists, res)
         check(ids.shape == (B, 10) and bool(torch.isfinite(dists[ids >= 0]).all()),
               f"{name}: bad result shape or non-finite distances")
@@ -872,7 +1087,6 @@ def search_phase(args, dev):
     log("search: pq_scan_256 == its plain version (ids, ADC dists)")
     for name in ("pq_scan_256", "serve_256", "serve_256_fused", "serve_256_pq_fused"):
         profile_batch(name, runs[name])
-    return counts, build_times
 
 
 def knn_graph_recall(graph, exact, chunk=65536) -> float:
@@ -887,19 +1101,28 @@ def knn_graph_recall(graph, exact, chunk=65536) -> float:
 def profile_batch(name, run) -> None:
     """Device busy share of one batch and its costliest kernels, from a
     torch.profiler trace (prints "not measured" where the trace has no
-    device events)."""
+    device events). The batch runs twice: the first, a warm-up step of the
+    profiler's schedule, is traced and discarded, so no kernel of the
+    recorded batch falls before the trace is running (a trace started
+    right at the batch lost its first kernels)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        run()
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        prof.step()
     by_name = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        # ProfilerStep* spans the step on the device timeline; it is no kernel.
+        if e.device_type == DeviceType.CUDA and not e.name.startswith("ProfilerStep"):
             n, us = by_name.get(e.name, (0, 0.0))
             by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
     busy_us = sum(us for _, us in by_name.values())
@@ -923,6 +1146,165 @@ def profile_batch(name, run) -> None:
                 f"{sum(n for n, _ in hits)} launches")
     if not found:
         log(f"profile {name}:   no ported kernel in the trace")
+
+
+def two_tower_phase(args, dev, launch: LaunchCounts):
+    """two-tower-retrieval on the card: the three serve shapes, then AIRSHIP
+    constrained retrieval over the item tower's embeddings of items
+    0..n-1 (examples/constrained_serving.py at full size)."""
+    from repro_torch import (
+        Corpus,
+        SearchParams,
+        build_index,
+        constrained_search,
+        equal_constraint,
+        exact_constrained_search,
+        recall,
+    )
+    from repro_torch.archs.recsys import RECSYS_SHAPES, serve_fn, shape_batch
+    from repro_torch.data import two_tower_batch
+    from repro_torch.graph.build import span_seconds
+    from repro_torch.models.recsys import two_tower_init
+    from repro_torch.models.recsys.models import VOCAB_PAD
+
+    bags_before = launch.total["embedding_bag"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = tt_config()
+    n = args.n
+    def table_gb(vocab):
+        return cfg.padded_vocab(vocab, VOCAB_PAD) * cfg.embed_dim * 4 / 1e9
+
+    log(f"two-tower-retrieval: embed_dim {cfg.embed_dim}, towers {cfg.tower_mlp}, hist_len "
+        f"{cfg.hist_len}, float32; item_vocab {cfg.item_vocab} (as published); cut: user_vocab "
+        f"50000000 -> {cfg.user_vocab} (tables {2 * table_gb(50_000_000):.1f} GB as published; "
+        f"here item {table_gb(cfg.item_vocab):.1f} GB + user {table_gb(cfg.user_vocab):.1f} GB); "
+        f"card memory {torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} GB")
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 31)
+    t0 = time.perf_counter()
+    model = two_tower_init(gen, cfg, device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    # The item corpus: the item tower over items 0..n-1 (set-up of
+    # retrieval_cand and of the walk), in chunks of serve_bulk's size.
+    corpus_vec = torch.cat([model.item(torch.arange(s, min(s + TT_BULK, n), dtype=torch.int32,
+                                                    device=dev))
+                            for s in range(0, n, TT_BULK)])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    log(f"two-tower: init {t1 - t0:.2f} s, item tower over {n} items {t2 - t1:.3f} s (set-up)")
+
+    shapes = dict(RECSYS_SHAPES, retrieval_cand=dict(kind="serve", batch=1, n_candidates=n))
+    outs = {}
+    for shape in ("serve_p99", "serve_bulk", "retrieval_cand"):
+        batch = shape_batch(cfg, shape, args.seed, 1, shapes=shapes,
+                            candidates=corpus_vec if shape == "retrieval_cand" else None,
+                            device=dev)
+        fn = serve_fn(cfg, shape, shapes)
+        fn(model, batch)  # warm-up batch
+        launch.reset()
+        t0 = time.perf_counter()
+        out = fn(model, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch.read()
+        b = shapes[shape]["batch"]
+        row = dict(shape=f"{shape}_tt", batch=b, wall_s=wall, users_per_s=b / wall,
+                   launches={k: v for k, v in launches.items() if v})
+        outs[shape] = (batch, fn, out)
+        log(f"serve {json.dumps(row)}")
+        check(launches["embedding_bag"] == 1, f"{shape}: embedding_bag launched "
+                                              f"{launches['embedding_bag']} times, expected 1")
+        if shape == "retrieval_cand":
+            vals, ids = out
+            check(vals.shape == (1, 100) and ids.shape == (1, 100) and ids.dtype == torch.int32,
+                  "retrieval_cand: bad top-k shape")
+            check(bool((ids >= 0).all() & (ids < n).all()), "retrieval_cand: ids out of range")
+            check(bool((vals[:, :-1] >= vals[:, 1:]).all()), "retrieval_cand: not descending")
+            u = model.user(batch)
+            want = torch.topk(u @ corpus_vec.T, 100).values
+            check(float((want - vals).abs().max()) <= 1e-5,
+                  "retrieval_cand: the top-100 scores are not the largest")
+            check(bool(((u @ corpus_vec[ids[0].long()].T)[0] - vals[0]).abs().max() <= 1e-5),
+                  "retrieval_cand: ids do not carry their scores")
+        else:
+            check(out.shape == (b,) and bool(torch.isfinite(out).all())
+                  and float(out.abs().max()) <= 1 + 1e-5,
+                  f"{shape}: scores not finite cosines of shape ({b},)")
+    profile_batch("serve_bulk_tt", lambda: outs["serve_bulk"][1](model, outs["serve_bulk"][0]))
+    del outs
+
+    # AIRSHIP over the item tower: 10 random categories, the exact index
+    # (airship-sift1m's degree and sample), 256 users of two_tower_batch as
+    # queries, one wanted category each.
+    cats = torch.randint(0, 10, (n,), generator=gen, dtype=torch.int32, device=dev)
+    corpus = Corpus(vectors=corpus_vec, labels=cats)
+    launch.reset()
+    spans = {}
+    t0 = time.perf_counter()
+    index = build_index(gen, corpus, degree=32, sample_size=128, method="exact", device=dev,
+                        spans=spans)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    build_launches = launch.read()
+    sec = span_seconds(spans)
+    blocks = math.ceil(n / BUILD_BLOCK)
+    log(f"build airship_tt: exact index over {n} item-tower rows (d = {cfg.tower_mlp[-1]}), "
+        f"degree 32, sample 128: {t1 - t0:.3f} s (host clock) = products {sec['products']:.3f} s "
+        f"({blocks} l2_matmul launches of ({BUILD_BLOCK}, {n}, {cfg.tower_mlp[-1]})) + masks and "
+        f"top-k {sec['topk']:.3f} s + reverse edges {sec['reverse_edges']:.3f} s + the rest "
+        f"{t1 - t0 - sec['products'] - sec['topk'] - sec['reverse_edges']:.3f} s; launches "
+        f"{json.dumps(build_launches)}")
+    check(build_launches["l2_matmul"] == blocks + 1,
+          f"airship_tt build: {build_launches['l2_matmul']} l2_matmul launches, expected "
+          f"{blocks} + 1 medoid")
+    check(int((index.neighbors >= 0).sum(-1).min()) > 0, "airship_tt: an empty adjacency row")
+
+    launch.reset()
+    qb = two_tower_batch(args.seed, 2, TT_QUERIES, cfg.user_vocab, cfg.item_vocab, cfg.hist_len,
+                         device=dev)
+    queries = model.user(qb)
+    query_launches = launch.read()
+    check(query_launches["embedding_bag"] == 1, "airship_tt: the user tower did not launch "
+                                                "embedding_bag once")
+    want = torch.randint(0, 10, (TT_QUERIES,), generator=gen, dtype=torch.int32, device=dev)
+    cons = equal_constraint(want, 10)
+    _, true_ids = exact_constrained_search(corpus, queries, cons, 10)
+
+    def walk(iters):
+        params = SearchParams(mode="prefer", k=10, ef_result=TT_EF_RESULT, n_start=32,
+                              max_iters=iters, use_kernel=True)
+        return constrained_search(corpus, index, queries, cons, params)
+
+    walk(4)  # warm-up: the same shapes, a few iterations
+    launch.reset()
+    t0 = time.perf_counter()
+    res = walk(TT_MAX_ITERS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    walk_launches = launch.read()
+    rec = float(recall(res.ids, true_ids))
+    hit = res.ids >= 0
+    in_cat = bool((cats[res.ids.clamp_min(0).long()] == want[:, None])[hit].all())
+    row = dict(shape="airship_tt_256", wall_s=wall, qps=TT_QUERIES / wall, recall_at_10=rec,
+               iters=int(res.stats.iters),
+               dist_evals_mean=float(res.stats.dist_evals.float().mean()),
+               hops_mean=float(res.stats.hops.float().mean()),
+               filled_mean=float(hit.float().sum(-1).mean()), all_in_category=in_cat,
+               ef_result=TT_EF_RESULT, max_iters=TT_MAX_ITERS,
+               launches={k: v for k, v in walk_launches.items() if v})
+    log(f"search {json.dumps(row)}")
+    check(res.ids.shape == (TT_QUERIES, 10) and bool(torch.isfinite(res.dists[hit]).all()),
+          "airship_tt_256: bad result shape or non-finite distances")
+    check(in_cat, "airship_tt_256: a returned item is outside its wanted category")
+    check(walk_launches["gather_distance"] > 0, "airship_tt_256: gather_distance never launched")
+    check(rec >= 0.5, f"airship_tt_256: recall@10 {rec} < 0.5")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"two-tower: peak device memory {peak / 1e9:.2f} GB (max_memory_allocated) of "
+        f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} GB")
+    bags = launch.total["embedding_bag"] - bags_before
+    check(bags == 4, f"two-tower: embedding_bag launched {bags} times, expected 4 (3 serve "
+                     f"shapes + the walk's queries)")
 
 
 def main() -> int:
@@ -963,14 +1345,20 @@ def main() -> int:
     max_err, timings = kernel_phase(args, dev)
     pq_err, pq_timings = pq_kernel_phase(args, dev)
     l2_err, l2_timing = l2_kernel_phase(args, dev)
+    bag_err, bag_timings = bag_kernel_phase(args, dev)
     small_world_phase(args, dev)
-    counts, _ = search_phase(args, dev)
+    two_tower_small_phase(args, dev)
+    launch = LaunchCounts()
+    search_phase(args, dev, launch)
+    # 7. two-tower-retrieval, after the airship-sift1m world is freed
+    two_tower_phase(args, dev, launch)
 
-    max_err.update(pq_err, l2_matmul=l2_err)
+    max_err.update(pq_err, l2_matmul=l2_err, embedding_bag=bag_err)
     rows = {name: timings[32][name] for name in ("gather_distance", "fused_expand")}
     rows["fused_expand_adc"] = pq_timings["fused_expand_adc"][32]
     rows["pq_adc"] = pq_timings["pq_adc"]
     rows["l2_matmul"] = l2_timing
+    rows["embedding_bag"] = bag_timings["serve_bulk"]
     sources = {
         "gather_distance": ("src/repro_torch/csrc/gather_distance.cu",
                             "src/repro/kernels/gather_distance/gather_distance.py:85"),
@@ -981,12 +1369,14 @@ def main() -> int:
         "pq_adc": ("src/repro_torch/csrc/pq_adc.cu", "src/repro/kernels/pq_adc/pq_adc.py:41"),
         "l2_matmul": ("src/repro_torch/csrc/l2_matmul.cu",
                       "src/repro/kernels/l2_matmul/l2_matmul.py:48"),
+        "embedding_bag": ("src/repro_torch/csrc/embedding_bag.cu",
+                          "src/repro/kernels/embedding_bag/embedding_bag.py:39"),
     }
     kernels = []
     for name, (source, replaces) in sources.items():
         t = rows[name]
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                            launches=counts[name], max_abs_err=max_err[name], ms=t["ms"],
+                            launches=launch.total[name], max_abs_err=max_err[name], ms=t["ms"],
                             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
                             bound_by=t["bound_by"], library_ms=t.get("library_ms")))
     log(json.dumps({"kernels": kernels}))

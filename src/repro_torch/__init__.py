@@ -1,4 +1,5 @@
-"""PyTorch / CUDA port of the AIRSHIP constrained graph search.
+"""PyTorch / CUDA port of the AIRSHIP constrained graph search (and of the
+two-tower retrieval model that feeds it: ``repro_torch.models.recsys``).
 
 The JAX package ``repro`` is the reference; this package imports neither
 it nor JAX. Tensor-creating entry points default to ``device="cuda"``;
@@ -26,7 +27,11 @@ from repro_torch.core import (
 )
 from repro_torch.data import make_labeled_corpus, make_queries
 from repro_torch.graph import build_index, build_partitioned_index
-from repro_torch.interop import from_reference_arrays, pq_index_from_reference
+from repro_torch.interop import (
+    from_reference_arrays,
+    pq_index_from_reference,
+    two_tower_params_from_reference,
+)
 
 __all__ = [
     "ConstraintTables",
@@ -52,5 +57,6 @@ __all__ = [
     "pq_train",
     "recall",
     "three_stage_pipeline",
+    "two_tower_params_from_reference",
     "unequal_pct_constraint",
 ]

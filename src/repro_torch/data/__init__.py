@@ -1,3 +1,4 @@
+from repro_torch.data.pipeline import two_tower_batch
 from repro_torch.data.synthetic import (
     clustered_vectors,
     kmeans_labels,
@@ -12,4 +13,5 @@ __all__ = [
     "make_labeled_corpus",
     "make_queries",
     "randomize_labels",
+    "two_tower_batch",
 ]

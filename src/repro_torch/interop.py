@@ -16,6 +16,7 @@ from repro_torch.common.device import resolve_device
 from repro_torch.core.constraints import LabelSetConstraint, RangeConstraint
 from repro_torch.core.pq import PQIndex
 from repro_torch.core.types import Corpus, GraphIndex
+from repro_torch.models.recsys.models import RecsysConfig, TwoTower
 
 
 def _tensor(a: np.ndarray, dtype, dev: torch.device) -> torch.Tensor:
@@ -75,3 +76,33 @@ def pq_index_from_reference(*, codebooks: np.ndarray, codes: np.ndarray, device=
     dev = resolve_device(device)
     return PQIndex(codebooks=_tensor(codebooks, np.float32, dev),
                    codes=_tensor(codes, np.int32, dev))
+
+
+def two_tower_params_from_reference(params, cfg: RecsysConfig, *, device="cuda") -> TwoTower:
+    """The reference's two-tower param tree as numpy arrays (``user_emb``,
+    ``item_emb``, ``user_tower`` / ``item_tower`` {"layers": [{"w", "b"}]},
+    ``log_tau``) -> a ``TwoTower`` for ``cfg`` on ``device``. The
+    reference's ``w`` is (in, out); ``nn.Linear.weight`` takes ``w.T``."""
+    dev = resolve_device(device)
+    model = TwoTower(cfg, device=dev)
+    with torch.no_grad():
+        for name in ("user_emb", "item_emb", "log_tau"):
+            want = getattr(model, name)
+            got = _tensor(params[name], np.float32, dev)
+            if got.shape != want.shape:
+                raise ValueError(f"{name}: shape {tuple(got.shape)}, {cfg.name} has "
+                                 f"{tuple(want.shape)}")
+            want.copy_(got)
+        for name in ("user_tower", "item_tower"):
+            layers = getattr(model, name).layers
+            ref = params[name]["layers"]
+            if len(ref) != len(layers):
+                raise ValueError(f"{name}: {len(ref)} layers, {cfg.name} has {len(layers)}")
+            for layer, p in zip(layers, ref):
+                w = _tensor(np.asarray(p["w"]).T, np.float32, dev)
+                if w.shape != layer.weight.shape:
+                    raise ValueError(f"{name}: weight (in, out) {tuple(w.T.shape)}, "
+                                     f"{cfg.name} has {tuple(layer.weight.T.shape)}")
+                layer.weight.copy_(w)
+                layer.bias.copy_(_tensor(p["b"], np.float32, dev))
+    return model

@@ -29,7 +29,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNEL_STEMS = ("gather_distance", "fused_expand", "fused_expand_adc", "pq_adc", "l2_matmul")
+KERNEL_STEMS = ("gather_distance", "fused_expand", "fused_expand_adc", "pq_adc", "l2_matmul",
+                "embedding_bag")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # Last ptxas report (registers, spills) per stem, for the smoke's log.

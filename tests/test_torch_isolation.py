@@ -16,7 +16,15 @@ from repro_torch.core.queue import queue_init
 from repro_torch.core.visited import visited_init
 from repro_torch.data import make_labeled_corpus
 from repro_torch.graph import build_index, build_partitioned_index, nn_descent
-from repro_torch.interop import from_reference_arrays, pq_index_from_reference
+from repro_torch.archs.recsys import shape_batch
+from repro_torch.configs import smoke_two_tower
+from repro_torch.data import two_tower_batch
+from repro_torch.interop import (
+    from_reference_arrays,
+    pq_index_from_reference,
+    two_tower_params_from_reference,
+)
+from repro_torch.models.recsys import two_tower_init
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro")
@@ -89,8 +97,20 @@ def test_tensor_creators_default_to_cuda_and_raise_without_it():
     with pytest.raises(RuntimeError, match="CUDA"):
         pq_index_from_reference(codebooks=corpus.vectors.numpy()[None],
                                 codes=corpus.labels.numpy()[:, None])
+    cfg = smoke_two_tower()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        two_tower_init(g, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        two_tower_batch(0, 0, 4, cfg.user_vocab, cfg.item_vocab, cfg.hist_len)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        shape_batch(cfg, "serve_p99")
+    params = two_tower_init(g, cfg, device="cpu").state_dict()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        two_tower_params_from_reference(params, cfg)
 
 
 def test_generator_must_match_device():
     with pytest.raises(ValueError, match="generator"):
         make_labeled_corpus(torch.Generator(), 64, 4, 3, device="meta")
+    with pytest.raises(ValueError, match="generator"):
+        two_tower_init(torch.Generator(), smoke_two_tower(), device="meta")
