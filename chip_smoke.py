@@ -20,8 +20,10 @@ Phases, any failure exits non-zero:
      (1024, n, 128) and on edge cases (M = 1, ragged M / N / d, d = 1,
      identical rows), exact on integer inputs and within
      1e-5 * (|q|^2 + |x|^2) on float inputs; device time of each against
-     its bound, pq_adc's against one torch.nn.functional.embedding_bag call
-     and l2_matmul's against one torch.cdist call; embedding_bag over the
+     its bound (gather_distance also at airship_tt_256's d = 256, pq_adc
+     also against its shared-memory lookup floor), pq_adc's against one
+     torch.nn.functional.embedding_bag call and l2_matmul's against one
+     torch.cdist call; embedding_bag over the
      two-tower item table ((50,000,128, 256), 51.2 GB) at serve_bulk's
      (262,144 x 50) and serve_p99's (512 x 50) bags and on edge cases (a bag
      of padding only, L = 1, B = 1, D = 10 and 50 on the scalar path, rows
@@ -42,9 +44,11 @@ Phases, any failure exits non-zero:
      card: the exact kNN graph through l2_matmul (its time split into
      products, top-k and reverse edges, and its launch count checked), an
      NN-descent index of the same world through gather_distance
-     (NND_ITERS rounds; its time, its graph invariants and its kNN
-     recall@32 against the exact graph), and the PQ codebooks (m_sub = 16,
-     n_cent = 256);
+     (NND_ITERS rounds, one launch a round; its time split into distances,
+     sorts and the rest, its graph invariants and its kNN recall@32 against
+     the exact graph; gather_distance timed at a round's shape and at
+     NND_CHUNK-row chunks with a real round's ids), and the PQ codebooks
+     (m_sub = 16, n_cent = 256);
   6. search: 256 queries, equal-label constraint, prefer mode, through
      serve_256 (gather_distance), serve_256_beam4, serve_256_fused
      (fused_expand), serve_256_pq (ADC walk + exact re-rank),
@@ -85,6 +89,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 L2_BYTES = 50 * 2**20
 B, D_MAIN = 256, 128
+TT_DIM = 256  # the two-tower item tower's output width (airship_tt_256's d)
+NND_CHUNK = 65535  # rows of the chunks NN-descent once launched a round in (timed to compare)
 BUILD_BLOCK = 1024  # rows of one pairwise block of the exact kNN build
 # NN-descent rounds of the serve_256_nnd index. The reference's default of
 # 8 leaves the walk below its recall floor at n = 1M (its kNN recall@32 is
@@ -305,9 +311,93 @@ def kernel_phase(args, dev):
             log(f"time {name} B={B} M={m} d={D_MAIN} n={n}: kernel {t['ms'] * 1e3:.2f} us, "
                 f"plain {t['plain_ms'] * 1e3:.2f} us, bound {t['bound_ms'] * 1e3:.2f} us "
                 f"({t['bound_by']}), {n_sets} id sets cycled")
-    del corpora
+    del corpora, corpus
     torch.cuda.empty_cache()
+    gather_d256_timing(gen, n, dev)
     return max_err, timings
+
+
+def gather_d256_timing(gen, n, dev):
+    """gather_distance at airship_tt_256's shape: 256 queries x 32
+    candidates over n rows of d = TT_DIM (the item tower's width)."""
+    from repro_torch.kernels.gather_distance import gather_distance_cuda, gather_distance_plain
+
+    m = 32
+    corpus = torch.randn((n, TT_DIM), generator=gen, device=dev)
+    queries = torch.randn((B, TT_DIM), generator=gen, device=dev)
+    n_sets = max(2, math.ceil(2 * L2_BYTES / (B * m * TT_DIM * 4)))
+    sets, n_bytes, cands = [], 0.0, 0
+    for _ in range(n_sets):
+        ids = torch.randint(0, n, (B, m), generator=gen, dtype=torch.int32, device=dev)
+        sets.append((queries, corpus, ids))
+        nb, c = gathered_bytes(queries, corpus, ids)
+        n_bytes += nb + ids.numel() * 4
+        cands += c
+    bd = bound_ms(n_bytes / n_sets, 3.0 * TT_DIM * cands / n_sets)
+    got = gather_distance_cuda(*sets[0])
+    torch.cuda.synchronize()
+    compare_dists(f"gather_distance d={TT_DIM}", got, gather_distance_plain(*sets[0]), False)
+    t = dict(ms=device_ms(gather_distance_cuda, sets),
+             plain_ms=device_ms(gather_distance_plain, sets), bound_ms=bd[0], bound_by=bd[1])
+    log(f"time gather_distance B={B} M={m} d={TT_DIM} n={n} (airship_tt_256): kernel "
+        f"{t['ms'] * 1e3:.2f} us, plain {t['plain_ms'] * 1e3:.2f} us, bound "
+        f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}, {n_bytes / n_sets / 1e6:.2f} MB), "
+        f"{n_sets} id sets cycled")
+    del corpus
+    torch.cuda.empty_cache()
+
+
+def nnd_chunk_timing(vectors, nbrs, gen):
+    """gather_distance at build_nnd's shapes, with the ids of a real
+    NN-descent round (one more round's candidates over the built graph, with
+    fresh draws), which repeat and cluster: the round's one launch (n rows x
+    the round's candidates at d = 128) and, to compare with the earlier
+    kernel's launches, chunks of NND_CHUNK rows. Each bound is printed both
+    ways: each distinct row of the launch once, and each candidate's row
+    once per occurrence (the bound in the kernels line)."""
+    from repro_torch.graph.build import round_candidates
+    from repro_torch.kernels.gather_distance import gather_distance_cuda, gather_distance_plain
+
+    n, degree = nbrs.shape
+    dev = vectors.device
+    cols = torch.randint(0, degree, (n, degree, 2), generator=gen, device=dev, dtype=torch.int32)
+    rand = torch.randint(0, n, (n, degree), generator=gen, device=dev, dtype=torch.int32)
+    cand = round_candidates(nbrs, cols, rand)
+    del cols, rand
+    c = cand.shape[1]
+
+    def bounds(sets):
+        distinct, occ = 0.0, 0.0
+        for q, _, ids in sets:
+            extra = q.numel() * 4 + ids.numel() * 8  # queries, ids, (rows, C) output
+            valid = ids[ids >= 0]
+            distinct += torch.unique(valid).numel() * D_MAIN * 4 + extra
+            occ += valid.numel() * D_MAIN * 4 + extra
+        ops = 3.0 * D_MAIN * sets[0][2].numel()
+        return (bound_ms(occ / len(sets), ops), bound_ms(distinct / len(sets), ops),
+                occ / len(sets), distinct / len(sets))
+
+    chunks = [(vectors[s : s + NND_CHUNK], vectors, cand[s : s + NND_CHUNK].contiguous())
+              for s in range(0, n - NND_CHUNK + 1, NND_CHUNK)]  # whole chunks only
+    got = gather_distance_cuda(*chunks[0])
+    torch.cuda.synchronize()
+    err = compare_dists("gather_distance build_nnd chunk", got, gather_distance_plain(*chunks[0]),
+                        False)
+    del got
+    for shape, sets, reps in (("round", [(vectors, vectors, cand)], 2),
+                              ("chunk", chunks, len(chunks))):
+        b_occ, b_distinct, occ, distinct = bounds(sets)
+        ms = device_ms(gather_distance_cuda, sets, reps=reps, replays=3)
+        plain = (f"plain {events_ms(gather_distance_plain, chunks[0], reps=2):.4f} ms, "
+                 if shape == "chunk" else "")
+        log(f"time gather_distance build_nnd {shape} {sets[0][2].shape[0]} x {c} d={D_MAIN} "
+            f"n={n} (ids of a real NN-descent round): kernel {ms:.4f} ms, {plain}bound "
+            f"{b_occ[0]:.4f} ms per occurrence ({occ / 1e9:.3f} GB, {b_occ[1]}) / "
+            f"{b_distinct[0]:.4f} ms each distinct row once ({distinct / 1e9:.3f} GB); "
+            f"{occ / ms / 1e6:.1f} GB/s per occurrence; {len(sets)} id sets cycled; max abs err "
+            f"against the plain version {err:.3e}")
+    del chunks, cand
+    torch.cuda.empty_cache()
 
 
 def pq_inputs(gen, b, n, m_sub, n_cent, integer, dev):
@@ -434,10 +524,19 @@ def pq_kernel_phase(args, dev):
                 bound_ms=bd[0], bound_by=bd[1],
                 library_ms=device_ms(lambda o, t: F.embedding_bag(o, t, mode="sum"),
                                      [(offsets, table)], reps=5, replays=3))
+    # The design's lookup floor: B * N * m_sub 4-byte shared-memory lookups
+    # at 128 bytes a clock on every SM, without a bank conflict.
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clk = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60).stdout.split()
+    clk_hz = float(clk[0]) * 1e6 if clk else float("nan")
+    floor_ms = B * n * m_sub * 4 / (128 * sms * clk_hz) * 1e3
     log(f"time pq_adc B={B} N={n} m_sub={m_sub} n_cent={n_cent}: kernel {scan['ms']:.4f} ms, "
         f"plain {scan['plain_ms']:.4f} ms, bound {scan['bound_ms']:.4f} ms ({scan['bound_by']}, "
         f"{scan_bytes / 1e9:.3f} GB), library embedding_bag {scan['library_ms']:.4f} ms "
-        f"(max abs diff {lib_err:.3e})")
+        f"(max abs diff {lib_err:.3e}); lookup floor {floor_ms:.4f} ms ({B * n * m_sub:.3e} "
+        f"lookups, 128 B a clock on {sms} SMs at {clk_hz / 1e9:.3f} GHz)")
     del offsets, table, lut, codes, visited
     torch.cuda.empty_cache()
     return max_err, {"fused_expand_adc": timings, "pq_adc": scan}
@@ -847,7 +946,7 @@ def equal_up_to_ties(vec, want, got) -> bool:
         torch.where(strict, want, -1).sort(-1).values, torch.where(strict, got, -1).sort(-1).values)
 
 
-def graph_invariants(name, vectors, nbrs, strict, chunk=65535) -> None:
+def graph_invariants(name, vectors, nbrs, strict) -> None:
     """Self-free, duplicate-free, padded with -1 only at a row's end, no
     empty row, rows distance-ascending. ``strict``: by gather_distance's
     distances, which ordered an NN-descent graph; otherwise within 1e-6
@@ -863,11 +962,9 @@ def graph_invariants(name, vectors, nbrs, strict, chunk=65535) -> None:
     srt = torch.where(valid, nbrs, 2**31 - 1).sort(-1).values
     check(not bool(((srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] < 2**31 - 1)).any()),
           f"{name}: a duplicate edge")
-    for s in range(0, n, chunk):
-        ids = nbrs[s : s + chunk].contiguous()
-        d = gather_distance_cuda(vectors[s : s + chunk].contiguous(), vectors, ids)
-        ok = d[:, 1:] >= d[:, :-1] if strict else d[:, 1:] >= d[:, :-1] * (1 - 1e-6)
-        check(bool((ok | torch.isinf(d[:, 1:])).all()), f"{name}: a row not distance-ascending")
+    d = gather_distance_cuda(vectors, vectors, nbrs.contiguous())
+    ok = d[:, 1:] >= d[:, :-1] if strict else d[:, 1:] >= d[:, :-1] * (1 - 1e-6)
+    check(bool((ok | torch.isinf(d[:, 1:])).all()), f"{name}: a row not distance-ascending")
 
 
 KERNEL_NAMES = ("gather_distance", "fused_expand", "fused_expand_adc", "pq_adc", "l2_matmul",
@@ -995,20 +1092,23 @@ def search_phase(args, dev, launch: LaunchCounts):
     nnd_launches = launch.read()
     nnd_index = GraphIndex(neighbors=nnd_nbrs, sample_ids=nnd.sample_ids,
                            entry_point=nnd.entry_point)
-    chunks = math.ceil(args.n / 65535)
-    check(nnd_launches["gather_distance"] == (NND_ITERS + 1) * chunks,
+    check(nnd_launches["gather_distance"] == NND_ITERS + 1,
           f"nn_descent build: {nnd_launches['gather_distance']} gather_distance launches, "
-          f"expected {(NND_ITERS + 1) * chunks}")
+          f"expected one a round, {NND_ITERS + 1}")
     graph_invariants("nn_descent kNN graph", corpus.vectors, nnd.neighbors, strict=True)
     graph_invariants("nn_descent index", corpus.vectors, nnd_nbrs, strict=False)
     knn_recall = knn_graph_recall(nnd.neighbors, knn.neighbors)
+    sec = span_seconds(spans)
     log(f"build nn_descent: {NND_ITERS} rounds, kNN graph + sample + medoid "
-        f"{t6 - t5:.3f} s (host clock; nn_descent {span_seconds(spans)['nn_descent']:.3f} s "
-        f"by events), reverse edges {t7 - t6:.3f} s; invariants hold (self-free, duplicate-free, "
+        f"{t6 - t5:.3f} s (host clock; nn_descent {sec['nn_descent']:.3f} s by events = "
+        f"distances {sec['distances']:.3f} s + sorts {sec['sorts']:.3f} s + the rest "
+        f"{sec['nn_descent'] - sec['distances'] - sec['sorts']:.3f} s), "
+        f"reverse edges {t7 - t6:.3f} s; invariants hold (self-free, duplicate-free, "
         f"-1 padded, no empty row, rows distance-ascending); kNN recall@32 against the exact "
         f"graph {knn_recall:.4f} over all {args.n} rows (both before reverse edges); launches "
         f"{json.dumps(nnd_launches)}")
     del knn
+    nnd_chunk_timing(corpus.vectors, nnd.neighbors, ngen)
 
     base = dict(mode="prefer", k=10, ef_result=128, ef_sat=128, ef_other=128, n_start=32,
                 max_iters=512)

@@ -79,7 +79,8 @@ class SearchParams:
     # auto | on | off: one fused_expand pass per iteration plus sorted
     # merges (engine/context.py::resolve_auto_fuse decides "auto").
     fuse_expand: str = "auto"
-    # exact | pq (the PQ path is not ported yet).
+    # exact | pq (ADC traversal over PQ codes with exact re-rank,
+    # engine/context.py::PQBackend).
     approx: str = "exact"
 
     def __post_init__(self):

@@ -16,6 +16,9 @@
 // family (label / range / udf) and on the tombstone probe.
 #include <cuda_runtime.h>
 
+#include <algorithm>
+
+#include "grid.cuh"
 #include "probe.cuh"
 #include "sqdist.cuh"
 
@@ -64,24 +67,34 @@ fused_expand_kernel(const float* __restrict__ queries, const float* __restrict__
 
 // family: 0 label (meta int32 labels, cons (B, Lw) int32 words), 1 range
 // (meta float32 values, cons (B, 2) float32 bounds), 2 udf (meta int32
-// verdicts, cons unused). tomb may be null when with_tomb is 0.
+// verdicts, cons unused). tomb may be null when with_tomb is 0. The queries
+// ride grid y, so a batch past kGridY (65,535) launches in chunks of queries
+// with the per-query arrays offset; each output row depends only on its own
+// inputs, so the bits are those of one launch.
 extern "C" int repro_fused_expand(const float* queries, const float* corpus, const int* ids,
                                   const int* visited, const void* meta, const void* cons,
                                   const int* tomb, float* dists, bool* sat, bool* fresh, int B,
                                   int M, int d, int W, int Lw, int family, int with_tomb,
                                   int vec4, void* stream) {
   if (B == 0 || M == 0) return 0;
-  const dim3 grid((M + kWarps - 1) / kWarps, B);
   const size_t smem = static_cast<size_t>((d + 3) / 4) * sizeof(float4);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* mt = static_cast<const int*>(meta);
   const int* cs = static_cast<const int*>(cons);
-  const int status = repro_torch::with_family(family, with_tomb, [&](auto fam, auto tmb) {
-    fused_expand_kernel<decltype(fam)::value, decltype(tmb)::value>
-        <<<grid, kWarps * repro_torch::kWarpSize, smem, s>>>(
-            queries, corpus, ids, visited, mt, cs, tomb, dists, sat, fresh, M, d, W, Lw,
-            vec4 != 0);
-  });
-  if (status != 0) return status;
-  return static_cast<int>(cudaGetLastError());
+  const size_t cons_row = repro_torch::cons_words(family, Lw);
+  for (long long b0 = 0; b0 < B; b0 += repro_torch::kGridY) {
+    const size_t r = static_cast<size_t>(b0);
+    const unsigned nb = static_cast<unsigned>(std::min<long long>(B - b0, repro_torch::kGridY));
+    const dim3 grid((M + kWarps - 1) / kWarps, nb);
+    const int status = repro_torch::with_family(family, with_tomb, [&](auto fam, auto tmb) {
+      fused_expand_kernel<decltype(fam)::value, decltype(tmb)::value>
+          <<<grid, kWarps * repro_torch::kWarpSize, smem, s>>>(
+              queries + r * d, corpus, ids + r * M, visited + r * W, mt, cs + r * cons_row,
+              tomb, dists + r * M, sat + r * M, fresh + r * M, M, d, W, Lw, vec4 != 0);
+    });
+    if (status != 0) return status;
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }

@@ -24,6 +24,9 @@
 // PQ traversals give the same bits on the card.
 #include <cuda_runtime.h>
 
+#include <algorithm>
+
+#include "grid.cuh"
 #include "probe.cuh"
 
 namespace {
@@ -95,8 +98,8 @@ fused_expand_adc_kernel(const float* __restrict__ lut, const int* __restrict__ c
 }  // namespace
 
 // lut (B, m_sub, n_cent) float32, codes (n, m_sub) int32; the rest as
-// repro_fused_expand (fused_expand.cu). vec4: m_sub % 4 == 0 and codes
-// 16-byte aligned.
+// repro_fused_expand (fused_expand.cu), chunks of kGridY queries included.
+// vec4: m_sub % 4 == 0 and codes 16-byte aligned.
 extern "C" int repro_fused_expand_adc(const float* lut, const int* codes, const int* ids,
                                       const int* visited, const void* meta, const void* cons,
                                       const int* tomb, float* dists, bool* sat, bool* fresh,
@@ -105,15 +108,24 @@ extern "C" int repro_fused_expand_adc(const float* lut, const int* codes, const 
   if (B == 0 || M == 0) return 0;
   if (m_sub < 1 || n_cent < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int threads = M >= kMaxThreads ? kMaxThreads : (M + 31) / 32 * 32;
-  const dim3 grid((M + threads - 1) / threads, B);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* mt = static_cast<const int*>(meta);
   const int* cs = static_cast<const int*>(cons);
-  const int status = repro_torch::with_family(family, with_tomb, [&](auto fam, auto tmb) {
-    fused_expand_adc_kernel<decltype(fam)::value, decltype(tmb)::value><<<grid, threads, 0, s>>>(
-        lut, codes, ids, visited, mt, cs, tomb, dists, sat, fresh, M, m_sub, n_cent, W, Lw,
-        vec4 != 0);
-  });
-  if (status != 0) return status;
-  return static_cast<int>(cudaGetLastError());
+  const size_t cons_row = repro_torch::cons_words(family, Lw);
+  const size_t table = static_cast<size_t>(m_sub) * n_cent;
+  for (long long b0 = 0; b0 < B; b0 += repro_torch::kGridY) {
+    const size_t r = static_cast<size_t>(b0);
+    const unsigned nb = static_cast<unsigned>(std::min<long long>(B - b0, repro_torch::kGridY));
+    const dim3 grid((M + threads - 1) / threads, nb);
+    const int status = repro_torch::with_family(family, with_tomb, [&](auto fam, auto tmb) {
+      fused_expand_adc_kernel<decltype(fam)::value, decltype(tmb)::value>
+          <<<grid, threads, 0, s>>>(lut + r * table, codes, ids + r * M, visited + r * W, mt,
+                                    cs + r * cons_row, tomb, dists + r * M, sat + r * M,
+                                    fresh + r * M, M, m_sub, n_cent, W, Lw, vec4 != 0);
+    });
+    if (status != 0) return status;
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }

@@ -19,11 +19,14 @@
 // thread that loads a row's slice also adds the squares of what it loaded,
 // so the row norms come from the same pass over q and x. The epilogue forms
 // ((-2 * qx) + |q|^2) + |x|^2 (the order of the plain version), clamps at 0
-// and stores the tile with 64-bit offsets. Output tiles of one x tile are
-// adjacent in launch order (q tiles on grid x), so x is read from device
-// memory about once while q stays in L2. Ragged M, N and d are masked:
-// missing elements load as 0 and add nothing.
+// and stores the tile with 64-bit offsets. The q tiles ride grid x, the x
+// tiles grid y and then z (any N), so the output tiles of one x tile are
+// adjacent in launch order and x is read from device memory about once
+// while q stays in L2.
+// Ragged M, N and d are masked: missing elements load as 0 and add nothing.
 #include <cuda_runtime.h>
+
+#include "grid.cuh"
 
 namespace {
 
@@ -65,8 +68,12 @@ l2_matmul_kernel(const float* __restrict__ q, const float* __restrict__ x,
   const int tid = threadIdx.x;
   const int tx = tid & 15;  // column group of the 8 x 8 register tile
   const int ty = tid >> 4;  // row group
+  // q tiles on grid x (fastest in launch order), x tiles on grid y and then
+  // z (grid.cuh), so N takes any size.
+  const int n_tile = static_cast<int>(repro_torch::grid_row());
+  if (n_tile * kBN >= N) return;  // the last z slice's spare tiles
   const int m0 = blockIdx.x * kBM;
-  const int n0 = blockIdx.y * kBN;
+  const int n0 = n_tile * kBN;
 
   // Loader map: thread tid loads row tid / 2 of each tile, elements
   // (tid % 2) * 4 .. + 3 of each 8-wide slice.
@@ -174,15 +181,15 @@ l2_matmul_kernel(const float* __restrict__ q, const float* __restrict__ x,
 
 template <bool kVec4, bool kVecOut>
 void launch(const float* q, const float* x, float* out, int M, int N, int d, cudaStream_t s) {
-  const dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN);
+  const dim3 grid = repro_torch::rows_grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN);
   l2_matmul_kernel<kVec4, kVecOut><<<grid, kThreads, 0, s>>>(q, x, out, M, N, d);
 }
 
 }  // namespace
 
 // vec4: d % 4 == 0 and q, x 16-byte aligned (float4 loads); vec_out:
-// N % 4 == 0 and out 16-byte aligned (float4 stores). The wrapper checks
-// M <= 65535 * 128 and N <= 65535 * 128 (grid y).
+// N % 4 == 0 and out 16-byte aligned (float4 stores). The wrapper keeps
+// ceil(M / 128) below 2**31 (grid x); N takes any int.
 extern "C" int repro_l2_matmul(const float* q, const float* x, float* out, int M, int N, int d,
                                int vec4, int vec_out, void* stream) {
   if (M == 0 || N == 0) return 0;

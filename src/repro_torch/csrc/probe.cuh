@@ -65,6 +65,11 @@ __device__ __forceinline__ void probe_verdicts(const Probe& p, const int* __rest
   *fresh_out = ((static_cast<unsigned>(p.vword) >> bit) & 1u) == 0u;
 }
 
+// Words of cons per query row: Lw label words, 2 range bounds, none for udf.
+inline size_t cons_words(int family, int Lw) {
+  return family == kLabel ? static_cast<size_t>(Lw) : family == kRange ? 2 : 0;
+}
+
 // Call launch(std::integral_constant<int, FAMILY>, std::bool_constant<WITH_TOMB>)
 // for the runtime (family, with_tomb); cudaErrorInvalidValue for an
 // unknown family, else 0 (the caller then reads cudaGetLastError()).

@@ -1,8 +1,9 @@
 // Squared L2 by one warp, shared by gather_distance.cu and fused_expand.cu.
 //
-// Both kernels call this one function with the same lane-to-element map,
-// so the unfused (gather_distance) and fused (fused_expand) search paths
-// produce identical distance bits on the card. Each lane accumulates its
+// Both kernels use this lane-to-element map and this order (gather_distance's
+// register path repeats them with the query row in registers), so the
+// unfused (gather_distance) and fused (fused_expand) search paths produce
+// identical distance bits on the card. Each lane accumulates its
 // elements in ascending order with explicit fused multiply-adds (no
 // contraction left to the compiler), then an xor butterfly sums the 32
 // partials in a fixed order. Addition is commutative in IEEE arithmetic,

@@ -24,7 +24,6 @@ from repro_torch.kernels.l2_matmul import pairwise_sqdist
 
 PAD = -1
 INT32_MAX = 2**31 - 1
-GATHER_ROWS = 65535  # gather_distance's batch limit (grid y)
 PLAIN_GATHER_ELEMS = 1 << 24  # elements of one (rows, C, d) gather on the CPU
 
 
@@ -107,17 +106,16 @@ def _dedup_sorted_by_dist(ids, dists, degree: int):
 def _row_dists(vectors, cand):
     """(n, C) candidate ids -> ||x_cand - x_row||^2, +inf for self and PAD.
 
-    Row chunks go through ``gather_distance`` with the rows' own vectors
-    as queries, so the (n, C, d) gather is never whole on the card (64 GB
-    at n = 1M, C = 128, d = 128). Chunks stay within the kernel's batch
-    limit; on the CPU, whose plain version materialises the gather,
-    within ``PLAIN_GATHER_ELEMS``.
+    The rows go through ``gather_distance`` with their own vectors as
+    queries, so the (n, C, d) gather is never whole on the card (64 GB at
+    n = 1M, C = 128, d = 128): one launch over all n rows. On the CPU, whose
+    plain version materialises the gather, in chunks of
+    ``PLAIN_GATHER_ELEMS`` gathered elements.
     """
     n, c = cand.shape
     dev = vectors.device
-    chunk = GATHER_ROWS
-    if dev.type != "cuda":
-        chunk = min(chunk, max(1, PLAIN_GATHER_ELEMS // (c * vectors.shape[1])))
+    chunk = n if dev.type == "cuda" else PLAIN_GATHER_ELEMS // (c * vectors.shape[1])
+    chunk = max(1, chunk)
     out = torch.empty((n, c), dtype=torch.float32, device=dev)
     for s in range(0, n, chunk):
         ids = cand[s : s + chunk]
@@ -127,9 +125,23 @@ def _row_dists(vectors, cand):
     return out
 
 
+def round_candidates(nbrs, cols, rand):
+    """One NN-descent round's (n, degree * (1 + n_extra) + degree) candidate
+    ids: the current neighbours, ``nbrs[nbrs[i, j], cols[i, j, e]]`` (the
+    neighbours of neighbours, by flat index, without the (n, degree, degree)
+    gather; a PAD neighbour reads row 0, as in the reference), and ``rand``."""
+    n, degree = nbrs.shape
+    dev = nbrs.device
+    safe = nbrs.clamp_min(0).long()
+    flat = safe[:, :, None] * degree + cols.to(device=dev).long()
+    nn2 = nbrs.reshape(-1)[flat.reshape(n, -1)]
+    del flat, safe
+    return torch.cat([nbrs, nn2, rand.to(device=dev, dtype=torch.int32)], dim=-1)
+
+
 def nn_descent(generator: torch.Generator, vectors, degree: int, iters: int = 8,
                n_extra: int = 2, *, draws: Optional[Dict[str, object]] = None,
-               device="cuda"):
+               device="cuda", spans=None):
     """NN-descent approximate kNN graph (n, degree) int32 (port of
     ``repro.graph.build.nn_descent``).
 
@@ -141,7 +153,9 @@ def nn_descent(generator: torch.Generator, vectors, degree: int, iters: int = 8,
     in [0, n), and per round ``cols[r]`` (n, degree, n_extra) in
     [0, degree) and ``rand[r]`` (n, degree) in [0, n), integer tensors on
     any device. Without it they are drawn from ``generator``. The graph is
-    built on ``device``, where ``vectors`` must lie.
+    built on ``device``, where ``vectors`` must lie. ``spans`` (a dict,
+    optional) collects the device time of the row distances ("distances")
+    and of the dedup sorts ("sorts"), as in ``build_knn_graph``.
     """
     n = vectors.shape[0]
     dev = resolve_device(device)
@@ -160,23 +174,20 @@ def nn_descent(generator: torch.Generator, vectors, degree: int, iters: int = 8,
         k0, cols_r, rand_r = draws["k0"], draws["cols"], draws["rand"]
         if len(cols_r) != iters or len(rand_r) != iters:
             raise ValueError(f"draws hold {len(cols_r)} / {len(rand_r)} rounds, iters={iters}")
-    k0 = k0.to(device=dev, dtype=torch.int32).contiguous()
-    nbrs, _ = _dedup_sorted_by_dist(k0, _row_dists(vectors, k0), degree)
+
+    def refine(cand):
+        with span(spans, "distances", dev):
+            dists = _row_dists(vectors, cand)
+        with span(spans, "sorts", dev):
+            return _dedup_sorted_by_dist(cand, dists, degree)[0]
+
+    nbrs = refine(k0.to(device=dev, dtype=torch.int32).contiguous())
     for r in range(iters):
         if draws is None:
             cols, rand = randint(degree, (n, degree, n_extra)), randint(n, (n, degree))
         else:
             cols, rand = cols_r[r], rand_r[r]
-        # nbrs[nbrs[i, j], cols[i, j, e]] by flat index, without the
-        # (n, degree, degree) gather; a PAD neighbour reads row 0, as in
-        # the reference.
-        safe = nbrs.clamp_min(0).long()
-        flat = safe[:, :, None] * degree + cols.to(device=dev).long()
-        nn2 = nbrs.reshape(-1)[flat.reshape(n, degree * n_extra)]
-        del flat, safe
-        cand = torch.cat([nbrs, nn2, rand.to(device=dev, dtype=torch.int32)], dim=-1)
-        nbrs, _ = _dedup_sorted_by_dist(cand, _row_dists(vectors, cand), degree)
-        del cand, nn2
+        nbrs = refine(round_candidates(nbrs, cols, rand))
     return nbrs
 
 

@@ -26,7 +26,8 @@ def build_index(generator: torch.Generator, corpus: Corpus, degree: int = 16,
     AIRSHIP-Start sample (§2.2) is drawn uniformly without replacement from
     ``generator`` after the graph, with no knowledge of queries. ``spans``
     (a dict, optional) collects the device time of the build's parts:
-    "products" and "topk" of the exact graph, "nn_descent", "reverse_edges"
+    "products" and "topk" of the exact graph, "nn_descent" (within it
+    "distances" and "sorts"), "reverse_edges"
     (read them with ``graph.build.span_seconds``).
     """
     dev = resolve_device(device)
@@ -38,7 +39,7 @@ def build_index(generator: torch.Generator, corpus: Corpus, degree: int = 16,
     elif method == "nn_descent":
         with span(spans, "nn_descent", dev):
             nbrs = nn_descent(generator, corpus.vectors, degree, iters=nn_descent_iters,
-                              device=dev)
+                              device=dev, spans=spans)
     else:
         raise ValueError(f"unknown build method: {method}")
     if reverse_edges:

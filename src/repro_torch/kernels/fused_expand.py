@@ -85,6 +85,7 @@ def _check_probe(dev, n, b, ids, visited, meta, cons, tomb, family) -> None:
         require(t.dtype == dtype, f"{name} must be {dtype}, got {t.dtype}")
         require(t.is_contiguous(), f"{name} must be contiguous")
     require(ids.dim() == 2 and ids.shape[0] == b, "ids must be (B, M)")
+    require(b < 2**31 and ids.shape[1] < 2**31, "B and M must be < 2**31")
     require(visited.dim() == 2 and visited.shape[0] == b and visited.shape[1] >= n_words(n),
             "visited must be (B, >= ceil(n/32))")
     require(meta.shape == (n,), "meta must be (n,)")
@@ -94,7 +95,6 @@ def _check_probe(dev, n, b, ids, visited, meta, cons, tomb, family) -> None:
         require(cons.shape == (b, 2), "range cons must be (B, 2)")
     if tomb is not None:
         require(tomb.dim() == 1 and tomb.shape[0] >= n_words(n), "tomb must be (>= ceil(n/32),)")
-    require(b <= 65535, "batch must be <= 65535 (grid y)")
 
 
 def _check(queries, corpus, ids, visited, meta, cons, tomb, family) -> None:
@@ -168,8 +168,8 @@ def _check_adc(lut, codes, ids, visited, meta, cons, tomb, family) -> None:
 
 def fused_expand_adc_cuda(lut, codes, ids, visited, meta, cons, tomb=None, *, family):
     """Launch the CUDA kernel on the current stream; does not synchronise.
-    Codes outside [0, n_cent) are clamped into it (the plain version's
-    gather raises on them)."""
+    Codes outside [0, n_cent) read entry n_cent - 1 (an unsigned clamp;
+    the plain version's gather raises on them)."""
     _check_adc(lut, codes, ids, visited, meta, cons, tomb, family)
     fn = kernel_entry("fused_expand_adc", "repro_fused_expand_adc", _ADC_ARGTYPES)
     b, m_sub, n_cent = lut.shape

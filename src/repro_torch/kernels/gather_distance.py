@@ -8,10 +8,12 @@ Bound on the card: device-memory bytes. Each candidate reads one d-float
 corpus row (512 bytes at d = 128) and does 3*d operations, far below the
 H100's ~20 operations a byte in float32, so the least time is the gathered
 bytes over 3.35 TB/s. The CUDA kernel (``csrc/gather_distance.cu``) is
-written for that: one warp per candidate streams the row with coalesced
-16-byte loads, the query row is read once per block into shared memory, and
-the (B, M, d) gather is never written back to memory. The plain version
-below materialises that gather and serves the CPU.
+written for that: each warp owns a few candidates of one query, keeps the
+query row in registers and issues all its candidates' coalesced 16-byte row
+loads before any reduction (rows of any d, or unaligned ones, take a path
+with the query row in shared memory, one warp a candidate); the (B, M, d)
+gather is never written back to memory. The plain version below
+materialises that gather and serves the CPU.
 """
 from __future__ import annotations
 
@@ -23,8 +25,8 @@ from repro_torch.common.distances import batched_rowwise_sqdist
 from repro_torch.kernels import check_launch, current_stream_ptr, dispatch, kernel_entry, require
 
 MAX_DIM = 12288  # the query row must fit the 48 KB of static shared memory
-# queries, corpus, ids, out; B, M, d, vec4; stream
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+# queries, corpus, ids, out; B, M, d; stream
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 def gather_distance_plain(queries, corpus, ids):
@@ -44,7 +46,7 @@ def _check(queries, corpus, ids) -> None:
     require(corpus.shape[1] == queries.shape[1], "queries and corpus widths differ")
     require(ids.shape[0] == queries.shape[0], "ids and queries batch sizes differ")
     require(queries.shape[1] <= MAX_DIM, f"d must be <= {MAX_DIM}")
-    require(queries.shape[0] <= 65535, "batch must be <= 65535 (grid y)")
+    require(ids.shape[0] < 2**31 and ids.shape[1] < 2**31, "B and M must be < 2**31")
 
 
 def gather_distance_cuda(queries, corpus, ids):
@@ -54,9 +56,8 @@ def gather_distance_cuda(queries, corpus, ids):
     b, d = queries.shape
     m = ids.shape[1]
     out = torch.empty((b, m), dtype=torch.float32, device=queries.device)
-    vec4 = int(d % 4 == 0 and corpus.data_ptr() % 16 == 0)
     status = fn(queries.data_ptr(), corpus.data_ptr(), ids.data_ptr(), out.data_ptr(),
-                b, m, d, vec4, current_stream_ptr(queries.device))
+                b, m, d, current_stream_ptr(queries.device))
     check_launch("gather_distance", status)
     gather_distance.launches += 1
     return out

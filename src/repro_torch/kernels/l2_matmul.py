@@ -28,7 +28,6 @@ from repro_torch.common.distances import squared_l2
 from repro_torch.kernels import check_launch, current_stream_ptr, dispatch, kernel_entry, require
 
 TILE = 128  # output tile edge (csrc/l2_matmul.cu kBM, kBN)
-MAX_ROWS = 65535 * TILE  # N tiles ride grid y
 # q, x, out; M, N, d, vec4, vec_out; stream
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
@@ -46,7 +45,7 @@ def _check(q, x) -> None:
         require(t.is_contiguous(), f"{name} must be contiguous")
     require(q.shape[1] == x.shape[1], "q and x widths differ")
     require(q.shape[1] >= 1, "d must be >= 1")
-    require(x.shape[0] <= MAX_ROWS and q.shape[0] < 2**31, f"N must be <= {MAX_ROWS}")
+    require(q.shape[0] < 2**31 and x.shape[0] < 2**31, "M and N must be < 2**31 (int rows)")
 
 
 def l2_matmul_cuda(q, x):

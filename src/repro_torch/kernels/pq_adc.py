@@ -7,11 +7,13 @@ Replaces the TPU kernel ``repro/kernels/pq_adc/pq_adc.py``
 Bound on the card: device-memory bytes. The (B, N) float32 output
 dominates (1 GB at B = 256, N = 1M) beside the (N, m_sub) codes read once
 and the LUT read once; the m_sub adds a distance are ~1/16 operation a
-byte. The CUDA kernel (``csrc/pq_adc.cu``) stages a group of queries' LUTs
-in shared memory, gives each thread one code row at a time (read once for
-the whole group), and writes the output coalesced along v. The TPU
-kernel's one-hot x LUT product on the matrix unit does not carry over: a
-shared-memory lookup is the card's gather.
+byte. Its m_sub lookups a distance (16.4 GB of shared-memory reads at
+B = 256, N = 1M) are the design's own floor, ~0.5 ms. The CUDA kernel
+(``csrc/pq_adc.cu``) stages a group of queries' LUTs in shared memory as
+[s][code][q] and runs a warp's lanes over queries, so the lanes that serve
+one code row read consecutive words of one code's entry and few bank
+conflicts remain. The TPU kernel's one-hot x LUT product on the matrix
+unit does not carry over: a shared-memory lookup is the card's gather.
 
 Summation order is pinned: every path adds the m_sub entries left to right
 (s = 0, 1, ...), in the plain versions here and in both CUDA kernels, so
@@ -27,11 +29,10 @@ import torch
 from repro_torch.kernels import check_launch, current_stream_ptr, dispatch, kernel_entry, require
 
 SMEM_LIMIT = 232_448  # bytes of shared memory one block may use (sm_90)
-MAX_GROUP = 8  # queries whose LUTs one block stages (csrc/pq_adc.cu kMaxQ)
 # Elements of one (B, rows, m_sub) gather in the plain scan.
 PLAIN_CHUNK_ELEMS = 1 << 26
-# lut, codes, out; B, N, m_sub, n_cent, group, vec4; stream
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+# lut, codes, out; B, N, m_sub, n_cent, vec4; stream
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def ordered_sum(g):
@@ -71,12 +72,6 @@ def pq_adc_plain(lut, codes):
     return out
 
 
-def group_size(m_sub: int, n_cent: int) -> int:
-    """Queries per block: as many LUTs as fit the block's shared memory,
-    at most ``MAX_GROUP``."""
-    return min(MAX_GROUP, SMEM_LIMIT // (m_sub * n_cent * 4))
-
-
 def _check(lut, codes) -> None:
     dev = lut.device
     for name, t, dtype in (("lut", lut, torch.float32), ("codes", codes, torch.int32)):
@@ -92,16 +87,16 @@ def _check(lut, codes) -> None:
 
 def pq_adc_cuda(lut, codes):
     """Launch the CUDA kernel on the current stream; does not synchronise.
-    Codes outside [0, n_cent) are clamped into it (the plain version's
-    gather raises on them)."""
+    Codes outside [0, n_cent) read entry n_cent - 1 (an unsigned clamp;
+    the plain version's gather raises on them)."""
     _check(lut, codes)
     fn = kernel_entry("pq_adc", "repro_pq_adc", _ARGTYPES)
     b, m_sub, n_cent = lut.shape
     n = codes.shape[0]
     out = torch.empty((b, n), dtype=torch.float32, device=lut.device)
     vec4 = int(m_sub % 4 == 0 and codes.data_ptr() % 16 == 0)
-    status = fn(lut.data_ptr(), codes.data_ptr(), out.data_ptr(), b, n, m_sub, n_cent,
-                group_size(m_sub, n_cent), vec4, current_stream_ptr(lut.device))
+    status = fn(lut.data_ptr(), codes.data_ptr(), out.data_ptr(), b, n, m_sub, n_cent, vec4,
+                current_stream_ptr(lut.device))
     check_launch("pq_adc", status)
     pq_adc.launches += 1
     return out

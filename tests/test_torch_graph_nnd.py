@@ -104,7 +104,8 @@ def test_build_index_nn_descent_invariants():
                             reverse_edges=reverse, nn_descent_iters=4, device="cpu",
                             spans=spans)
         seconds = span_seconds(spans)
-        assert set(seconds) == {"nn_descent"} | ({"reverse_edges"} if reverse else set())
+        assert set(seconds) == ({"nn_descent", "distances", "sorts"}
+                                | ({"reverse_edges"} if reverse else set()))
         assert all(t > 0 for t in seconds.values())
         assert index.neighbors.shape == (700, 8)
         graph_invariants(vec, index.neighbors.numpy())
