@@ -1,8 +1,8 @@
-// Rows of a launch past grid y's 65,535 blocks. gather_distance and
-// l2_matmul put their rows (queries, corpus tiles) on grid y and then z, so
-// grid x keeps its meaning and launch order (x fastest, then y, then z)
-// and no kernel divides to find its row. fused_expand and
-// fused_expand_adc keep their kernels and launch kGridY queries at a time.
+// Rows of a launch past grid y's 65,535 blocks. gather_distance,
+// fused_expand and fused_expand_adc put their queries, and l2_matmul its
+// corpus tiles, on grid y and then z, so grid x keeps its meaning and
+// launch order (x fastest, then y, then z) and no kernel divides to find
+// its row.
 #pragma once
 
 #include <cuda_runtime.h>

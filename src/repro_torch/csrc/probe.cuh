@@ -1,13 +1,17 @@
 // The per-candidate verdicts shared by fused_expand.cu and fused_expand_adc.cu:
 //   satisfied = constraint(meta[id]) && !tombstoned(id)
 //   fresh     = visited bit (b, id) clear
-// for a valid id (>= 0). Both fused kernels call these two functions, so
-// they evaluate the visited word, the three constraint families, the
-// tombstone bit and bit 31 of every word with one piece of code.
+// for a valid id (>= 0). Both fused kernels call probe_verdicts, so they
+// evaluate the visited word, the three constraint families, the tombstone
+// bit and bit 31 of every word with one piece of code.
 //
-// The loads (probe_load) are split from the tests (probe_verdicts) so a
-// kernel can issue them before its distance work and let their latency
-// hide behind it.
+// The loads are the kernels' own, so each issues them where its latency
+// hides best: probe_load (visited, meta and tombstone words) beside the
+// candidate's row or code loads; the label family's constraint word
+// (Probe::cword, word lab >> 5 of the query's row) as soon as meta[id]
+// arrives, from wherever the kernel keeps the query's row (registers,
+// shared memory or device memory) and before its distance is reduced; the
+// range family's two bounds once per query.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -22,40 +26,45 @@ namespace repro_torch {
 enum Family : int { kLabel = 0, kRange = 1, kUdf = 2 };
 
 struct Probe {
-  int vword;  // visited word (b, id >> 5)
-  int mval;   // meta[id]
-  int tword;  // tombstone word id >> 5 (0 without tombstones)
+  int vword;       // visited word (b, id >> 5)
+  int mval;        // meta[id]
+  int tword;       // tombstone word id >> 5 (0 without tombstones)
+  unsigned cword;  // label family: word mval >> 5 of the query's row, 0 outside the row
 };
 
 template <bool WITH_TOMB>
 __device__ __forceinline__ Probe probe_load(const int* __restrict__ visited,
                                             const int* __restrict__ meta,
-                                            const int* __restrict__ tomb, int b, int W, int id) {
+                                            const int* __restrict__ tomb, long long b, int W,
+                                            int id) {
   Probe p;
   p.vword = __ldg(visited + static_cast<size_t>(b) * W + (id >> 5));
   p.mval = __ldg(meta + id);
   p.tword = WITH_TOMB ? __ldg(tomb + (id >> 5)) : 0;
+  p.cword = 0u;
   return p;
 }
 
+// Whether label lab has a bit in a row of Lw words.
+__device__ __forceinline__ bool label_in_row(int lab, int Lw) {
+  return lab >= 0 && (lab >> 5) < Lw;
+}
+
+// Word lab >> 5 of a row of Lw words (shared or device memory), 0 outside it.
+__device__ __forceinline__ unsigned label_word(const int* row, int Lw, int lab) {
+  return label_in_row(lab, Lw) ? static_cast<unsigned>(row[lab >> 5]) : 0u;
+}
+
+// lo, hi: the range family's bounds for the query (unused otherwise).
 template <int FAMILY, bool WITH_TOMB>
-__device__ __forceinline__ void probe_verdicts(const Probe& p, const int* __restrict__ cons,
-                                               int b, int Lw, int id, bool* ok_out,
-                                               bool* fresh_out) {
+__device__ __forceinline__ void probe_verdicts(const Probe& p, float lo, float hi, int id,
+                                               bool* ok_out, bool* fresh_out) {
   const unsigned bit = static_cast<unsigned>(id) & 31u;
   bool ok;
   if (FAMILY == kLabel) {
-    const int lab = p.mval;
-    ok = false;
-    if (lab >= 0 && (lab >> 5) < Lw) {
-      const unsigned cw =
-          static_cast<unsigned>(__ldg(cons + static_cast<size_t>(b) * Lw + (lab >> 5)));
-      ok = ((cw >> (static_cast<unsigned>(lab) & 31u)) & 1u) != 0u;
-    }
+    ok = ((p.cword >> (static_cast<unsigned>(p.mval) & 31u)) & 1u) != 0u;
   } else if (FAMILY == kRange) {
     const float v = __int_as_float(p.mval);
-    const float lo = __int_as_float(__ldg(cons + 2 * b));
-    const float hi = __int_as_float(__ldg(cons + 2 * b + 1));
     ok = (v >= lo) && (v <= hi);
   } else {
     ok = p.mval != 0;
@@ -66,8 +75,8 @@ __device__ __forceinline__ void probe_verdicts(const Probe& p, const int* __rest
 }
 
 // Words of cons per query row: Lw label words, 2 range bounds, none for udf.
-inline size_t cons_words(int family, int Lw) {
-  return family == kLabel ? static_cast<size_t>(Lw) : family == kRange ? 2 : 0;
+__host__ __device__ __forceinline__ int cons_words(int family, int Lw) {
+  return family == kLabel ? Lw : family == kRange ? 2 : 0;
 }
 
 // Call launch(std::integral_constant<int, FAMILY>, std::bool_constant<WITH_TOMB>)

@@ -6,15 +6,24 @@ Replaces the TPU kernel ``repro/kernels/fused_expand/fused_expand.py``
 (``fuse_expand="on"``); ``fused_expand_adc`` replaces its PQ twin
 ``fused_expand_adc_kernel`` (code rows + LUT sums, ``approx="pq"``).
 
-Bound on the card: device-memory bytes, as ``gather_distance``: one d-float
-row, a 4-byte metadata word, a visited word and a label word (or two
-bounds) per candidate. The CUDA kernel (``csrc/fused_expand.cu``) keeps
-``gather_distance``'s layout and its warp reduction (``csrc/sqdist.cuh``,
-so fused and unfused distances are the same bits) and folds the probes into
-lane 0, issued before the row reduction so their latency hides behind it.
-The masks are written straight into ``torch.bool`` tensors.
-``csrc/fused_expand_adc.cu`` gives one thread to one candidate: a 64-byte
-code row and m_sub LUT entries in place of the 512-byte row. Both kernels
+Bound on the card: at the search's 256 x 32 candidates, latency (the
+chain of dependent memory trips from a candidate's id to its stores), not
+the bytes (one d-float row or one code row, a 4-byte metadata word, a
+visited word and a label word or two bounds per candidate). The CUDA
+kernel (``csrc/fused_expand.cu``) runs ``gather_distance``'s register path
+(``csrc/sqdist.cuh``: a warp owns several candidates of one query, the
+query row in registers, every row load issued before any reduction), so
+fused and unfused distances are the same bits by construction; lane c
+issues candidate c's visited, meta and tombstone words beside the row
+loads, takes the query's constraint word from a register (up to 32 label
+words) or as soon as the meta word arrives, and writes candidate c's
+distance and masks as coalesced stores. ``csrc/fused_expand_adc.cu`` gives
+a block the candidates of one query, four lanes a candidate: unless all
+its ids are padding, the query's LUT and constraint row are copied into
+shared memory (``cp.async``) while the probes and code rows are in flight,
+and the m_sub lookups read shared memory (a table too large for it is
+read in device memory). The
+masks are written straight into ``torch.bool`` tensors. Both kernels
 evaluate the verdicts with one shared piece of code (``csrc/probe.cuh``).
 
   satisfied = valid & constraint(meta[id]) & not tombstoned(id)
@@ -35,11 +44,11 @@ from repro_torch.kernels.pq_adc import adc_lookup
 
 FAMILIES = ("label", "range", "udf")
 # queries, corpus, ids, visited, meta, cons, tomb, dists, sat, fresh;
-# B, M, d, W, Lw, family, with_tomb, vec4; stream
-_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+# B, M, d, W, Lw, family, with_tomb; stream
+_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 # lut, codes, ids, visited, meta, cons, tomb, dists, sat, fresh;
-# B, M, m_sub, n_cent, W, Lw, family, with_tomb, vec4; stream
-_ADC_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+# B, M, m_sub, n_cent, W, Lw, family, with_tomb; stream
+_ADC_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
 def _fresh_and_sat(ids, visited, meta, cons, family, tomb=None):
@@ -119,12 +128,11 @@ def fused_expand_cuda(queries, corpus, ids, visited, meta, cons, tomb=None, *, f
     dists = torch.empty((b, m), dtype=torch.float32, device=dev)
     sat = torch.empty((b, m), dtype=torch.bool, device=dev)
     fresh = torch.empty((b, m), dtype=torch.bool, device=dev)
-    vec4 = int(d % 4 == 0 and corpus.data_ptr() % 16 == 0)
     status = fn(queries.data_ptr(), corpus.data_ptr(), ids.data_ptr(), visited.data_ptr(),
                 meta.data_ptr(), cons.data_ptr(), 0 if tomb is None else tomb.data_ptr(),
                 dists.data_ptr(), sat.data_ptr(), fresh.data_ptr(),
                 b, m, d, visited.shape[1], cons.shape[-1], FAMILIES.index(family),
-                int(tomb is not None), vec4, current_stream_ptr(dev))
+                int(tomb is not None), current_stream_ptr(dev))
     check_launch("fused_expand", status)
     fused_expand.launches += 1
     return dists, sat, fresh
@@ -178,12 +186,11 @@ def fused_expand_adc_cuda(lut, codes, ids, visited, meta, cons, tomb=None, *, fa
     dists = torch.empty((b, m), dtype=torch.float32, device=dev)
     sat = torch.empty((b, m), dtype=torch.bool, device=dev)
     fresh = torch.empty((b, m), dtype=torch.bool, device=dev)
-    vec4 = int(m_sub % 4 == 0 and codes.data_ptr() % 16 == 0)
     status = fn(lut.data_ptr(), codes.data_ptr(), ids.data_ptr(), visited.data_ptr(),
                 meta.data_ptr(), cons.data_ptr(), 0 if tomb is None else tomb.data_ptr(),
                 dists.data_ptr(), sat.data_ptr(), fresh.data_ptr(),
                 b, m, m_sub, n_cent, visited.shape[1], cons.shape[-1], FAMILIES.index(family),
-                int(tomb is not None), vec4, current_stream_ptr(dev))
+                int(tomb is not None), current_stream_ptr(dev))
     check_launch("fused_expand_adc", status)
     fused_expand_adc.launches += 1
     return dists, sat, fresh

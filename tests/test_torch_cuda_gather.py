@@ -5,7 +5,7 @@ The register path (d % 4 == 0, 16-byte aligned rows and queries,
 d <= 256: a warp owns several candidates of one query) and the
 shared-memory path (any other d, or an unaligned query row) both add in
 sqdist.cuh's order, so they give the same bits as each other and as
-fused_expand (which calls warp_sqdist) on float inputs too. Against the
+fused_expand (which runs the same sqdist.cuh code) on float inputs too. Against the
 plain version: exact on integer-valued inputs, within 1e-5 relative on
 float inputs (another order of additions). M runs over counts that are
 not multiples of the candidates a warp owns; one query row is all padding.

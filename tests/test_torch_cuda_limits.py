@@ -2,8 +2,7 @@
 
 gather_distance, fused_expand and fused_expand_adc once put the batch on
 grid y (at most 65,535 queries) and l2_matmul its corpus tiles there (at
-most 8,388,480 rows). Now gather_distance and l2_matmul carry on into grid
-z and the fused kernels launch 65,535 queries at a time (csrc/grid.cuh),
+most 8,388,480 rows). Now all four carry on into grid z (csrc/grid.cuh),
 so they take any size, as the Pallas kernels do. Each output row depends only on its own inputs, so the rows past
 the old limits are held to the plain versions exactly (integer inputs).
 

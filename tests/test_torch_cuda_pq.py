@@ -7,7 +7,11 @@ Marked ``cuda``; each test skips where there is no CUDA device. JAX-free:
 Every path adds the m_sub LUT entries left to right, one rounded add at a
 time (kernels/pq_adc.py), so the kernels equal their plain versions bit for
 bit on float LUTs as well as integer ones; masks are exact; the fused
-kernel's distances equal the unfused ``PQBackend.distances``.
+kernel's distances equal the unfused ``PQBackend.distances``. Tables of
+every size fused_expand_adc meets: 16 KB (staged in shared memory), 64 KB
+(staged after the opt-in past 48 KB), one that with its constraint row
+just exceeds a block's 227 KB and one of 256 KB (both looked up in device
+memory), and n_cent = 16.
 """
 import pytest
 import torch
@@ -15,7 +19,7 @@ import torch
 from repro_torch.core.engine.context import PQBackend
 from repro_torch.kernels.fused_expand import fused_expand_adc, fused_expand_adc_plain
 from repro_torch.kernels.pq_adc import pq_adc, pq_adc_cuda, pq_adc_plain
-from test_torch_cuda import MS, B, dev, make_inputs  # noqa: F401 (dev is a fixture)
+from test_torch_cuda import MS, B, N, dev, make_inputs  # noqa: F401 (dev is a fixture)
 
 
 def make_pq(dev, b, n, m_sub, n_cent, integer, seed=0):  # noqa: F811
@@ -83,3 +87,28 @@ def test_pq_wrappers_reject_bad_inputs(dev):  # noqa: F811
                                family="label")
     torch.cuda.synchronize()
     assert out.shape == (B, 0) and d.shape == (B, 0)
+
+
+@pytest.mark.cuda
+def test_fused_expand_adc_table_sizes(dev):  # noqa: F811
+    """Bit for bit against the plain version and against pq_adc_cuda's scan
+    (which takes tables up to 227 KB), with codes at 0 and n_cent - 1."""
+    for m_sub, n_cent in ((16, 256), (64, 256), (227, 256), (64, 1024), (16, 16)):
+        for integer in (True, False):
+            for family, tomb in (("label", False), ("range", True)):
+                _, _, ids, visited, meta, cons, tombs = make_inputs(dev, family, 45, 16, integer,
+                                                                    tomb, seed=m_sub)
+                ids[:, 1], ids[:, 2] = 0, 1  # rows 0 and 1 hold the extreme codes
+                ids[3] = -1  # a query row of padding only
+                lut, codes = make_pq(dev, B, N, m_sub, n_cent, integer, seed=n_cent)
+                args = (lut, codes, ids, visited, meta, cons, tombs)
+                d, s, f = fused_expand_adc(*args, family=family)
+                torch.cuda.synchronize()
+                pd, ps, pf = fused_expand_adc_plain(*args, family=family)
+                tag = (m_sub, n_cent, integer, family)
+                assert torch.equal(d, pd), tag
+                assert torch.equal(s, ps) and torch.equal(f, pf), tag
+                assert torch.isinf(d[3]).all()
+                if m_sub * n_cent * 4 <= 232_448:
+                    scan = pq_adc_cuda(lut, codes).gather(1, ids.clamp_min(0).long())
+                    assert torch.equal(d, torch.where(ids >= 0, scan, float("inf"))), tag
