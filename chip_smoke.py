@@ -75,6 +75,31 @@ Phases, any failure exits non-zero:
      the exact oracle and every returned item in its category; the device
      busy share of one serve_bulk batch; peak device memory.
 
+Between 6 and 7, phase 6b, streaming and hybrid, over phase 6's corpus,
+exact index, queries and search parameters (attrs (n, 2) uniform from a
+generator of its own): StreamingIndex.from_static (capacity 1.5M,
+ef_insert 32, seed --seed); 10,000 deletes, every query's true top-1
+among them; serve_256 and serve_256_fused over the published snapshot
+(no tombstoned id returned, fused == unfused in ids, dists and every
+stat, recall@10 >= 0.5 against the exact oracle on the tombstoned
+corpus); 64 inserts of live rows plus 0.01 noise (per-insert wall p50 /
+p99, the publish time, one gather_distance launch an insert, each new
+row's invariants, the share a walk finds at distance 0 held to
+REACH_FLOOR); consolidate() of every pending slot (its wall and
+gather_distance launches, slot accounting, histograms and postings
+exact, the invariants of every rewritten row, no edge into a freed
+slot, a live entry vertex); 64 more inserts, which must take the
+reclaimed slots in LIFO order; serve_256 again (recall floor, no dead
+id); the strategy router over the index's histograms, postings and
+range postings (10 labels, three range windows of ~0.05%, ~2% and ~30%
+-> posting, posting, graph); posting_search with gather_distance on the
+two posting windows, against the exact oracle up to distance ties (1e-5
+relative) and equal to the plain scan on integer rows; one label's
+overlay (~100k rows, degree 32, l2_matmul) searched by 256 queries near
+that label's rows (every id a live posting, recall@10 >= 0.5). It
+prints `inserts`, `streaming` and `hybrid` lines; its launches join the
+totals of the kernels line.
+
 It prints a {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
 It imports nothing of JAX or of the JAX package.
 """
@@ -1050,23 +1075,25 @@ def equal_up_to_ties(vec, want, got) -> bool:
         torch.where(strict, want, -1).sort(-1).values, torch.where(strict, got, -1).sort(-1).values)
 
 
-def graph_invariants(name, vectors, nbrs, strict) -> None:
+def graph_invariants(name, vectors, nbrs, strict, rows=None) -> None:
     """Self-free, duplicate-free, padded with -1 only at a row's end, no
     empty row, rows distance-ascending. ``strict``: by gather_distance's
-    distances, which ordered an NN-descent graph; otherwise within 1e-6
-    relative (add_reverse_edges ordered by another reduction)."""
+    distances, which ordered an NN-descent graph and a consolidation's
+    rewritten rows; otherwise within 1e-6 relative (add_reverse_edges
+    ordered by another reduction). ``rows``: the vertices whose rows
+    ``nbrs`` holds, where they are not all of them in order."""
     from repro_torch.kernels.gather_distance import gather_distance_cuda
 
-    n = nbrs.shape[0]
+    if rows is None:
+        rows = torch.arange(nbrs.shape[0], device=nbrs.device)
     valid = nbrs >= 0
-    check(not bool((nbrs == torch.arange(n, device=nbrs.device)[:, None]).any()),
-          f"{name}: a self edge")
+    check(not bool((nbrs == rows[:, None]).any()), f"{name}: a self edge")
     check(bool(valid[:, 0].all()), f"{name}: an empty row")
     check(bool((valid[:, :-1] | ~valid[:, 1:]).all()), f"{name}: padding before an edge")
     srt = torch.where(valid, nbrs, 2**31 - 1).sort(-1).values
     check(not bool(((srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] < 2**31 - 1)).any()),
           f"{name}: a duplicate edge")
-    d = gather_distance_cuda(vectors, vectors, nbrs.contiguous())
+    d = gather_distance_cuda(vectors[rows.long()].contiguous(), vectors, nbrs.contiguous())
     ok = d[:, 1:] >= d[:, :-1] if strict else d[:, 1:] >= d[:, :-1] * (1 - 1e-6)
     check(bool((ok | torch.isinf(d[:, 1:])).all()), f"{name}: a row not distance-ascending")
 
@@ -1291,6 +1318,324 @@ def search_phase(args, dev, launch: LaunchCounts):
     log("search: pq_scan_256 == its plain version (ids, ADC dists)")
     for name in ("pq_scan_256", "serve_256", "serve_256_fused", "serve_256_pq_fused"):
         profile_batch(name, runs[name])
+    return dict(corpus=corpus, index=index, queries=queries, cons=cons, base=base)
+
+
+# --------------------------------------------------------------------------- streaming and hybrid
+
+STREAM_DELETES = 10_000  # 1% of airship-sift1m's rows
+STREAM_INSERTS = 64  # before and again after the consolidation
+# Share of inserted vectors a walk for them must find: 0.34 and 0.42 at
+# ef_insert 32 on the card (PERF.md), ~0 with a broken insert path.
+REACH_FLOOR = 0.15
+# Range windows on attrs column 0 (uniform on [0, 1)): selectivity ~0.05%
+# and ~2% (posting scans, under the 1M / 32 = 31,250 cap) and ~30% (graph).
+RANGE_WINDOWS = ((0.1, 0.1005, "posting"), (0.4, 0.42, "posting"), (0.5, 0.8, "graph"))
+
+
+def no_dead_ids(name, snap, ids) -> None:
+    from repro_torch.core.constraints import tombstone_test
+
+    dead = tombstone_test(snap.corpus.tombstones, ids) & (ids >= 0)
+    check(not bool(dead.any()), f"{name}: a tombstoned id was returned")
+
+
+def ids_equal_up_to_ties(got_i, got_d, want_i, want_d, rtol=1e-5) -> bool:
+    """Distances within ``rtol`` relative, and every id the oracle ranks
+    strictly (beyond ``rtol``) below its k-th distance in the result."""
+    if not torch.allclose(got_d, want_d, rtol=rtol, atol=0.0):
+        return False
+    strict = (want_d < want_d[:, -1:] * (1 - rtol)) & (want_i >= 0)
+    found = (want_i[:, :, None] == got_i[:, None, :]).any(-1)
+    return bool((found | ~strict).all())
+
+
+def streaming_phase(args, dev, launch: LaunchCounts, world) -> None:
+    """The streaming mutable index and hybrid execution over the
+    airship-sift1m world of phase 6 (its corpus, exact index, queries and
+    search parameters): deletes, walks over the churned snapshot, inserts,
+    one consolidation, more inserts into the reclaimed slots, the strategy
+    router, posting scans and one label overlay."""
+    import numpy as np
+
+    from repro_torch import (
+        Corpus,
+        RangeConstraint,
+        SearchParams,
+        SelectivityEstimator,
+        StrategyRouter,
+        StreamingIndex,
+        build_overlay,
+        constrained_search,
+        equal_constraint,
+        exact_constrained_search,
+        overlay_search,
+        posting_search,
+        recall,
+    )
+    from repro_torch.core.posting import pad_posting, posting_bucket
+
+    t_phase = time.perf_counter()
+    corpus, index, queries, cons, base = (world[k] for k in
+                                          ("corpus", "index", "queries", "cons", "base"))
+    n = corpus.n
+    agen = torch.Generator(device=dev).manual_seed(args.seed + 41)
+    attrs = torch.rand((n, 2), generator=agen, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sidx = StreamingIndex.from_static(Corpus(vectors=corpus.vectors, labels=corpus.labels,
+                                             attrs=attrs), index, ef_insert=32, seed=args.seed,
+                                      device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    cap = sidx.capacity
+    rs = np.random.RandomState(args.seed)
+
+    # Deletes: every query's true top-1 (the walk will visit them) and
+    # random live rows, 1% of n in all.
+    _, true_ids = exact_constrained_search(corpus, queries, cons, 10)
+    top1 = [int(i) for i in dict.fromkeys(true_ids[:, 0].tolist()) if i >= 0]
+    chosen = set(top1)
+    victims = list(top1)
+    for i in rs.permutation(n).tolist():
+        if len(victims) >= STREAM_DELETES:
+            break
+        if i not in chosen:
+            victims.append(i)
+            chosen.add(i)
+    t0 = time.perf_counter()
+    check(all(sidx.delete(v) for v in victims), "streaming: a delete of a live slot failed")
+    delete_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    snap = sidx.snapshot()
+    torch.cuda.synchronize()
+    publish_ms = (time.perf_counter() - t0) * 1e3
+
+    def walk(name, snapshot, extra):
+        params = SearchParams(**base, **extra)
+        constrained_search(snapshot.corpus, snapshot.graph, queries, cons, params)  # warm-up
+        launch.reset()
+        t0 = time.perf_counter()
+        res = constrained_search(snapshot.corpus, snapshot.graph, queries, cons, params)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch.read()
+        _, truth = exact_constrained_search(snapshot.corpus, queries, cons, 10)
+        rec = float(recall(res.ids, truth))
+        row = dict(shape=name, wall_s=wall, qps=B / wall, recall_at_10=rec,
+                   iters=int(res.stats.iters),
+                   dist_evals_mean=float(res.stats.dist_evals.float().mean()),
+                   launches={k: v for k, v in counts.items() if v})
+        log(f"search {json.dumps(row)}")
+        no_dead_ids(name, snapshot, res.ids)
+        check(rec >= 0.5, f"{name}: recall@10 {rec} < 0.5")
+        return res, row, counts
+
+    res_u, row_u, cnt_u = walk("stream_churn_serve_256", snap, dict(use_kernel=True))
+    res_f, row_f, cnt_f = walk("stream_churn_serve_256_fused", snap,
+                               dict(use_kernel=True, fuse_expand="on"))
+    check(cnt_u["gather_distance"] > 0, "stream_churn_serve_256: gather_distance never launched")
+    check(cnt_f["fused_expand"] > 0, "stream_churn_serve_256_fused: fused_expand never launched")
+    check(torch.equal(res_u.ids, res_f.ids) and torch.equal(res_u.dists, res_f.dists),
+          "stream_churn: fused differs from unfused (ids or dists)")
+    for field in ("dist_evals", "hops", "visited", "iters", "beam_expansions"):
+        check(torch.equal(getattr(res_u.stats, field), getattr(res_f.stats, field)),
+              f"stream_churn: fused differs from unfused in {field}")
+
+    def insert_batch(count):
+        src = rs.choice(sidx.pool.live_ids(), size=count, replace=False)
+        noise = rs.randn(count, D_MAIN).astype(np.float32) * 0.01
+        vecs = corpus.vectors[torch.from_numpy(src).to(dev).long()].cpu().numpy() + noise
+        labs = sidx.pool.labels[src]
+        slots, walls = [], []
+        launch.reset()
+        for v, lab in zip(vecs, labs):
+            t0 = time.perf_counter()
+            slots.append(sidx.insert(v, label=int(lab), attrs=rs.rand(2).astype(np.float32)))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        counts = launch.read()
+        check(counts["gather_distance"] == count,
+              f"inserts: {counts['gather_distance']} gather_distance launches, expected one "
+              f"batched patch an insert ({count})")
+        # Reachability: a walk for each new vector (one batch of them; each
+        # query walks on its own) should find its slot at distance 0. The
+        # insert's own walk (ef_insert 32, at most 128 iterations: the
+        # reference's parameters) often misses the source row's
+        # neighbourhood at n = 1M; the slot is then wired to far vertices
+        # whose rows all hold closer edges, no patch takes, and nothing
+        # points at it, as in the reference on the same inputs. So the
+        # share found is reported beside the share whose row holds its
+        # source and the slots' in-degrees, and held to REACH_FLOOR, which
+        # a broken insert path (no patch or no row written) cannot reach.
+        snap = sidx.snapshot()
+        q = torch.from_numpy(vecs).to(dev)
+        lab_t = torch.from_numpy(labs.astype(np.int32)).to(dev)
+        res = constrained_search(snap.corpus, snap.graph, q, equal_constraint(lab_t, 10),
+                                 SearchParams(**base, use_kernel=True))
+        slots_t = torch.tensor(slots, dtype=torch.int32, device=dev)
+        hit = res.ids == slots_t[:, None]
+        reach = float(hit.any(-1).float().mean())
+        rows = sidx.neighbors[slots_t.long()]
+        src_t = torch.from_numpy(src.astype(np.int32)).to(dev)
+        in_deg = torch.stack([(sidx.neighbors == s).sum() for s in slots_t]).float()
+        ms = np.sort(np.asarray(walls)) * 1e3
+        stats = dict(count=count, p50_ms=float(np.percentile(ms, 50)),
+                     p99_ms=float(np.percentile(ms, 99)), max_ms=float(ms[-1]),
+                     reachable=reach,
+                     source_in_row=float((rows == src_t[:, None]).any(-1).float().mean()),
+                     in_degree_mean=float(in_deg.mean()),
+                     in_degree_zero=float((in_deg == 0).float().mean()),
+                     launches={k: v for k, v in counts.items() if v})
+        log(f"inserts {json.dumps(stats)}")
+        check(reach >= REACH_FLOOR, f"inserts: {reach} of them found by a walk < {REACH_FLOOR}")
+        check(bool((res.dists[hit] == 0).all()), "inserts: an inserted vector not at distance 0")
+        graph_invariants("inserted rows", sidx.pool.vectors, rows, strict=False,
+                         rows=slots_t.long())
+        return slots, stats
+
+    slots1, ins1 = insert_batch(STREAM_INSERTS)
+
+    # Consolidation of every pending slot.
+    pending = list(sidx.pool.pending)
+    dead = torch.zeros(cap, dtype=torch.bool, device=dev)
+    dead[torch.tensor(pending, device=dev)] = True
+    nbrs = sidx.neighbors
+    hit_rows = torch.nonzero(((nbrs >= 0) & dead[nbrs.clamp_min(0).long()]).any(1)
+                             & ~dead).flatten()
+    torch.cuda.synchronize()
+    launch.reset()
+    t0 = time.perf_counter()
+    done = sidx.consolidate()
+    torch.cuda.synchronize()
+    consolidate_s = time.perf_counter() - t0
+    cons_counts = launch.read()
+    check(done == len(pending), f"consolidate: {done} slots, expected {len(pending)}")
+    check(cons_counts["gather_distance"] >= 1, "consolidate: gather_distance never launched")
+    sidx.pool.check_accounting()
+    sidx.check_stats_exact()
+    graph_invariants("consolidated rows", sidx.pool.vectors, sidx.neighbors[hit_rows],
+                     strict=True, rows=hit_rows)
+    check(not bool(((sidx.neighbors >= 0) & dead[sidx.neighbors.clamp_min(0).long()]).any()),
+          "consolidate: an edge still points at a reclaimed slot")
+    check(sidx.pool.is_live(sidx.entry_point), "consolidate: the entry vertex is not live")
+    slots2, ins2 = insert_batch(STREAM_INSERTS)
+    check(slots2 == pending[::-1][:STREAM_INSERTS],
+          "inserts after consolidation did not take the reclaimed slots in LIFO order")
+    snap = sidx.snapshot()
+    res_c, row_c, cnt_c = walk("stream_consolidated_serve_256", snap, dict(use_kernel=True))
+    stream = dict(capacity=cap, deletes=len(victims), top1_deleted=len(top1),
+                  setup_s=setup_s, delete_s=delete_s, publish_ms=publish_ms,
+                  inserts_before=ins1, inserts_after=ins2, consolidated=done,
+                  rewritten_rows=int(hit_rows.numel()), consolidate_s=consolidate_s,
+                  consolidate_launches={k: v for k, v in cons_counts.items() if v},
+                  recall_churned=row_u["recall_at_10"], recall_consolidated=row_c["recall_at_10"],
+                  fused_equals_unfused=True, lifo_reuse=True)
+    log(f"streaming {json.dumps(stream)}")
+
+    # Hybrid: the router over the index's histograms, postings and range
+    # postings (the cap is the world's n / 32).
+    sidx.range_postings(0.0, 1.0, 0)  # sort the range index for this epoch
+    router = StrategyRouter(SelectivityEstimator(histograms=sidx.histograms), n=n,
+                            postings=sidx.postings, range_index=sidx.range_index)
+    router.on_epoch(snap.epoch)
+    label_routes = {}
+    for lab in range(10):
+        words = np.asarray([1 << lab], np.uint32)
+        d = router.route("label", words)
+        est = sidx.histograms.estimate("label", words)
+        check(est == sidx.postings.count_label(lab) / sidx.pool.n_live,
+              f"router: label {lab} estimate is not the live fraction")
+        if est >= 0.05:
+            check(d.strategy == "graph", f"router: label {lab} at {est:.4f} routed {d.strategy}")
+        label_routes[lab] = (d.strategy, round(est, 5))
+    hybrid = dict(label_routes=label_routes, posting=[])
+    for lo, hi, want in RANGE_WINDOWS:
+        d = router.route("range", (lo, hi, 0))
+        check(d.strategy == want, f"router: range [{lo}, {hi}] routed {d.strategy}, not {want}")
+        if want != "posting":
+            hybrid["posting"].append(dict(window=[lo, hi], route=d.strategy,
+                                          est=d.est_selectivity))
+            continue
+        ids = sidx.range_postings(lo, hi, 0)
+        padded = torch.from_numpy(pad_posting(ids, posting_bucket(ids.shape[0]))).to(dev)
+        rcons = RangeConstraint(lo=torch.full((B,), lo, device=dev),
+                                hi=torch.full((B,), hi, device=dev), col=0)
+        params = SearchParams(**base, use_kernel=True)
+        posting_search(snap.corpus, queries, rcons, padded, params)  # warm-up
+        launch.reset()
+        t0 = time.perf_counter()
+        res = posting_search(snap.corpus, queries, rcons, padded, params)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch.read()
+        check(counts["gather_distance"] == 1, "posting scan: not one gather_distance launch")
+        od, oi = exact_constrained_search(snap.corpus, queries, rcons, 10)
+        no_dead_ids("posting scan", snap, res.ids)
+        check(ids_equal_up_to_ties(res.ids, res.dists, oi, od),
+              f"posting scan [{lo}, {hi}] differs from the exact oracle beyond ties")
+        # With and without the kernel on integer-valued rows (every
+        # distance exact): the same ids and distances.
+        icorp = Corpus(vectors=(snap.corpus.vectors * 8).round(), labels=snap.corpus.labels,
+                       attrs=snap.corpus.attrs, tombstones=snap.corpus.tombstones)
+        iq = (queries * 8).round()
+        a = posting_search(icorp, iq, rcons, padded, params)
+        b = posting_search(icorp, iq, rcons, padded, SearchParams(**base))
+        check(torch.equal(a.ids, b.ids) and torch.equal(a.dists, b.dists),
+              "posting scan: the kernel differs from the plain scan on integer rows")
+        del icorp
+        hybrid["posting"].append(dict(window=[lo, hi], route=d.strategy, est=d.est_selectivity,
+                                      postings=int(ids.shape[0]), bucket=int(padded.shape[0]),
+                                      wall_ms=wall * 1e3,
+                                      launches={k: v for k, v in counts.items() if v}))
+
+    # One label's overlay from its live postings, searched by 256 queries
+    # of that label (make_queries' law: a random member plus 0.05 jitter).
+    counts_by_label = [sidx.postings.count_label(lab) for lab in range(10)]
+    lab = int(np.argsort(counts_by_label)[5])
+    post = sidx.postings.ids_for_label(lab)
+    qsrc = torch.from_numpy(rs.choice(post, size=B, replace=False)).to(dev).long()
+    qgen = torch.Generator(device=dev).manual_seed(args.seed + 43)
+    oq = (sidx.pool.vectors[qsrc]
+          + torch.randn((B, D_MAIN), generator=qgen, device=dev) * 0.05).contiguous()
+    ogen = torch.Generator(device=dev).manual_seed(args.seed + 47)
+    torch.cuda.synchronize()
+    launch.reset()
+    t0 = time.perf_counter()
+    ov = build_overlay(lab, post, sidx.pool.vectors, snap.epoch, generator=ogen, degree=32,
+                       sample_size=128, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_counts = launch.read()
+    want_l2 = math.ceil(post.shape[0] / BUILD_BLOCK) + 1
+    check(build_counts["l2_matmul"] == want_l2,
+          f"overlay build: {build_counts['l2_matmul']} l2_matmul launches, expected {want_l2}")
+    oparams = SearchParams(**base, use_kernel=True)
+    overlay_search(ov, oq, oparams)  # warm-up
+    launch.reset()
+    t0 = time.perf_counter()
+    res = overlay_search(ov, oq, oparams)
+    torch.cuda.synchronize()
+    search_s = time.perf_counter() - t0
+    search_counts = launch.read()
+    ocons = equal_constraint(torch.full((B,), lab, dtype=torch.int32, device=dev), 10)
+    _, truth = exact_constrained_search(snap.corpus, oq, ocons, 10)
+    rec = float(recall(res.ids, truth))
+    got = res.ids[res.ids >= 0]
+    check(bool(torch.isin(got, torch.from_numpy(post).to(dev)).all()),
+          "overlay: an id outside the label's live postings")
+    check(rec >= 0.5, f"overlay: recall@10 {rec} < 0.5")
+    check(search_counts["gather_distance"] > 0, "overlay search: gather_distance never launched")
+    hybrid["overlay"] = dict(label=lab, postings=int(post.shape[0]), degree=32, sample=128,
+                             build_s=build_s, build_launches={k: v for k, v in
+                                                              build_counts.items() if v},
+                             search_wall_s=search_s, qps=B / search_s, recall_at_10=rec,
+                             iters=int(res.stats.iters),
+                             search_launches={k: v for k, v in search_counts.items() if v})
+    log(f"hybrid {json.dumps(hybrid)}")
+    log(f"streaming and hybrid: phase wall {time.perf_counter() - t_phase:.1f} s (host clock, "
+        f"checks included)")
 
 
 def knn_graph_recall(graph, exact, chunk=65536) -> float:
@@ -1553,7 +1898,10 @@ def main() -> int:
     small_world_phase(args, dev)
     two_tower_small_phase(args, dev)
     launch = LaunchCounts()
-    search_phase(args, dev, launch)
+    world = search_phase(args, dev, launch)
+    # 6b. streaming and hybrid, over phase 6's world
+    streaming_phase(args, dev, launch, world)
+    del world
     # 7. two-tower-retrieval, after the airship-sift1m world is freed
     two_tower_phase(args, dev, launch)
 

@@ -7,6 +7,7 @@ and comparison in int64, where bit 31 is an ordinary positive bit.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 WORD_BITS = 32
@@ -30,3 +31,11 @@ def to_i32(values: torch.Tensor) -> torch.Tensor:
 def bit_of(words: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Bit ``idx & 31`` of each int32 word, as bool (shapes broadcast)."""
     return ((u32(words) >> (idx.to(torch.int64) & (WORD_BITS - 1))) & 1).bool()
+
+
+def tail_bits(n_live: int, n: int) -> np.ndarray:
+    """(ceil(n/32),) uint32 words with bits [n_live, n) set: the tombstone
+    bitmap of a pool or sub-corpus whose rows from ``n_live`` on are dead."""
+    bits = np.zeros((n_words(n) * WORD_BITS,), np.uint8)
+    bits[n_live:n] = 1
+    return np.packbits(bits, bitorder="little").view(np.uint32)

@@ -207,3 +207,12 @@ def make_satisfied_fn(constraint, corpus: Corpus) -> SatisfiedFn:
         return base(ids) & ~tombstone_test(tomb, ids)
 
     return satisfied
+
+
+def selectivity(constraint, corpus: Corpus, chunk: int = 1 << 16) -> torch.Tensor:
+    """(B,) fraction of the corpus satisfying each query's constraint: the
+    chunked scan of ``core/estimator.py`` (imported here lazily, since the
+    estimator imports this module)."""
+    from repro_torch.core.estimator import scan_selectivity
+
+    return scan_selectivity(constraint, corpus, chunk=chunk)

@@ -17,6 +17,7 @@ from repro_torch.core.constraints import LabelSetConstraint, RangeConstraint
 from repro_torch.core.pq import PQIndex
 from repro_torch.core.types import Corpus, GraphIndex
 from repro_torch.models.recsys.models import RecsysConfig, TwoTower
+from repro_torch.streaming.slots import SlotPool, StreamingIndex
 
 
 def _tensor(a: np.ndarray, dtype, dev: torch.device) -> torch.Tensor:
@@ -76,6 +77,53 @@ def pq_index_from_reference(*, codebooks: np.ndarray, codes: np.ndarray, device=
     dev = resolve_device(device)
     return PQIndex(codebooks=_tensor(codebooks, np.float32, dev),
                    codes=_tensor(codes, np.int32, dev))
+
+
+def streaming_index_from_reference(
+    *,
+    vectors: np.ndarray,
+    labels: np.ndarray,
+    attrs: Optional[np.ndarray],
+    tombstones: np.ndarray,
+    neighbors: np.ndarray,
+    sample_ids: np.ndarray,
+    entry_point: int,
+    free,
+    pending,
+    n_live: int,
+    epoch: int,
+    ef_insert: int,
+    consolidations: int,
+    rng_state,
+    dirty: bool = True,
+    device="cuda",
+) -> StreamingIndex:
+    """A reference ``StreamingIndex`` part-way through its life -> the port's,
+    on ``device``, so that the same later mutations give the same state.
+
+    Arrays are the reference pool's (capacity-sized) vectors, labels, attrs
+    (or None) and uint32 tombstone words (int32 views are accepted), its
+    (capacity, degree) neighbors and sample; ``free`` / ``pending`` are its
+    slot lists in order, ``rng_state`` its ``RandomState.get_state()``,
+    ``dirty`` its ``_dirty`` flag: where False, the reference has published
+    ``epoch`` for this state and the port's first ``snapshot()`` publishes
+    the same epoch number.
+    The histograms and postings are rebuilt from the live set: the label
+    counts and postings equal the reference's, and the range histograms'
+    bin edges come from the live attributes' extent.
+    """
+    pool = SlotPool(vectors, labels, attrs, np.asarray(vectors).shape[0], device=device)
+    pool.tombstones = np.array(np.asarray(tombstones).view(np.uint32))
+    pool.free = [int(s) for s in free]
+    pool.pending = [int(s) for s in pending]
+    pool.n_live = int(n_live)
+    pool.check_accounting()
+    index = StreamingIndex(pool, torch.from_numpy(np.asarray(neighbors, np.int32)), sample_ids,
+                           int(entry_point), ef_insert=ef_insert)
+    index.rng.set_state(rng_state)
+    index.epoch = int(epoch) if dirty else int(epoch) - 1
+    index.consolidations = int(consolidations)
+    return index
 
 
 def two_tower_params_from_reference(params, cfg: RecsysConfig, *, device="cuda") -> TwoTower:

@@ -22,6 +22,7 @@ from repro_torch.data import two_tower_batch
 from repro_torch.interop import (
     from_reference_arrays,
     pq_index_from_reference,
+    streaming_index_from_reference,
     two_tower_params_from_reference,
 )
 from repro_torch.models.recsys import two_tower_init
@@ -47,6 +48,11 @@ def _imported_roots(path):
 def test_no_reference_imports():
     files = _port_files()
     assert all(p.exists() for p in files) and len(files) > 20
+    port = ROOT / "src" / "repro_torch"
+    walked = {p.relative_to(port).as_posix() for p in files if port in p.parents}
+    assert {"streaming/__init__.py", "streaming/slots.py", "streaming/mutate.py",
+            "streaming/consolidate.py", "core/histogram.py", "core/posting.py",
+            "core/estimator.py", "core/overlay.py", "core/router.py"} <= walked
     bad = {str(p.relative_to(ROOT)): sorted(_imported_roots(p) & set(FORBIDDEN))
            for p in files if _imported_roots(p) & set(FORBIDDEN)}
     assert not bad, bad
@@ -107,6 +113,22 @@ def test_tensor_creators_default_to_cuda_and_raise_without_it():
     params = two_tower_init(g, cfg, device="cpu").state_dict()
     with pytest.raises(RuntimeError, match="CUDA"):
         two_tower_params_from_reference(params, cfg)
+    index = build_index(g, corpus, degree=4, sample_size=8, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        repro_torch.StreamingIndex.from_static(corpus, index)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        repro_torch.SlotPool(corpus.vectors, corpus.labels, None, 80)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        repro_torch.build_overlay(0, [1, 2, 3], corpus.vectors, 0, generator=g)
+    cpu_index = repro_torch.StreamingIndex.from_static(corpus, index, device="cpu")
+    pool = cpu_index.pool
+    with pytest.raises(RuntimeError, match="CUDA"):
+        streaming_index_from_reference(
+            vectors=pool.vectors.numpy(), labels=pool.labels, attrs=None,
+            tombstones=pool.tombstones, neighbors=cpu_index.neighbors.numpy(),
+            sample_ids=cpu_index.sample_ids, entry_point=cpu_index.entry_point,
+            free=pool.free, pending=pool.pending, n_live=pool.n_live, epoch=0, ef_insert=32,
+            consolidations=0, rng_state=cpu_index.rng.get_state())
 
 
 def test_generator_must_match_device():
