@@ -100,12 +100,50 @@ that label's rows (every id a live posting, recall@10 >= 0.5). It
 prints `inserts`, `streaming` and `hybrid` lines; its launches join the
 totals of the kernels line.
 
+Phase 6c, serving, follows 6b over the same world (attrs (n, 2) uniform
+from a generator of its own): repro_torch.serving's runtime, with the
+tier ladder make_tier_ladder(k_cap=16, base_ef=128, base_iters=512,
+base_n_start=32, n_tiers=2) (airship-sift1m's SearchParams as tier 0, a
+4x escalation tier), bucket ladder (8, 32, 128), families label and range,
+max_wait 0.005, on a VirtualClock, the stream mixed_workload(7, corpus,
+1024, 10, k_choices=(4, 8, 16)) replayed with Poisson arrivals at 20,000
+a second (seed 11). The runtime sets use_kernel on every tier of a card
+executor, so each distance goes through gather_distance. serve_mixed_1m
+(over phase 6's index, with a JSON log; warmup must build exactly the
+12-closure trace budget and no request may miss the closure cache after
+it; one 128-row flush profiled), serve_mixed_1m_fused (the same stream,
+fuse_expand="on"), deterministic drains of the stream's first 64
+requests under both tier sets (every response equal: ids, dists, filled,
+tier, escalations), serve_hybrid_1m (the stream's first 256 requests with
+the strategy router; an overlay route must build through l2_matmul),
+serve_churn_1m (a fresh StreamingIndex.from_static, capacity 1.5M,
+ef_insert 32, under StreamingLocalExecutor(consolidate_after=64);
+churn_workload(7, corpus, 512, 10, mutation_frac=0.3) through
+replay_churn; at least one consolidation under serving, no served id
+tombstoned at its response's epoch, slot accounting and stats exact after
+it) and serve_mixed_1m_pq (the first 128 requests, approx="pq",
+fuse_expand="on" over phase 5's codebooks); hybrid and pq are cut to
+bound the phase's time. Every replay accounts for every request
+(served + shed + mutations + rejected == submitted), every served id
+satisfies its request's constraint, every stage breakdown tiles its
+latency, and the closures stay within the trace budget; recall@k of the
+three exact replays against the exact oracle on the same constraints is
+>= 0.5 per family. Then the launcher runs end to end at its own default
+shape (n = 20,000, d = 32: corpus, exact index through l2_matmul, warmup,
+64 requests, --log-json into build/). It prints one `serving {...}` line
+per replay and `profile serve_mixed_1m`; its launches join the kernels
+line's totals. In phase 4, one 64-request mixed stream drained through
+the runtime on the card and on the CPU (default tiers, unfused and
+fused) must agree bit for bit, and the card's drains must launch
+gather_distance / fused_expand.
+
 It prints a {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
 It imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import subprocess
@@ -1012,6 +1050,59 @@ def small_world_phase(args, dev):
     log(f"small world: nn_descent ({iters} rounds, same draws) card == CPU bit for bit; "
         f"build_partitioned_index (4 shards over {m} rows, 2 padded) card == CPU in corpus, "
         f"entries and kNN graphs up to distance ties")
+    small_world_serving(args, dev, corpus, index, corpus_cpu, index_cpu)
+
+
+def small_world_serving(args, dev, corpus, index, corpus_cpu, index_cpu):
+    """One 64-request mixed stream (no jitter: integer queries) drained
+    through the serving runtime on the card and on the CPU: the responses
+    agree bit for bit, unfused and fused."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.core.types import Corpus
+    from repro_torch.serving import (
+        LocalExecutor,
+        ServingRuntime,
+        VirtualClock,
+        make_tier_ladder,
+        mixed_workload,
+    )
+
+    agen = torch.Generator().manual_seed(args.seed + 11)
+    attrs = torch.rand((corpus.n, 2), generator=agen)
+    worlds = {"card": (Corpus(vectors=corpus.vectors, labels=corpus.labels,
+                              attrs=attrs.to(dev)), index),
+              "cpu": (Corpus(vectors=corpus_cpu.vectors, labels=corpus_cpu.labels, attrs=attrs),
+                      index_cpu)}
+    items = mixed_workload(3, worlds["cpu"][0], 64, 10, k_choices=(4, 8, 16), jitter=0.0)
+    # Default tiers (use_kernel off): on the card the runtime scores through
+    # gather_distance all the same, on the CPU through the exact backend.
+    counters = kernel_counters()
+    for extra, kernel in ((dict(), "gather_distance"), (dict(fuse_expand="on"), "fused_expand")):
+        tiers = tuple(dataclasses.replace(t, **extra) for t in make_tier_ladder(
+            k_cap=16, base_ef=32, base_iters=64, base_n_start=16, n_tiers=2))
+        out = {}
+        for where, (c, g) in worlds.items():
+            rt = ServingRuntime(LocalExecutor(c, g), n_labels=10, tiers=tiers, ladder=(8, 32),
+                                clock=VirtualClock())
+            rids = [rt.submit(it.query, it.k, it.family, it.operand) for it in items]
+            before = counters[kernel].launches
+            rt.drain()
+            out[where] = ([rt.poll(r) for r in rids], dict(rt.telemetry.counters))
+            if where == "card":
+                check(counters[kernel].launches > before,
+                      f"small world serving {extra}: the card runtime never launched {kernel}")
+        for a, b in zip(out["cpu"][0], out["card"][0]):
+            check(np.array_equal(a.ids, b.ids) and np.array_equal(a.dists, b.dists)
+                  and (a.filled, a.tier, a.escalations, a.strategy)
+                  == (b.filled, b.tier, b.escalations, b.strategy),
+                  f"small world serving {extra}: request {a.req_id} differs card vs CPU")
+        check(out["cpu"][1] == out["card"][1],
+              f"small world serving {extra}: telemetry counters differ card vs CPU")
+        log(f"small world: serving runtime drain of 64 requests card == CPU bit for bit "
+            f"{json.dumps(extra)} (escalations {out['card'][1].get('escalations', 0)})")
 
 
 def two_tower_small_phase(args, dev):
@@ -1318,7 +1409,7 @@ def search_phase(args, dev, launch: LaunchCounts):
     log("search: pq_scan_256 == its plain version (ids, ADC dists)")
     for name in ("pq_scan_256", "serve_256", "serve_256_fused", "serve_256_pq_fused"):
         profile_batch(name, runs[name])
-    return dict(corpus=corpus, index=index, queries=queries, cons=cons, base=base)
+    return dict(corpus=corpus, index=index, queries=queries, cons=cons, base=base, pq=pq)
 
 
 # --------------------------------------------------------------------------- streaming and hybrid
@@ -1638,6 +1729,336 @@ def streaming_phase(args, dev, launch: LaunchCounts, world) -> None:
         f"checks included)")
 
 
+# --------------------------------------------------------------------------- serving
+
+SERVE_REQUESTS = 1024  # serve_mixed_1m and serve_mixed_1m_fused
+# Cut to bound the phase's time (PERF.md §4): every flush, 8 rows or 128,
+# runs its slowest query's walk, ~1-2 s of host-bound iterations.
+SERVE_DRAIN = 64  # the deterministic drains that hold fused == unfused
+SERVE_HYBRID = 256  # serve_hybrid_1m, cut from 1024
+SERVE_CHURN = 512  # serve_churn_1m's items (0.3 of them mutations)
+SERVE_PQ = 128  # serve_mixed_1m_pq, cut from 256
+SERVE_RATE = 20_000.0  # Poisson arrivals a second of virtual time
+SERVE_K_CAP = 16
+
+
+def serving_tiers(**extra):
+    """airship-sift1m's SearchParams as tier 0 with a 4x escalation tier."""
+    import dataclasses
+
+    from repro_torch.serving import make_tier_ladder
+
+    tiers = make_tier_ladder(k_cap=SERVE_K_CAP, base_ef=128, base_iters=512, base_n_start=32,
+                             n_tiers=2)
+    return tuple(dataclasses.replace(t, **extra) for t in tiers)
+
+
+def response_satisfies(resp, item, labels_host, attrs_host) -> bool:
+    """Every returned id satisfies the request's constraint (host check)."""
+    import numpy as np
+
+    ids = resp.ids[resp.ids >= 0]
+    if item.family == "label":
+        words = np.asarray(item.operand, np.uint32)
+        lab = labels_host[ids]
+        return bool(((words[lab // 32] >> (lab % 32).astype(np.uint32)) & 1).all())
+    lo, hi, col = item.operand
+    vals = attrs_host[ids, int(col)]
+    return bool(((vals >= np.float32(lo)) & (vals <= np.float32(hi))).all())
+
+
+def exact_recall_by_family(corpus, items, responses, dev) -> dict:
+    """Mean recall@k of served responses against the exact oracle on each
+    request's own constraint, per family."""
+    import numpy as np
+
+    from repro_torch import LabelSetConstraint, RangeConstraint, exact_constrained_search
+
+    out = {}
+    for family in ("label", "range"):
+        pairs = [(it, r) for it, r in zip(items, responses)
+                 if it.family == family and r is not None and r.ok]
+        if not pairs:
+            continue
+        rec = []
+        for s in range(0, len(pairs), 256):
+            chunk = pairs[s : s + 256]
+            q = torch.from_numpy(np.stack([it.query for it, _ in chunk])).to(dev)
+            if family == "label":
+                words = np.stack([np.asarray(it.operand, np.uint32) for it, _ in chunk])
+                cons = LabelSetConstraint(words=torch.from_numpy(words.view(np.int32)).to(dev))
+            else:
+                cons = RangeConstraint(
+                    lo=torch.tensor([it.operand[0] for it, _ in chunk], dtype=torch.float32,
+                                    device=dev),
+                    hi=torch.tensor([it.operand[1] for it, _ in chunk], dtype=torch.float32,
+                                    device=dev),
+                    col=int(chunk[0][0].operand[2]))
+            _, truth = exact_constrained_search(corpus, q, cons, SERVE_K_CAP)
+            truth = truth.cpu().numpy()
+            for (it, r), t in zip(chunk, truth):
+                want = t[: it.k][t[: it.k] >= 0]
+                got = r.ids[r.ids >= 0]
+                rec.append(len(np.intersect1d(want, got)) / max(len(want), 1))
+        out[family] = float(np.mean(rec))
+    return out
+
+
+def serving_phase(args, dev, launch: LaunchCounts, world) -> None:
+    """Phase 6c: the serving runtime (repro_torch.serving, .obs and
+    .launch.serve) over phase 6's airship-sift1m world."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from repro_torch import Corpus, StreamingIndex
+    from repro_torch.core.constraints import tombstone_test
+    from repro_torch.launch import serve
+    from repro_torch.obs import JsonLogger, trace_consistent
+    from repro_torch.serving import (
+        LocalExecutor,
+        ServingRuntime,
+        StreamingLocalExecutor,
+        VirtualClock,
+        churn_workload,
+        make_serving_router,
+        mixed_workload,
+        replay_churn,
+        replay_poisson,
+    )
+    from repro_torch.serving.batcher import MicroBatch
+    from repro_torch.serving.runtime import assemble_constraint, assemble_queries, read_back
+
+    t_phase = time.perf_counter()
+    corpus0, index, pq = world["corpus"], world["index"], world["pq"]
+    n = corpus0.n
+    agen = torch.Generator(device=dev).manual_seed(args.seed + 61)
+    corpus = Corpus(vectors=corpus0.vectors, labels=corpus0.labels,
+                    attrs=torch.rand((n, 2), generator=agen, device=dev))
+    labels_host = corpus.labels.cpu().numpy()
+    attrs_host = corpus.attrs.cpu().numpy()
+    t0 = time.perf_counter()
+    items = mixed_workload(7, corpus, SERVE_REQUESTS, 10, k_choices=(4, 8, 16))
+    workload_s = time.perf_counter() - t0
+    rows = {}
+
+    def runtime_for(executor, tiers, **kw):
+        return ServingRuntime(executor, n_labels=10, tiers=tiers, ladder=(8, 32, 128),
+                              families=("label", "range"), max_wait=0.005,
+                              max_pending=SERVE_REQUESTS + 1, clock=VirtualClock(), **kw)
+
+    def account(name, runtime, items_, responses, rejected, extra_done=0, columns=None):
+        """The accounting and constraint checks of one replay; ``columns``
+        maps a response's epoch to the host labels and attributes its
+        search read (default: the static corpus's)."""
+        c = runtime.telemetry.counters
+        served = [r for r in responses if r is not None]
+        shed = sum(1 for r in served if r.shed_reason is not None)
+        failed = sum(1 for r in served if r.error is not None)
+        check(c["submitted"] + rejected == len(items_),
+              f"{name}: {c['submitted']} submitted + {rejected} rejected != {len(items_)} items")
+        check(c["completed"] + c["shed_total"] + extra_done == c["submitted"],
+              f"{name}: completed {c['completed']} + shed {c['shed_total']} + mutations "
+              f"{extra_done} != submitted {c['submitted']}")
+        check(runtime.in_flight == 0, f"{name}: {runtime.in_flight} requests still in flight")
+        check(runtime.cache.trace_count <= runtime.trace_budget,
+              f"{name}: {runtime.cache.trace_count} closures > budget {runtime.trace_budget}")
+        queries = [(it, r) for it, r in zip(items_, responses)
+                   if r is not None and r.ok and it.family in ("label", "range")]
+        for it, r in queries:
+            labs, atts = (labels_host, attrs_host) if columns is None else columns(r.epoch)
+            check(response_satisfies(r, it, labs, atts),
+                  f"{name}: request {r.req_id} returned an id outside its constraint")
+            check(r.trace is not None and trace_consistent(r.trace),
+                  f"{name}: request {r.req_id}'s stage breakdown does not tile its latency")
+        return served, shed, failed, queries
+
+    def replay(name, runtime, items_, warm=False, churn=False, columns=None):
+        launch.reset()
+        t0 = time.perf_counter()
+        built = runtime.warmup() if warm else None
+        t1 = time.perf_counter()
+        if churn:
+            responses, rejected = replay_churn(runtime, items_, rate=SERVE_RATE, seed=11)
+        else:
+            responses, rejected = replay_poisson(runtime, items_, rate=SERVE_RATE, seed=11)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        counts = launch.read()
+        c = runtime.telemetry.counters
+        mutations = c["upserts_applied"] + c["deletes_applied"]
+        served, shed, failed, queries = account(name, runtime, items_, responses, rejected,
+                                                mutations, columns)
+        summary = runtime.telemetry.summary()
+        row = dict(shape=name, requests=len(items_), served=len(served) - shed - failed,
+                   rejected=rejected, shed=shed, failed=failed,
+                   qps_virtual=summary.get("qps"), latency_p50_s=summary.get("latency_p50"),
+                   latency_p99_s=summary.get("latency_p99"),
+                   mean_fill=summary.get("mean_fill_frac"),
+                   cache_hit_rate=runtime.cache.stats()["hit_rate"],
+                   closures=runtime.cache.trace_count, trace_budget=runtime.trace_budget,
+                   escalations=c["escalations"], batches=c["batches"],
+                   strategies={k[7:]: v for k, v in c.items() if k.startswith("routed_")}
+                   or {"graph": c["completed"]},
+                   busy_s=runtime.busy_seconds, replay_wall_s=t2 - t1,
+                   warmup_wall_s=(t1 - t0) if warm else None, warmup_closures=built,
+                   launches={k: v for k, v in counts.items() if v})
+        if churn:
+            row.update(upserts=c["upserts_applied"], deletes=c["deletes_applied"],
+                       epoch_swaps=c["epoch_swaps"])
+        return row, responses, counts
+
+    # 1. serve_mixed_1m, warmed, with a JSON log
+    rt1 = runtime_for(LocalExecutor(corpus, index), serving_tiers(), logger=JsonLogger())
+    row, resp1, counts = replay("serve_mixed_1m", rt1, items, warm=True)
+    check(row["warmup_closures"] == rt1.trace_budget == 12,
+          f"serve_mixed_1m: warmup built {row['warmup_closures']} closures, budget 12")
+    check(rt1.cache.misses == 0, f"serve_mixed_1m: {rt1.cache.misses} cache misses after warmup")
+    check(counts["gather_distance"] > 0, "serve_mixed_1m: gather_distance never launched")
+    row["recall"] = exact_recall_by_family(corpus, items, resp1, dev)
+    row["log_records"] = rt1.logger.sink.emitted
+    rows["serve_mixed_1m"] = row
+    log(f"serving {json.dumps(row)}")
+
+    # profile serve_mixed_1m: one 128-row label flush through a built closure
+    first = [it for it in items if it.family == "label"][:128]
+    from repro_torch.serving.types import Request
+
+    reqs = [Request(req_id=i, query=it.query, k=it.k, family="label", operand=it.operand)
+            for i, it in enumerate(first)]
+    mb = MicroBatch(group=("label",), tier=0, bucket=128, requests=reqs)
+    fn = rt1.cache.get((128, "label", 0))
+    profile_batch("serve_mixed_1m", lambda: read_back(
+        fn(assemble_queries(mb, D_MAIN, dev), assemble_constraint(mb, dev))))
+
+    # 2. serve_mixed_1m_fused: the same stream with fuse_expand="on"
+    fused_tiers = serving_tiers(fuse_expand="on")
+    rt2 = runtime_for(LocalExecutor(corpus, index), fused_tiers)
+    row, resp2, counts = replay("serve_mixed_1m_fused", rt2, items)
+    check(counts["fused_expand"] > 0, "serve_mixed_1m_fused: fused_expand never launched")
+    row["recall"] = exact_recall_by_family(corpus, items, resp2, dev)
+    rows["serve_mixed_1m_fused"] = row
+    log(f"serving {json.dumps(row)}")
+
+    # 3. fused == unfused, request by request, on deterministic drains
+    drained = {}
+    for name, tiers in (("unfused", serving_tiers()), ("fused", fused_tiers)):
+        rt = runtime_for(LocalExecutor(corpus, index), tiers)
+        rids = [rt.submit(it.query, it.k, it.family, it.operand) for it in items[:SERVE_DRAIN]]
+        t0 = time.perf_counter()
+        rt.drain()
+        drained[name] = ([rt.poll(r) for r in rids], time.perf_counter() - t0)
+    for a, b in zip(drained["unfused"][0], drained["fused"][0]):
+        check(np.array_equal(a.ids, b.ids) and np.array_equal(a.dists, b.dists)
+              and (a.filled, a.tier, a.escalations) == (b.filled, b.tier, b.escalations),
+              f"serving drain: request {a.req_id} differs fused vs unfused")
+    log(f"serving: drains of {SERVE_DRAIN} requests fused == unfused (ids, dists, filled, tier, "
+        f"escalations); walls {drained['unfused'][1]:.3f} / {drained['fused'][1]:.3f} s")
+
+    # 4. serve_hybrid_1m: the strategy router over the static corpus
+    ex4 = LocalExecutor(corpus, index)
+    rt4 = runtime_for(ex4, serving_tiers())
+    rt4.router = make_serving_router(ex4, n_labels=10, controller=rt4.controller)
+    hybrid_items = items[:SERVE_HYBRID]
+    row, resp4, counts = replay("serve_hybrid_1m", rt4, hybrid_items)
+    overlays = rt4.overlays.stats()
+    if overlays["builds"]:
+        check(counts["l2_matmul"] > 0, "serve_hybrid_1m: an overlay built without l2_matmul")
+    row["overlays"] = overlays
+    row["recall"] = exact_recall_by_family(corpus, hybrid_items, resp4, dev)
+    rows["serve_hybrid_1m"] = row
+    log(f"serving {json.dumps(row)}")
+
+    # 5. serve_churn_1m: a fresh streaming index under churn
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sidx = StreamingIndex.from_static(corpus, index, capacity=n + n // 2, ef_insert=32,
+                                      seed=args.seed, device=dev)
+    ex5 = StreamingLocalExecutor(sidx, consolidate_after=64)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    # every published epoch's tombstones, labels and attributes (device
+    # tensors of the immutable snapshots), to check each response against
+    # the epoch it names
+    tombs = {}
+    refresh = ex5.refresh
+
+    def keep(snap):
+        tombs[snap.epoch] = (snap.corpus.tombstones, snap.corpus.labels, snap.corpus.attrs)
+
+    def refresh_and_keep():
+        epoch = refresh()
+        keep(ex5.snapshot)
+        return epoch
+
+    keep(ex5.snapshot)
+    host_columns = {}
+
+    def columns(epoch):
+        if epoch not in host_columns:
+            _, labs, atts = tombs[epoch]
+            host_columns[epoch] = (labs.cpu().numpy(), atts.cpu().numpy())
+        return host_columns[epoch]
+
+    ex5.refresh = refresh_and_keep
+    rt5 = runtime_for(ex5, serving_tiers())
+    churn_items = churn_workload(7, corpus, SERVE_CHURN, 10, mutation_frac=0.3,
+                                 k_choices=(4, 8, 16))
+    row, resp5, counts = replay("serve_churn_1m", rt5, churn_items, churn=True,
+                                columns=columns)
+    dead = 0
+    for it, r in zip(churn_items, resp5):
+        if r is not None and r.ok and it.family in ("label", "range"):
+            ids = torch.from_numpy(r.ids[r.ids >= 0].astype(np.int32)).to(dev)
+            dead += int(tombstone_test(tombs[r.epoch][0], ids[None]).sum())
+    check(dead == 0, f"serve_churn_1m: {dead} served ids tombstoned at their response's epoch")
+    sidx.pool.check_accounting()
+    sidx.check_stats_exact()
+    check(counts["gather_distance"] > 0, "serve_churn_1m: gather_distance never launched")
+    check(sidx.consolidations > 0, "serve_churn_1m: no consolidation ran under serving")
+    row.update(setup_s=setup_s, epochs=len(tombs), consolidations=sidx.consolidations,
+               index=rt5.report()["index"], tombstoned_served=dead)
+    rows["serve_churn_1m"] = row
+    log(f"serving {json.dumps(row)}")
+    del ex5, rt5, sidx, tombs, host_columns, resp5
+
+    # 6. serve_mixed_1m_pq: ADC walk with fused_expand_adc, exact re-rank
+    rt6 = runtime_for(LocalExecutor(corpus, index, pq),
+                      serving_tiers(approx="pq", fuse_expand="on"))
+    pq_items = items[:SERVE_PQ]
+    row, resp6, counts = replay("serve_mixed_1m_pq", rt6, pq_items)
+    check(counts["fused_expand_adc"] > 0, "serve_mixed_1m_pq: fused_expand_adc never launched")
+    row["recall"] = exact_recall_by_family(corpus, pq_items, resp6, dev)
+    rows["serve_mixed_1m_pq"] = row
+    log(f"serving {json.dumps(row)}")
+
+    for name in ("serve_mixed_1m", "serve_mixed_1m_fused", "serve_hybrid_1m"):
+        for family, rec in rows[name]["recall"].items():
+            check(rec >= 0.5, f"{name}: {family} recall@k {rec} < 0.5")
+
+    # the launcher end to end at its own default shape (n = 20,000, d = 32:
+    # corpus, exact index through l2_matmul, warmup, replay, JSON log)
+    log_path = Path(__file__).resolve().parent / "build" / "serve_log.jsonl"
+    log_path.parent.mkdir(exist_ok=True)
+    log_path.unlink(missing_ok=True)
+    launch.reset()
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        serve.main(["--requests", "64", "--log-json", str(log_path)])
+    torch.cuda.synchronize()
+    counts = launch.read()
+    text = out.getvalue()
+    check("served 64/64 requests" in text, "launcher: not every request served")
+    check(counts["l2_matmul"] > 0 and counts["gather_distance"] > 0,
+          "launcher: its index build or walk ran without the kernels")
+    records = log_path.read_text().splitlines()
+    log(f"serving launcher {json.dumps(dict(wall_s=time.perf_counter() - t0, log_records=len(records), launches={k: v for k, v in counts.items() if v}, summary=text.strip().splitlines()[-2]))}")
+    log(f"serving: phase wall {time.perf_counter() - t_phase:.1f} s (host clock, checks "
+        f"included; workload generation {workload_s:.2f} s)")
+
+
 def knn_graph_recall(graph, exact, chunk=65536) -> float:
     """Share of the exact graph's edges that ``graph`` holds, over all rows."""
     hits = 0
@@ -1901,7 +2322,13 @@ def main() -> int:
     world = search_phase(args, dev, launch)
     # 6b. streaming and hybrid, over phase 6's world
     streaming_phase(args, dev, launch, world)
+    # 6c. serving, over phase 6's world
+    serving_phase(args, dev, launch, world)
     del world
+    # the serving phase's objects (a closure cycle among them) may pin
+    # cached segments that phase 7's 51.2 GB table needs
+    gc.collect()
+    torch.cuda.empty_cache()
     # 7. two-tower-retrieval, after the airship-sift1m world is freed
     two_tower_phase(args, dev, launch)
 

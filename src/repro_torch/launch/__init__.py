@@ -1,0 +1,2 @@
+# Entry-point drivers of the port (port of ``repro.launch``): ``serve``
+# replays a mixed constrained workload through the serving runtime.

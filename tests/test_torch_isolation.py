@@ -25,6 +25,7 @@ from repro_torch.interop import (
     streaming_index_from_reference,
     two_tower_params_from_reference,
 )
+from repro_torch.launch import serve
 from repro_torch.models.recsys import two_tower_init
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -52,7 +53,13 @@ def test_no_reference_imports():
     walked = {p.relative_to(port).as_posix() for p in files if port in p.parents}
     assert {"streaming/__init__.py", "streaming/slots.py", "streaming/mutate.py",
             "streaming/consolidate.py", "core/histogram.py", "core/posting.py",
-            "core/estimator.py", "core/overlay.py", "core/router.py"} <= walked
+            "core/estimator.py", "core/overlay.py", "core/router.py",
+            "serving/__init__.py", "serving/types.py", "serving/batcher.py",
+            "serving/cache.py", "serving/slo.py", "serving/controller.py",
+            "serving/telemetry.py", "serving/retry.py", "serving/faults.py",
+            "serving/runtime.py", "serving/workload.py", "obs/__init__.py",
+            "obs/tracing.py", "obs/logs.py", "launch/__init__.py",
+            "launch/serve.py"} <= walked
     bad = {str(p.relative_to(ROOT)): sorted(_imported_roots(p) & set(FORBIDDEN))
            for p in files if _imported_roots(p) & set(FORBIDDEN)}
     assert not bad, bad
@@ -129,6 +136,9 @@ def test_tensor_creators_default_to_cuda_and_raise_without_it():
             sample_ids=cpu_index.sample_ids, entry_point=cpu_index.entry_point,
             free=pool.free, pending=pool.pending, n_live=pool.n_live, epoch=0, ef_insert=32,
             consolidations=0, rng_state=cpu_index.rng.get_state())
+    # the serve launcher's default device is the card, too
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--n", "64", "--requests", "1"])
 
 
 def test_generator_must_match_device():
