@@ -137,6 +137,37 @@ the runtime on the card and on the CPU (default tiers, unfused and
 fused) must agree bit for bit, and the card's drains must launch
 gather_distance / fused_expand.
 
+Phase 6d, scale-out, follows 6c over the same world (attrs (n, 2) uniform
+from a generator of its own). Distributed: build_partitioned_index with 4
+shards of 250,000 rows (exact through l2_matmul, degree 32, sample 128 a
+shard), placed on a (1, 4) mesh whose four positions are all cuda:0;
+make_distributed_search (archs/airship.py's serve_search) over
+AIRSHIP_SHAPES serve_256, serve_256_fused, serve_256_pq_fused (phase 5's
+codebooks, codes split by rows) and serve_bulk_8k (8,192 queries of their
+own), equal-label constraints, plus one range batch (windows of 0.3 on
+column 0); recall@10 >= 0.5 against the exact oracle on the partitioned
+corpus, every id inside its constraint, fused == unfused, the (1, 4)
+result equal bit for bit to the per-shard composition by hand (4
+constrained_search calls and a stable merge), and a (1, 1) mesh over phase
+6's own index equal to constrained_search; one `distributed {...}` line a
+shape (batch wall, QPS, iters = the max over shards, recall, each shard's
+walk wall) and `profile dist_256_p4 shard 0` (one shard's walk). Replicas
+over HTTP: ServingFrontend on 127.0.0.1:0 over a 2-replica ReplicaSet
+sharing phase 6's static index
+(wall clock, phase 6c's tiers and ladder), 64 mixed label and range
+requests from 8 client threads, /metrics parsed with parse_exposition and
+held to each replica's telemetry, /healthz, /varz, close() losing no
+request (`http {...}` line: req/s on the wall clock, client p50 / p99,
+each replica's share, the scrape's size); then two streaming replicas,
+each its own 1.5M-slot pool: one upsert and one delete broadcast over
+HTTP, equal epochs, equal answers on both replicas, the dead slot never
+served. The launcher: `python -m repro_torch.launch.serve --n 20000
+--serve-http 0 --replicas 2` in a subprocess (its address read from its
+output, 4 requests, SIGTERM, its shutdown report checked), and main()
+with --distributed (a 1x1 mesh on the card). Phase 7 adds retrieval_cand
+with two_phase_topk on a (1, 4) mesh, equal to the single-device top-100
+up to ties. Request counts are cut for time (PERF.md §4), never widths.
+
 It prints a {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
 It imports nothing of JAX or of the JAX package.
 """
@@ -146,12 +177,19 @@ import argparse
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
 from pathlib import Path
 
-import torch
+# Phase 7's 51.2 GB item table needs one 47.7 GiB range after phases that
+# cycle tens of GB of temporaries through the caching allocator (phase 6d's
+# 8,192-query oracle and walks): expandable segments let it hand partly
+# used cache back to the card instead of pinning whole segments.
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+
+import torch  # noqa: E402 (after the allocator's setting)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
@@ -181,6 +219,14 @@ TT_EF_RESULT, TT_MAX_ITERS = 2048, 8000
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def log_memory(where: str) -> None:
+    """Device memory held at a phase boundary, after a collection."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"memory {where}: allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB, reserved "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB ({os.environ.get('PYTORCH_CUDA_ALLOC_CONF')})")
 
 
 def fail(msg: str) -> None:
@@ -1409,7 +1455,8 @@ def search_phase(args, dev, launch: LaunchCounts):
     log("search: pq_scan_256 == its plain version (ids, ADC dists)")
     for name in ("pq_scan_256", "serve_256", "serve_256_fused", "serve_256_pq_fused"):
         profile_batch(name, runs[name])
-    return dict(corpus=corpus, index=index, queries=queries, cons=cons, base=base, pq=pq)
+    return dict(corpus=corpus, index=index, queries=queries, cons=cons, base=base, pq=pq,
+                true_ids=true_ids)
 
 
 # --------------------------------------------------------------------------- streaming and hybrid
@@ -2059,6 +2106,480 @@ def serving_phase(args, dev, launch: LaunchCounts, world) -> None:
         f"included; workload generation {workload_s:.2f} s)")
 
 
+# --------------------------------------------------------------------------- scale-out
+
+DIST_SHARDS = 4  # the (1, 4) mesh: four shards of 250,000 rows, all on the one card
+DIST_SHAPES = ("serve_256", "serve_256_fused", "serve_256_pq_fused", "serve_bulk_8k")
+# Cut to bound the phase's time (PERF.md §4): every flush is a whole
+# host-bound walk (1-2 s), and the two replicas share one card and one GIL.
+HTTP_REQUESTS = 64  # mixed label and range requests through the 2-replica front end
+HTTP_CLIENTS = 8  # client threads sending them
+LAUNCHER_REQUESTS = 4  # requests to the launcher's own front end
+LAUNCHER_N = 20_000  # the launcher's own default corpus size
+HTTP_TIMEOUT = 300  # seconds a client waits for one response
+
+
+def http_json(addr, path, payload=None, timeout=HTTP_TIMEOUT):
+    """(status, parsed JSON or text) of one GET (payload None) or POST."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(addr + path, data=data,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            body = r.read().decode()
+            status = r.status
+    except urllib.error.HTTPError as e:
+        body, status = e.read().decode(), e.code
+    try:
+        return status, json.loads(body)
+    except json.JSONDecodeError:
+        return status, body
+
+
+def search_body(item, n_labels=10) -> dict:
+    """The /v1/search payload of one workload item."""
+    import numpy as np
+
+    body = {"query": item.query.tolist(), "k": item.k, "family": item.family}
+    if item.family == "label":
+        w = np.asarray(item.operand, np.uint32)
+        body["labels"] = [x for x in range(n_labels) if w[x // 32] >> (x % 32) & 1]
+    else:
+        body["range"] = [float(item.operand[0]), float(item.operand[1]), int(item.operand[2])]
+    return body
+
+
+def scaleout_phase(args, dev, launch: LaunchCounts, world) -> None:
+    """Phase 6d: the scatter-search-merge path on a (1, 4) mesh of one card,
+    two replicas behind the HTTP front end (static, then streaming), and the
+    launcher's --serve-http / --replicas and --distributed."""
+    from repro_torch import (
+        Corpus,
+        GraphIndex,
+        RangeConstraint,
+        build_partitioned_index,
+        constrained_search,
+        equal_constraint,
+        exact_constrained_search,
+        make_distributed_search,
+        make_queries,
+        recall,
+        shard_corpus_for_mesh,
+    )
+    from repro_torch.archs.airship import (
+        AIRSHIP_SHAPES,
+        AirshipServeConfig,
+        serve_search,
+        shape_params,
+    )
+    from repro_torch.distributed import MeshInfo
+    from repro_torch.launch.mesh import make_test_mesh
+
+    t_phase = time.perf_counter()
+    corpus0, index, pq = world["corpus"], world["index"], world["pq"]
+    queries, cons = world["queries"], world["cons"]
+    n = corpus0.n
+    cfg = AirshipServeConfig(n=n)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 71)
+    corpus = Corpus(vectors=corpus0.vectors, labels=corpus0.labels,
+                    attrs=torch.rand((n, 2), generator=gen, device=dev))
+
+    # The partitioned index: 4 exact shard builds through l2_matmul.
+    launch.reset()
+    t0 = time.perf_counter()
+    corpus_p, graph_p = build_partitioned_index(gen, corpus, DIST_SHARDS, degree=cfg.degree,
+                                                sample_size_per_shard=cfg.sample_per_shard,
+                                                device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_launches = launch.read()
+    n_local = corpus_p.n // DIST_SHARDS
+    blocks = math.ceil(n_local / BUILD_BLOCK)
+    check(corpus_p.n == n and corpus_p.vectors.data_ptr() == corpus.vectors.data_ptr(),
+          "partitioned corpus: 1M rows split into 4 shards need no padding")
+    check(build_launches["l2_matmul"] == DIST_SHARDS * (blocks + 1),
+          f"partitioned build: {build_launches['l2_matmul']} l2_matmul launches, expected "
+          f"{DIST_SHARDS} x ({blocks} row blocks + 1 medoid)")
+    check(int((graph_p.neighbors >= 0).sum(-1).min()) > 0, "partitioned index: an empty row")
+    log(f"build partitioned: {DIST_SHARDS} shards x {n_local} rows, exact, degree {cfg.degree}, "
+        f"sample {cfg.sample_per_shard} a shard: {build_s:.3f} s (host clock); launches "
+        f"{json.dumps({k: v for k, v in build_launches.items() if v})}")
+
+    mesh = make_test_mesh(DIST_SHARDS, model=DIST_SHARDS, device=dev)
+    check(set(mesh.devices) == {dev} and mesh.shape == {"data": 1, "model": DIST_SHARDS},
+          f"mesh: {mesh}")
+    mi = MeshInfo(mesh=mesh)
+    index_s = shard_corpus_for_mesh(corpus_p, graph_p, mesh)
+    qgen = torch.Generator(device=dev).manual_seed(args.seed + 79)
+    bulk_b = AIRSHIP_SHAPES["serve_bulk_8k"]["batch"]
+    bq, bqlab = make_queries(qgen, corpus, bulk_b)
+    bcons = equal_constraint(bqlab, 10)
+    t0 = time.perf_counter()
+    truth = {B: exact_constrained_search(corpus_p, queries, cons, 10)[1],
+             bulk_b: exact_constrained_search(corpus_p, bq, bcons, 10)[1]}
+    torch.cuda.synchronize()
+    oracle_s = time.perf_counter() - t0
+
+    def satisfied(ids, c) -> bool:
+        lab = corpus_p.labels[ids.clamp_min(0).long()]
+        word = c.words.gather(1, (lab // 32).long())
+        ok = ((word >> (lab % 32)) & 1) == 1
+        return bool((ok | (ids < 0)).all())
+
+    def run(name, search, q, c, pqi, truth_ids, warm=False):
+        if warm:
+            search(index_s, q, c, pqi)  # warm-up batch
+        walls = []
+        launch.reset()
+        t0 = time.perf_counter()
+        res = search(index_s, q, c, pqi, shard_walls=walls)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch.read()
+        rec = float(recall(res.ids, truth_ids))
+        row = dict(shape=name, batch=q.shape[0], wall_s=wall, qps=q.shape[0] / wall,
+                   iters=int(res.stats.iters), recall_at_10=rec,
+                   shard_walls_s=[w for _, _, w in walls],
+                   dist_evals_mean=float(res.stats.dist_evals.float().mean()),
+                   filled_mean=float((res.ids >= 0).float().sum(-1).mean()),
+                   launches={k: v for k, v in counts.items() if v})
+        log(f"distributed {json.dumps(row)}")
+        check(res.ids.shape == (q.shape[0], 10) and bool(torch.isfinite(res.dists[res.ids >= 0]).all()),
+              f"{name}: bad result shape or non-finite distances")
+        check(rec >= 0.5, f"{name}: recall@10 {rec} < 0.5")
+        check(len(walls) == DIST_SHARDS, f"{name}: {len(walls)} shard walks, expected {DIST_SHARDS}")
+        return res, counts
+
+    results = {}
+    for shape in DIST_SHAPES:
+        b = AIRSHIP_SHAPES[shape]["batch"]
+        q, c = (queries, cons) if b == B else (bq, bcons)
+        params = shape_params(cfg, shape, dev)
+        pqi = pq if params.approx == "pq" else None
+        # One warm-up batch before the first shape: the kernels loaded in
+        # phase 3, and every shape walks the same code.
+        res, counts = run(f"dist_{shape[6:]}_p4", serve_search(cfg, shape, mi), q, c, pqi,
+                          truth[b], warm=shape == DIST_SHAPES[0])
+        results[shape] = res
+        check(satisfied(res.ids, c), f"{shape}: a returned id outside its label set")
+        kernel = ("fused_expand_adc" if params.approx == "pq" and params.fuse_expand == "on"
+                  else "fused_expand" if params.fuse_expand == "on" else "gather_distance")
+        check(counts[kernel] >= DIST_SHARDS, f"{shape}: {kernel} launched {counts[kernel]} times")
+    a, f = results["serve_256"], results["serve_256_fused"]
+    check(torch.equal(a.ids, f.ids) and torch.equal(a.dists, f.dists),
+          "dist serve_256_fused differs from serve_256 (ids or dists)")
+    for field in ("dist_evals", "hops", "visited", "iters", "beam_expansions"):
+        check(torch.equal(getattr(a.stats, field), getattr(f.stats, field)),
+              f"dist serve_256_fused differs from serve_256 in {field}")
+
+    # The (1, 4) result against the per-shard composition by hand.
+    params = shape_params(cfg, "serve_256", dev)
+    s_local = graph_p.sample_ids.shape[0] // DIST_SHARDS
+
+    def shard_walk(m):
+        sl = slice(m * n_local, (m + 1) * n_local)
+        return constrained_search(
+            Corpus(vectors=corpus_p.vectors[sl], labels=corpus_p.labels[sl]),
+            GraphIndex(neighbors=graph_p.neighbors[sl],
+                       sample_ids=graph_p.sample_ids[m * s_local : (m + 1) * s_local],
+                       entry_point=graph_p.entry_point[m]), queries, cons, params)
+
+    parts = [shard_walk(m) for m in range(DIST_SHARDS)]
+    flat_d = torch.cat([r.dists for r in parts], 1)
+    flat_i = torch.cat([torch.where(r.ids >= 0, r.ids + m * n_local, -1)
+                        for m, r in enumerate(parts)], 1)
+    hand_d, pos = torch.sort(flat_d, dim=-1, stable=True)
+    hand_d = hand_d[:, :10]
+    hand_i = torch.where(torch.isfinite(hand_d), flat_i.gather(1, pos[:, :10]), -1)
+    check(torch.equal(hand_d, a.dists) and torch.equal(hand_i, a.ids),
+          "dist_256_p4 differs from its per-shard composition (ids or dists)")
+    check(torch.equal(sum(r.stats.dist_evals for r in parts), a.stats.dist_evals)
+          and int(max(int(r.stats.iters) for r in parts)) == int(a.stats.iters),
+          "dist_256_p4's stats differ from the per-shard composition")
+    # The device busy share of one shard's walk (a quarter of the batch; the
+    # trace of all four costs minutes of processing on the host).
+    profile_batch("dist_256_p4 shard 0", lambda: shard_walk(0))
+    log(f"distributed: dist_256_fused_p4 == dist_256_p4 (ids, dists, every stat); dist_256_p4 "
+        f"== the per-shard composition by hand (4 constrained_search calls + a stable merge), "
+        f"bit for bit; every id inside its label set; oracle {oracle_s:.2f} s (set-up)")
+
+    # One range batch on the (1, 4) mesh (attrs column 0, windows of 0.3).
+    rgen = torch.Generator(device=dev).manual_seed(args.seed + 83)
+    lo = torch.rand((B,), generator=rgen, device=dev) * 0.7
+    rcons = RangeConstraint(lo=lo, hi=lo + 0.3, col=0)
+    rtruth = exact_constrained_search(corpus_p, queries, rcons, 10)[1]
+    res, counts = run("dist_256_range_p4",
+                      serve_search(cfg, "serve_256", mi, constraint_type=RangeConstraint),
+                      queries, rcons, None, rtruth)
+    vals = corpus_p.attrs[res.ids.clamp_min(0).long(), 0]
+    check(bool((((vals >= rcons.lo[:, None]) & (vals <= rcons.hi[:, None])) | (res.ids < 0)).all()),
+          "dist_256_range_p4: a returned id outside its range")
+
+    # The (1, 1) mesh over phase 6's own index equals constrained_search.
+    mesh1 = make_test_mesh(1, model=1, device=dev)
+    search1 = make_distributed_search(mesh1, params)
+    plain_corpus = Corpus(vectors=corpus0.vectors, labels=corpus0.labels)
+    index1 = shard_corpus_for_mesh(plain_corpus, index, mesh1)
+    launch.reset()
+    t0 = time.perf_counter()
+    r1 = search1(index1, queries, cons)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch.read()
+    want = constrained_search(plain_corpus, index, queries, cons, params)
+    check(torch.equal(r1.ids, want.ids) and torch.equal(r1.dists, want.dists)
+          and all(torch.equal(getattr(r1.stats, f_), getattr(want.stats, f_))
+                  for f_ in ("dist_evals", "hops", "visited", "iters", "beam_expansions")),
+          "dist_256_p1 differs from constrained_search")
+    check(counts["gather_distance"] > 0, "dist_256_p1: gather_distance never launched")
+    log(f"distributed {json.dumps(dict(shape='dist_256_p1', batch=B, wall_s=wall, qps=B / wall, iters=int(r1.stats.iters), recall_at_10=float(recall(r1.ids, world['true_ids'])), launches={k: v for k, v in counts.items() if v}))}")
+    log("distributed: dist_256_p1 == constrained_search over phase 6's index (ids, dists, "
+        "every stat)")
+    del results, parts, index_s, graph_p, corpus_p, truth, bq, bcons
+    log(f"distributed: part wall {time.perf_counter() - t_phase:.1f} s (host clock)")
+
+    log_memory("after the distributed part of phase 6d")
+    http_part(args, dev, launch, corpus, index)
+    log(f"scale-out: phase wall {time.perf_counter() - t_phase:.1f} s (host clock, checks "
+        f"included)")
+
+
+def http_part(args, dev, launch: LaunchCounts, corpus, index) -> None:
+    """Phase 6d, second half: two replicas behind ServingFrontend over phase
+    6's static index, then two streaming replicas with their own slot pools,
+    then the launcher (its --serve-http in a subprocess, its --distributed
+    in this process)."""
+    import concurrent.futures
+    import contextlib
+    import io
+    import os
+    import queue
+    import signal
+    import threading
+    import types
+
+    import numpy as np
+
+    from repro_torch import StreamingIndex
+    from repro_torch.launch import serve
+    from repro_torch.obs import ServingFrontend, parse_exposition
+    from repro_torch.serving import (
+        LocalExecutor,
+        ReplicaSet,
+        ServingRuntime,
+        StreamingLocalExecutor,
+        label_words_row,
+        mixed_workload,
+        percentile,
+        wall_clock,
+    )
+
+    t_part = time.perf_counter()
+    n = corpus.n
+    labels_host = corpus.labels.cpu().numpy()
+    attrs_host = corpus.attrs.cpu().numpy()
+
+    def replica(executor):
+        return ServingRuntime(executor, n_labels=10, tiers=serving_tiers(), ladder=(8, 32, 128),
+                              families=("label", "range"), max_wait=0.005, max_pending=1024,
+                              clock=wall_clock)
+
+    items = mixed_workload(7, corpus, HTTP_REQUESTS, 10, k_choices=(4, 8, 16))
+    tier = ReplicaSet([replica(LocalExecutor(corpus, index)) for _ in range(2)])
+    launch.reset()
+    fe = ServingFrontend(tier, host="127.0.0.1", port=0)
+    addr = fe.start()
+
+    def send(item):
+        t0 = time.perf_counter()
+        status, body = http_json(addr, "/v1/search", search_body(item))
+        return status, body, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(HTTP_CLIENTS) as pool:
+        answers = list(pool.map(send, items))
+    wall = time.perf_counter() - t0
+    for it, (status, body, _) in zip(items, answers):
+        check(status == 200 and body.get("error") is None, f"http: status {status}: {body}")
+        resp = types.SimpleNamespace(ids=np.asarray(body["ids"], np.int64))
+        check(response_satisfies(resp, it, labels_host, attrs_host),
+              f"http: request {body['req_id']} returned an id outside its constraint")
+    status, text = http_json(addr, "/metrics")
+    check(status == 200 and isinstance(text, str), f"/metrics: status {status}")
+    fams = parse_exposition(text)
+    events = fams["repro_serving_events_total"]
+    for i, rt in enumerate(tier.replicas):
+        with tier.locks[i]:
+            for key, v in rt.telemetry.counters.items():
+                check(events.value(event=key, replica=str(i)) == v,
+                      f"/metrics: replica {i} {key} {events.value(event=key, replica=str(i))} "
+                      f"!= telemetry {v}")
+            check(fams["repro_serving_latency_seconds"].hist_count(replica=str(i))
+                  == rt.telemetry.latency_hist.total, f"/metrics: replica {i} latency count")
+    check(fams["repro_tier_replicas"].value() == 2, "/metrics: tier replicas")
+    status, health = http_json(addr, "/healthz")
+    check(status == 200 and health["status"] == "ok" and len(health["replicas"]) == 2,
+          f"/healthz: {health}")
+    status, varz = http_json(addr, "/varz")
+    check(status == 200 and varz["n_replicas"] == 2 and varz["started_requests"] == HTTP_REQUESTS,
+          f"/varz: {status}")
+    report = fe.close(drain=True)
+    torch.cuda.synchronize()
+    counts = launch.read()
+    check(report["in_flight"] == 0, f"http close: {report['in_flight']} requests in flight")
+    for i, rt in enumerate(tier.replicas):
+        c = rt.telemetry.counters
+        check(c["submitted"] == c["completed"] + c["shed_total"],
+              f"http close: replica {i} lost a request")
+    check(sum(report["completed_per_replica"]) == HTTP_REQUESTS, "http: a request not completed")
+    check(counts["gather_distance"] > 0, "http: gather_distance never launched")
+    lat = [t for _, _, t in answers]
+    share = [sum(1 for _, b, _ in answers if b["replica"] == i) / HTTP_REQUESTS for i in (0, 1)]
+    row = dict(shape="http_2rep_1m", requests=HTTP_REQUESTS, clients=HTTP_CLIENTS, wall_s=wall,
+               req_per_s_wall=HTTP_REQUESTS / wall, latency_p50_s=percentile(lat, 50),
+               latency_p99_s=percentile(lat, 99), replica_share=share,
+               flushes=[rt.telemetry.counters["batches"] for rt in tier.replicas],
+               busy_s=[rt.busy_seconds for rt in tier.replicas], scrape_bytes=len(text.encode()),
+               families=len(fams), launches={k: v for k, v in counts.items() if v})
+    log(f"http {json.dumps(row)}")
+    del tier, fe
+
+    # Two streaming replicas, each with its own 1.5M-slot pool.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stier = ReplicaSet([
+        replica(StreamingLocalExecutor(StreamingIndex.from_static(
+            corpus, index, capacity=n + n // 2, ef_insert=32, seed=args.seed, device=dev),
+            consolidate_after=64)) for _ in range(2)])
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    launch.reset()
+    sfe = ServingFrontend(stier, host="127.0.0.1", port=0)
+    saddr = sfe.start()
+    src = int(torch.randint(0, n, (1,), generator=torch.Generator().manual_seed(args.seed)))
+    vec = (corpus.vectors[src] + 0.01).cpu().numpy()
+    lab = int(labels_host[src])
+
+    def ask_each():
+        """The same label query to each replica directly (its pump steps
+        it): [(ids, dists, epoch)]."""
+        out = []
+        for i, rt in enumerate(stier.replicas):
+            with stier.locks[i]:
+                rid = rt.submit(vec, 8, "label", label_words_row([lab], 10))
+            deadline = time.monotonic() + HTTP_TIMEOUT
+            resp = None
+            while resp is None and time.monotonic() < deadline:
+                with stier.locks[i]:
+                    resp = rt.poll(rid)
+                time.sleep(0.002)
+            check(resp is not None and resp.ok, f"http churn: replica {i} did not answer")
+            out.append((resp.ids.tolist(), resp.dists.tobytes(), resp.epoch))
+        return out
+
+    t1 = time.perf_counter()
+    status, up = http_json(saddr, "/v1/upsert", {"vector": vec.tolist(), "label": lab,
+                                                 "attrs": [0.5, 0.5]})
+    upsert_s = time.perf_counter() - t1
+    check(status == 200 and up["ok"] and up["slot_consistent"], f"http upsert: {up}")
+    check(len({r["epoch"] for r in up["replicas"]}) == 1, f"http upsert epochs: {up}")
+    slot = up["slot"]
+    after_up = ask_each()
+    check(after_up[0] == after_up[1], "http churn: replicas answer differently after the upsert")
+    t1 = time.perf_counter()
+    status, dl = http_json(saddr, "/v1/delete", {"slot": slot})
+    delete_s = time.perf_counter() - t1
+    check(status == 200 and dl["ok"] and dl["slot_consistent"], f"http delete: {dl}")
+    check(len(set(stier.epochs())) == 1, f"http churn: epochs {stier.epochs()}")
+    after_del = ask_each()
+    check(after_del[0] == after_del[1], "http churn: replicas answer differently after the delete")
+    check(all(slot not in ids for ids, _, _ in after_del), "http churn: the dead slot was served")
+    sreport = sfe.close(drain=True)
+    torch.cuda.synchronize()
+    counts = launch.read()
+    check(sreport["in_flight"] == 0, "http churn close: requests in flight")
+    for i, rt in enumerate(stier.replicas):
+        c = rt.telemetry.counters
+        check(c["submitted"] == c["completed"] + c["shed_total"] + c["upserts_applied"]
+              + c["deletes_applied"], f"http churn close: replica {i} lost a request")
+        rt.executor.index.pool.check_accounting()
+    row = dict(shape="http_2rep_churn_1m", capacity=n + n // 2, setup_s=setup_s,
+               upsert_wall_s=upsert_s, delete_wall_s=delete_s, slot=slot,
+               epochs=stier.epochs(), upsert_found=slot in after_up[0][0],
+               replicas_agree=True, dead_slot_served=False,
+               launches={k: v for k, v in counts.items() if v})
+    log(f"http {json.dumps(row)}")
+    del stier, sfe
+
+    # The launcher: --serve-http 0 --replicas 2 in a subprocess, driven by
+    # requests and stopped by SIGTERM.
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    on_cpu = ["--device", "cpu"] if dev.type == "cpu" else []
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--n", str(LAUNCHER_N),
+         "--serve-http", "0", "--replicas", "2", *on_cpu], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, cwd=root, env=env)
+    lines: "queue.Queue[str]" = queue.Queue()
+    reader = threading.Thread(target=lambda: [lines.put(x) for x in proc.stdout], daemon=True)
+    reader.start()
+    try:
+        seen, laddr = [], None
+        deadline = time.monotonic() + 300
+        while laddr is None and time.monotonic() < deadline and proc.poll() is None:
+            try:
+                line = lines.get(timeout=1.0)
+            except queue.Empty:
+                continue
+            seen.append(line)
+            if "serving on " in line:
+                laddr = line.split("serving on ")[1].strip()
+        check(laddr is not None, "launcher: no address within 300 s:\n" + "".join(seen))
+        up_s = time.perf_counter() - t0
+        for i in range(LAUNCHER_REQUESTS):
+            status, body = http_json(laddr, "/v1/search", {
+                "query": [0.1 * i] * 32, "k": 4, "family": "label", "labels": [i]})
+            check(status == 200 and body["filled"] == 4 and body["replica"] in (0, 1),
+                  f"launcher: {status} {body}")
+        proc.send_signal(signal.SIGTERM)
+        proc.wait(timeout=120)
+        reader.join(timeout=10)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    rest = []
+    while not lines.empty():
+        rest.append(lines.get())
+    out = "".join(seen + rest)
+    check(proc.returncode == 0, f"launcher: exit {proc.returncode}:\n{out[-3000:]}")
+    shutdown = json.loads(out[out.index('{\n  "shutdown"'):])["shutdown"]
+    check(shutdown["in_flight"] == 0 and shutdown["replicas"] == 2
+          and sum(shutdown["completed_per_replica"]) == LAUNCHER_REQUESTS,
+          f"launcher: shutdown report {shutdown}")
+    log(f"http launcher {json.dumps(dict(wall_s=time.perf_counter() - t0, up_s=up_s, requests=LAUNCHER_REQUESTS, shutdown=shutdown))}")
+
+    # The launcher's --distributed in this process: a 1x1 mesh on the card.
+    launch.reset()
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        serve.main(["--n", str(LAUNCHER_N), "--requests", "64", "--distributed", *on_cpu])
+    torch.cuda.synchronize()
+    counts = launch.read()
+    text = buf.getvalue()
+    check("served 64/64 requests" in text and "mesh: {'data': 1, 'model': 1}" in text,
+          f"launcher --distributed: {text[-2000:]}")
+    check(counts["l2_matmul"] > 0 and counts["gather_distance"] > 0,
+          "launcher --distributed: its build or walk ran without the kernels")
+    log(f"distributed launcher {json.dumps(dict(wall_s=time.perf_counter() - t0, launches={k: v for k, v in counts.items() if v}, summary=text.strip().splitlines()[-1]))}")
+    log(f"http: part wall {time.perf_counter() - t_part:.1f} s (host clock)")
+
+
 def knn_graph_recall(graph, exact, chunk=65536) -> float:
     """Share of the exact graph's edges that ``graph`` holds, over all rows."""
     hits = 0
@@ -2133,7 +2654,9 @@ def two_tower_phase(args, dev, launch: LaunchCounts):
     )
     from repro_torch.archs.recsys import RECSYS_SHAPES, serve_fn, shape_batch
     from repro_torch.data import two_tower_batch
+    from repro_torch.distributed import MeshInfo
     from repro_torch.graph.build import span_seconds
+    from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.models.recsys import two_tower_init
     from repro_torch.models.recsys.models import VOCAB_PAD
 
@@ -2201,6 +2724,33 @@ def two_tower_phase(args, dev, launch: LaunchCounts):
             check(out.shape == (b,) and bool(torch.isfinite(out).all())
                   and float(out.abs().max()) <= 1 + 1e-5,
                   f"{shape}: scores not finite cosines of shape ({b},)")
+    # retrieval_cand's two-phase top-k over a (1, 4) mesh of the card: each
+    # candidate shard takes its own top-100, one more top-100 merges them.
+    mi = MeshInfo(mesh=make_test_mesh(4, model=4, device=dev))
+    batch, _, (vals, ids) = outs["retrieval_cand"]
+    fn = serve_fn(cfg, "retrieval_cand", shapes, mesh=mi)
+    fn(model, batch)  # warm-up batch
+    launch.reset()
+    t0 = time.perf_counter()
+    vals4, ids4 = fn(model, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch.read()
+    check(launches["embedding_bag"] == 1, "retrieval_cand_tt_p4: embedding_bag not launched once")
+    check(vals4.shape == (1, 100) and ids4.dtype == torch.int32,
+          "retrieval_cand_tt_p4: bad top-k shape")
+    check(float((vals4 - vals).abs().max()) <= 1e-5,
+          "retrieval_cand_tt_p4: scores differ from the single-device top-100")
+    gaps = (vals[:, 1:] - vals[:, :-1]).abs()
+    clear = torch.ones_like(vals, dtype=torch.bool)
+    clear[:, 1:] &= gaps > 1e-4
+    clear[:, :-1] &= gaps > 1e-4
+    check(bool((ids4[clear] == ids[clear]).all()),
+          "retrieval_cand_tt_p4: ids differ from the single-device top-100 beyond ties")
+    row = dict(shape="retrieval_cand_tt_p4", batch=1, wall_s=wall, users_per_s=1 / wall,
+               mesh=mi.mesh.shape, ids_equal=bool(torch.equal(ids4, ids)),
+               ids_compared=int(clear.sum()), launches={k: v for k, v in launches.items() if v})
+    log(f"serve {json.dumps(row)}")
     profile_batch("serve_bulk_tt", lambda: outs["serve_bulk"][1](model, outs["serve_bulk"][0]))
     del outs
 
@@ -2273,8 +2823,8 @@ def two_tower_phase(args, dev, launch: LaunchCounts):
     log(f"two-tower: peak device memory {peak / 1e9:.2f} GB (max_memory_allocated) of "
         f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} GB")
     bags = launch.total["embedding_bag"] - bags_before
-    check(bags == 4, f"two-tower: embedding_bag launched {bags} times, expected 4 (3 serve "
-                     f"shapes + the walk's queries)")
+    check(bags == 5, f"two-tower: embedding_bag launched {bags} times, expected 5 (3 serve "
+                     f"shapes + retrieval_cand on the (1, 4) mesh + the walk's queries)")
 
 
 def main() -> int:
@@ -2324,11 +2874,13 @@ def main() -> int:
     streaming_phase(args, dev, launch, world)
     # 6c. serving, over phase 6's world
     serving_phase(args, dev, launch, world)
+    log_memory("after phase 6c")
+    # 6d. scale-out (mesh, replicas, HTTP, the launcher), over phase 6's world
+    scaleout_phase(args, dev, launch, world)
     del world
-    # the serving phase's objects (a closure cycle among them) may pin
+    # the serving phases' objects (a closure cycle among them) may pin
     # cached segments that phase 7's 51.2 GB table needs
-    gc.collect()
-    torch.cuda.empty_cache()
+    log_memory("after phase 6d, the world freed")
     # 7. two-tower-retrieval, after the airship-sift1m world is freed
     two_tower_phase(args, dev, launch)
 

@@ -10,12 +10,14 @@ models are not ported yet (ROADMAP item 14).
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, Optional
 
 import torch
 
 from repro_torch.common.device import resolve_device
 from repro_torch.data.pipeline import two_tower_batch
+from repro_torch.distributed.meshinfo import MeshInfo
 from repro_torch.models.recsys.models import RecsysConfig, TwoTower
 
 RECSYS_SHAPES: Dict[str, dict] = {
@@ -53,16 +55,20 @@ def serve_scores(model: TwoTower, batch: dict):
 
 
 @torch.inference_mode()
-def serve_retrieval(model: TwoTower, batch: dict):
-    """retrieval_cand: (values, int32 ids) of the top min(100, C) candidates."""
-    return model.score_candidates(batch)
+def serve_retrieval(model: TwoTower, batch: dict, mesh: Optional[MeshInfo] = None):
+    """retrieval_cand: (values, int32 ids) of the top min(100, C) candidates;
+    with a ``mesh``, the two-phase top-k over its model axis."""
+    return model.score_candidates(batch, mesh, two_phase_topk=True)
 
 
-def serve_fn(cfg: RecsysConfig, shape: str,
-             shapes: Optional[Dict[str, dict]] = None) -> Callable[[TwoTower, dict], object]:
-    """The serve function of ``shape``: ``fn(model, batch)``."""
+def serve_fn(cfg: RecsysConfig, shape: str, shapes: Optional[Dict[str, dict]] = None,
+             mesh: Optional[MeshInfo] = None) -> Callable[[TwoTower, dict], object]:
+    """The serve function of ``shape``: ``fn(model, batch)``; retrieval_cand
+    runs its two-phase top-k over ``mesh`` when one is given."""
     sh = _serve_shape(cfg, shape, shapes)
-    return serve_retrieval if sh.get("n_candidates") else serve_scores
+    if sh.get("n_candidates"):
+        return functools.partial(serve_retrieval, mesh=mesh)
+    return serve_scores
 
 
 def shape_batch(cfg: RecsysConfig, shape: str, seed: int = 0, step: int = 0, *,

@@ -9,6 +9,12 @@ from repro_torch.core.constraints import (
     selectivity,
     unequal_pct_constraint,
 )
+from repro_torch.core.distributed import (
+    ShardedIndex,
+    make_distributed_search,
+    merge_topk,
+    shard_corpus_for_mesh,
+)
 from repro_torch.core.estimator import (
     SelectivityEstimator,
     sample_satisfied_mask,
@@ -60,6 +66,7 @@ __all__ = [
     "SearchResult",
     "SearchStats",
     "SelectivityEstimator",
+    "ShardedIndex",
     "StrategyRouter",
     "build_overlay",
     "constrained_search",
@@ -67,7 +74,9 @@ __all__ = [
     "equal_constraint",
     "exact_constrained_search",
     "label_set_from_lists",
+    "make_distributed_search",
     "make_satisfied_fn",
+    "merge_topk",
     "overlay_search",
     "posting_search",
     "pq_constrained_search",
@@ -77,6 +86,7 @@ __all__ = [
     "sampled_selectivity",
     "scan_selectivity",
     "selectivity",
+    "shard_corpus_for_mesh",
     "single_label_of_words",
     "three_stage_pipeline",
     "unequal_pct_constraint",

@@ -36,5 +36,19 @@ def estimate_alter_ratio(
     frac = (nb_sat & valid).float().sum(-1) / valid.float().sum(-1).clamp_min(1.0)
     m = sample_sat_mask.float()
     n_sat = m.sum(-1)
-    est = (frac * m).sum(-1) / n_sat.clamp_min(1.0)
+    est = pinned_sum(frac * m) / n_sat.clamp_min(1.0)
     return torch.where(n_sat > 0, est, default)
+
+
+def pinned_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in one fixed order on every device: zero-pad
+    to a power of two, then add the upper half onto the lower until one
+    column is left. ``torch.sum`` reduces in each device's own order, so
+    the card and the CPU would round a sum of inexact fractions (c / 12)
+    differently and their walks would part."""
+    width = 1 << max(0, (x.shape[-1] - 1).bit_length())
+    x = torch.nn.functional.pad(x, (0, width - x.shape[-1]))
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0]

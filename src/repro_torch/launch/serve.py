@@ -17,24 +17,38 @@ On the card (the default device):
 On the CPU (the kernels' plain versions):
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --n 2000
 
+Distributed path (scatter-search-merge over a (n_dev // model, model)
+mesh of the CUDA devices, model = min(4, n_dev): 1x1 on one card):
+    PYTHONPATH=src python -m repro_torch.launch.serve --distributed --approx pq
+
+HTTP front end (DESIGN.md §12) — wall-clock runtime behind a real socket;
+SIGINT or SIGTERM drains in-flight work, flushes the log and exits:
+    PYTHONPATH=src python -m repro_torch.launch.serve --serve-http 8080 \
+        --log-json serve_log.jsonl
+    curl -s localhost:8080/metrics | head
+
+Multi-replica tier (DESIGN.md §13) — N shared-nothing runtimes behind one
+front end, hash- or load-routed, with /metrics labeled per replica:
+    PYTHONPATH=src python -m repro_torch.launch.serve --serve-http 8080 \
+        --replicas 4 --router hash
+
 The corpus, attributes, index and PQ codebooks draw from torch generators
 seeded 0, 5, 1 and 4, the reference's key numbers (the draws are torch's,
-not JAX's). Not ported yet: ``--distributed`` (ROADMAP item 12), and the
-HTTP front end with its replica tier, ``--serve-http`` / ``--replicas``
-(ROADMAP item 11b); each exits non-zero and says so.
+not JAX's).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import threading
 from typing import Optional, Sequence
 
 import torch
 
 from repro_torch.common.device import resolve_device
 from repro_torch.data.synthetic import make_labeled_corpus
-from repro_torch.graph.index import build_index
+from repro_torch.graph.index import build_index, build_partitioned_index
 from repro_torch.serving import (
     LocalExecutor,
     ServingRuntime,
@@ -49,11 +63,21 @@ def _generator(seed: int, dev: torch.device) -> torch.Generator:
     return torch.Generator(device=dev).manual_seed(seed)
 
 
-def build_runtime(args, corpus, clock, dev: torch.device, prebuilt_graph=None):
+def mesh_device_count(dev: torch.device) -> int:
+    """Devices a --distributed mesh spans: every CUDA device, or one."""
+    return torch.cuda.device_count() if dev.type == "cuda" and dev.index is None else 1
+
+
+def build_runtime(args, corpus, clock, dev: torch.device, prebuilt_graph=None,
+                  replica_id=None):
     """Executor + runtime over ``corpus`` on ``dev``: the streaming executor
-    under ``--churn``, else the static local one (with PQ codebooks under
-    ``--approx pq``). ``prebuilt_graph`` reuses an index already built over
-    ``corpus``."""
+    under ``--churn``, the distributed one under ``--distributed``, else
+    the static local one (with PQ codebooks under ``--approx pq``).
+
+    ``prebuilt_graph`` shares one (read-only) static graph build across
+    replicas; each replica still gets its OWN executor, closure cache and
+    (for churn) its own mutable ``StreamingIndex`` slot pool —
+    shared-nothing everywhere state can change."""
 
     def graph_for(corpus):
         if prebuilt_graph is not None:
@@ -61,11 +85,20 @@ def build_runtime(args, corpus, clock, dev: torch.device, prebuilt_graph=None):
         print("building index...")
         return build_index(_generator(1, dev), corpus, degree=16, sample_size=512, device=dev)
 
+    def train_pq(vectors):
+        # Codes are row-aligned with the corpus the executor serves, so the
+        # distributed path trains on the PARTITIONED (padded) corpus.
+        from repro_torch.core.pq import default_m_sub, pq_train
+
+        m_sub = default_m_sub(args.d)
+        print(f"training PQ codebooks (m_sub={m_sub})...")
+        return pq_train(_generator(4, dev), vectors, m_sub=m_sub, n_cent=256)
+
     if args.churn > 0:
-        if args.approx == "pq":
+        if args.distributed or args.approx == "pq":
             raise SystemExit(
                 "--churn serves through the streaming local executor "
-                "(exact backend); drop --approx pq"
+                "(exact backend); drop --distributed/--approx pq"
             )
         from repro_torch.serving import StreamingLocalExecutor
         from repro_torch.streaming import StreamingIndex
@@ -74,15 +107,25 @@ def build_runtime(args, corpus, clock, dev: torch.device, prebuilt_graph=None):
         print("building streaming index (slot pool)...")
         index = StreamingIndex.from_static(corpus, graph, ef_insert=args.base_ef, device=dev)
         executor = StreamingLocalExecutor(index, consolidate_after=args.consolidate_after)
+    elif args.distributed:
+        from repro_torch.core import shard_corpus_for_mesh
+        from repro_torch.launch.mesh import make_test_mesh
+        from repro_torch.serving import DistributedExecutor
+
+        n_dev = mesh_device_count(dev)
+        model = min(4, n_dev)
+        mesh = make_test_mesh(n_dev, model=model, device=dev)
+        print(f"mesh: {mesh.shape} over {len(set(mesh.devices))} device(s)")
+        print("building partitioned index...")
+        corpus_p, graph_p = build_partitioned_index(
+            _generator(1, dev), corpus, n_shards=model, degree=16,
+            sample_size_per_shard=128, device=dev)
+        index_s = shard_corpus_for_mesh(corpus_p, graph_p, mesh)
+        pq_index = train_pq(corpus_p.vectors) if args.approx == "pq" else None
+        executor = DistributedExecutor(mesh, index_s, pq_index=pq_index)
     else:
         graph = graph_for(corpus)
-        pq_index = None
-        if args.approx == "pq":
-            from repro_torch.core.pq import default_m_sub, pq_train
-
-            m_sub = default_m_sub(args.d)
-            print(f"training PQ codebooks (m_sub={m_sub})...")
-            pq_index = pq_train(_generator(4, dev), corpus.vectors, m_sub=m_sub, n_cent=256)
+        pq_index = train_pq(corpus.vectors) if args.approx == "pq" else None
         executor = LocalExecutor(corpus, graph, pq_index)
 
     tiers = make_tier_ladder(
@@ -139,8 +182,14 @@ def build_runtime(args, corpus, clock, dev: torch.device, prebuilt_graph=None):
         clock=clock,
         slo=slo_cfg,
         shed_expired=args.slo,
+        replica_id=replica_id,
     )
     if args.hybrid:
+        if args.distributed:
+            raise SystemExit(
+                "--hybrid needs host-side posting lists; the distributed "
+                "executor is graph-only for now (drop --distributed)"
+            )
         from repro_torch.serving import make_serving_router
 
         runtime.router = make_serving_router(
@@ -172,7 +221,7 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                     help="admission-queue bound (backpressure)")
     ap.add_argument("--distributed", action="store_true",
                     help="serve through the scatter-search-merge mesh path "
-                    "(not ported yet: ROADMAP item 12)")
+                    "(a (n_dev // model, model) mesh, model = min(4, n_dev))")
     ap.add_argument("--churn", type=float, default=0.0,
                     help="fraction of the stream that is upsert/delete "
                     "traffic against the streaming mutable index (0 = "
@@ -220,38 +269,43 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     )
     ap.add_argument(
         "--serve-http", type=int, default=None, metavar="PORT",
-        help="serve over HTTP instead of replaying a synthetic stream "
-        "(not ported yet: ROADMAP item 11b)",
+        help="instead of replaying a synthetic stream, serve over HTTP "
+        "(DESIGN.md §12): POST /v1/search /v1/upsert /v1/delete, GET "
+        "/metrics (Prometheus text), /healthz, /varz. Runs on the wall "
+        "clock; SIGINT / SIGTERM drains in-flight work and exits. Port 0 "
+        "picks a free port",
     )
     ap.add_argument(
         "--replicas", type=int, default=1, metavar="N",
         help="shared-nothing runtime replicas behind the HTTP front end "
-        "(not ported yet: ROADMAP item 11b)",
+        "(DESIGN.md §13): each gets its own closure cache, controller, "
+        "batcher, pump thread, and (with --churn) slot pool; mutations "
+        "broadcast to all at one enqueue boundary. Needs --serve-http",
     )
     ap.add_argument(
         "--router", default="hash", choices=("hash", "least-loaded"),
-        help="replica router of the HTTP front end's replica tier (not "
-        "ported yet: ROADMAP item 11b)",
+        help="replica router: consistent-hash by request key (closure-"
+        "cache affinity, deterministic) or least-loaded by pending depth",
     )
     ap.add_argument(
         "--log-json", default=None, metavar="PATH",
         help="structured JSON request logs (admit/dispatch/complete/shed "
         "records with req_id/batch_id/epoch) buffered in a bounded ring "
-        "and flushed to PATH at the end",
+        "and flushed to PATH at the end (at shutdown under --serve-http)",
     )
     return ap.parse_args(argv)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = parse_args(argv)
-    if args.distributed:
-        raise SystemExit("--distributed: the scatter-search-merge path is not ported yet "
-                         "(ROADMAP item 12)")
-    if args.serve_http is not None or args.replicas > 1:
-        raise SystemExit("--serve-http / --replicas: the HTTP front end and its replica "
-                         "tier are not ported yet (ROADMAP item 11b)")
     if args.replicas < 1:
         raise SystemExit("--replicas must be >= 1")
+    if args.replicas > 1 and args.serve_http is None:
+        raise SystemExit("--replicas N needs --serve-http (the replica "
+                         "tier lives behind the HTTP front end)")
+    if args.replicas > 1 and args.distributed:
+        raise SystemExit("--replicas replicates the local executor; the "
+                         "mesh path is single-tier (drop --distributed)")
     dev = resolve_device(args.device)
 
     corpus = make_labeled_corpus(_generator(0, dev), n=args.n, d=args.d,
@@ -259,18 +313,54 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     corpus = dataclasses.replace(
         corpus, attrs=torch.rand((args.n, 2), generator=_generator(5, dev), device=dev))
 
-    clock = VirtualClock()
-    runtime = build_runtime(args, corpus, clock, dev)
+    # HTTP mode serves real clients, so it runs on the wall clock; replay
+    # mode keeps the deterministic virtual timeline.
+    if args.serve_http is not None:
+        from repro_torch.serving import wall_clock
+
+        clock = wall_clock
+    else:
+        clock = VirtualClock()
+    if args.replicas > 1:
+        from repro_torch.serving import ReplicaSet, make_replica_router
+
+        print(f"building index (shared across {args.replicas} replicas)...")
+        shared_graph = build_index(_generator(1, dev), corpus, degree=16, sample_size=512,
+                                   device=dev)
+        runtime = ReplicaSet(
+            [
+                build_runtime(args, corpus, clock, dev, prebuilt_graph=shared_graph,
+                              replica_id=i)
+                for i in range(args.replicas)
+            ],
+            router=make_replica_router(args.router, args.replicas),
+        )
+        trace_budget = runtime.replicas[0].trace_budget
+    else:
+        runtime = build_runtime(args, corpus, clock, dev)
+        trace_budget = runtime.trace_budget
     logger = None
     if args.log_json is not None:
         from repro_torch.obs import JsonLogger
 
-        # The runtime's own clock (build_runtime may have wrapped it in a
-        # FaultClock): virtual-time replays give virtual-time logs.
-        logger = JsonLogger(clock=runtime.clock)
-        runtime.logger = logger
-    print(f"warming closure cache ({runtime.trace_budget} bucket shapes) on {dev}...")
+        # The single runtime keeps its own clock (build_runtime may have
+        # wrapped it in a FaultClock): virtual-time replays give
+        # virtual-time logs; tier children bind their replica's clock in
+        # attach_logger.
+        logger = JsonLogger(clock=clock if args.replicas > 1 else runtime.clock)
+        if args.replicas > 1:
+            runtime.attach_logger(logger)
+        else:
+            runtime.logger = logger
+    print(f"warming closure cache ({trace_budget} bucket shapes"
+          + (f" x {args.replicas} replicas" if args.replicas > 1 else "")
+          + f") on {dev}...")
     compiled = runtime.warmup()
+
+    if args.serve_http is not None:
+        serve_http(args, runtime, logger, compiled)
+        return
+
     print(f"built {compiled} closures; serving {args.requests} requests "
           f"at Poisson rate {args.rate}/s...")
 
@@ -332,6 +422,34 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     if logger is not None:
         n = logger.flush_to_path(args.log_json)
         print(f"flushed {n} structured log records to {args.log_json}")
+
+
+def serve_http(args, runtime, logger, compiled: int) -> None:
+    """Serve ``runtime`` (one runtime or a ``ReplicaSet``) over HTTP until
+    SIGINT or SIGTERM, then drain, flush the log and print the shutdown
+    report."""
+    import signal
+
+    from repro_torch.obs.http import ServingFrontend
+
+    frontend = ServingFrontend(runtime, logger=logger, port=args.serve_http)
+    addr = frontend.start()
+    print(f"built {compiled} closures; serving on {addr}")
+    print(f"replicas: {frontend.n_replicas} (router "
+          f"{runtime.router.name if args.replicas > 1 else 'n/a'})")
+    print("routes: POST /v1/search /v1/upsert /v1/delete | "
+          "GET /metrics /healthz /varz "
+          "(SIGINT/SIGTERM drains and exits)", flush=True)
+    # Explicit handlers: a supervisor (or a non-interactive shell that
+    # spawned us with SIGINT ignored) sends SIGTERM — both signals must
+    # take the same graceful drain-and-flush path as a TTY Ctrl-C.
+    stop = threading.Event()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        signal.signal(sig, lambda *_: stop.set())
+    stop.wait()
+    print("draining...")
+    report = frontend.close(drain=True, log_path=args.log_json)
+    print(json.dumps({"shutdown": report}, indent=2), flush=True)
 
 
 if __name__ == "__main__":

@@ -16,10 +16,13 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from repro_torch.common.device import resolve_device
+
 
 class MLP(nn.Module):
-    def __init__(self, dims: Sequence[int], *, final_act: bool = False, device=None):
+    def __init__(self, dims: Sequence[int], *, final_act: bool = False, device="cuda"):
         super().__init__()
+        device = resolve_device(device)
         # skip_init: no draw from torch's global generator; init_ fills them.
         self.layers = nn.ModuleList(
             nn.utils.skip_init(nn.Linear, a, b, device=device)

@@ -12,10 +12,12 @@ The tower products and ``u @ cand.T`` are plain float32 products
 (``nn.Linear``, ``torch.matmul``), as the reference leaves them to XLA:
 they must run with TF32 off on the card.
 
-Serving only: the model's tensors do not require gradients, and the
-reference's ``mi`` (mesh) argument is gone (on one device its constraints
-do nothing). DLRM, DeepFM, SASRec and the training loss are not ported
-(ROADMAP item 14).
+Serving only: the model's tensors do not require gradients. The
+reference's ``mi`` (mesh) argument survives only where it changes the
+computation: ``score_candidates``'s two-phase top-k over a device mesh
+(``distributed/meshinfo.py``); elsewhere its layout constraints do nothing
+on one controller. DLRM, DeepFM, SASRec and the training loss are not
+ported (ROADMAP item 14).
 """
 from __future__ import annotations
 
@@ -85,10 +87,11 @@ class TwoTower(nn.Module):
     (D -> tower_mlp) and ``log_tau``. Built uninitialised; fill it with
     ``two_tower_init`` or ``interop.two_tower_params_from_reference``."""
 
-    def __init__(self, cfg: RecsysConfig, device=None):
+    def __init__(self, cfg: RecsysConfig, device="cuda"):
         super().__init__()
         if cfg.model != "two_tower":
             raise ValueError(f"{cfg.name} is a {cfg.model} config, not two_tower")
+        device = resolve_device(device)
         d = cfg.embed_dim
         self.cfg = cfg
 
@@ -118,14 +121,54 @@ class TwoTower(nn.Module):
         ie = self.item_emb.index_select(0, item_ids.long()).to(self.cfg.compute_dtype)
         return _normalise(self.item_tower(ie))
 
-    def score_candidates(self, batch):
+    def score_candidates(self, batch, mesh=None, *, two_phase_topk: bool = True):
         """retrieval_cand: the users of ``batch`` against its (C, D)
         ``candidates`` -> (values, int32 ids) of the top min(100, C) scores,
-        ties lower index first. The reference's single-device branch; the
-        two-phase sharded top-k needs a mesh (ROADMAP item 12)."""
+        ties lower index first.
+
+        With a ``mesh`` (a ``MeshInfo``) whose model axis divides C, and
+        ``two_phase_topk``, the candidates split over the model axis: each
+        shard takes its own top-k and only (P x k) score / id pairs reach
+        the merge (``two_phase_topk``). Otherwise the single-device branch:
+        one product and one top-k."""
         u = self.user(batch)
         cand = batch["candidates"].to(u.dtype)
-        return stable_topk(u @ cand.T, min(100, cand.shape[0]))
+        c = cand.shape[0]
+        k = min(100, c)
+        if two_phase_topk and mesh is not None and mesh.tp_size > 1 and c % mesh.tp_size == 0:
+            return two_phase_topk_scores(u, cand, mesh, k)
+        return stable_topk(u @ cand.T, k)
+
+
+def two_phase_topk_scores(u, cand, mesh, k: int):
+    """The two-phase top-k of ``u @ cand.T`` over ``mesh`` (a ``MeshInfo``):
+    candidate shard m (rows [m*C/P, (m+1)*C/P)) on device (g, m) of the
+    mesh scores data group g's users (the whole batch when the data axes do
+    not divide it), takes its stable top-k and offsets its ids by m*C/P;
+    the group's first device merges the (B_g, P*k) pairs with one more
+    stable top-k. The result lands on ``u``'s device."""
+    grid = mesh.mesh.groups(mesh.tp_axis)  # (data groups, P)
+    n_groups, p = grid.shape
+    c_local = cand.shape[0] // p
+    split = mesh.axes_if_divisible(u.shape[0], mesh.dp_axes) is not None
+    rows_per = u.shape[0] // n_groups if split else u.shape[0]
+    tops, ids = [], []
+    for g in range(n_groups if split else 1):
+        u_g = u[g * rows_per : (g + 1) * rows_per]
+        head = grid[g, 0]
+        parts = []
+        for m in range(p):
+            dev = grid[g, m]
+            scores = u_g.to(dev) @ cand[m * c_local : (m + 1) * c_local].to(dev).T
+            top, idx = stable_topk(scores, k)
+            parts.append((top.to(head), (idx + m * c_local).to(head)))
+        all_top = torch.stack([t for t, _ in parts], 1)  # (B_g, P, k)
+        all_idx = torch.stack([i for _, i in parts], 1)
+        t2, pos = stable_topk(all_top.reshape(all_top.shape[0], -1), k)
+        i2 = all_idx.reshape(all_idx.shape[0], -1).gather(1, pos.long())
+        tops.append(t2.to(u.device))
+        ids.append(i2.to(u.device))
+    return torch.cat(tops), torch.cat(ids)
 
 
 @torch.no_grad()

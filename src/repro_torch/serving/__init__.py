@@ -4,8 +4,9 @@
 # controller with under-fill escalation, and the submit/poll runtime front
 # with backpressure + telemetry; fault tolerance on top (DESIGN.md §10):
 # deadline enforcement + load shedding, the SLO degradation ladder, client
-# retry policy, and seeded fault injection. The replica tier and the
-# distributed executor are not ported yet (ROADMAP items 11b and 12).
+# retry policy, and seeded fault injection; scale-out (DESIGN.md §13): the
+# shared-nothing replica tier with its routers, and the distributed
+# executor over a device mesh.
 from repro_torch.serving.batcher import BATCH_LADDER, DynamicBatcher, MicroBatch, bucket_for
 from repro_torch.serving.cache import CompileCache, TraceBudgetError
 from repro_torch.serving.controller import (
@@ -21,9 +22,17 @@ from repro_torch.serving.faults import (
     FaultyExecutor,
     InjectedFault,
 )
+from repro_torch.serving.replicas import (
+    ROUTER_KINDS,
+    ConsistentHashRouter,
+    LeastLoadedRouter,
+    ReplicaSet,
+    make_replica_router,
+)
 from repro_torch.serving.retry import RetryPolicy, submit_with_retry
 from repro_torch.serving.slo import DegradationLadder, SLOConfig
 from repro_torch.serving.runtime import (
+    DistributedExecutor,
     EpochRangeView,
     LocalExecutor,
     ServingRuntime,
@@ -60,9 +69,11 @@ __all__ = [
     "AdmissionError",
     "BATCH_LADDER",
     "CompileCache",
+    "ConsistentHashRouter",
     "ControllerConfig",
     "DegradationLadder",
     "DeleteRequest",
+    "DistributedExecutor",
     "DynamicBatcher",
     "EpochRangeView",
     "ExecutorFault",
@@ -72,9 +83,12 @@ __all__ = [
     "FaultyExecutor",
     "InjectedFault",
     "LatencyHistogram",
+    "LeastLoadedRouter",
     "LocalExecutor",
     "MUTATION_FAMILIES",
     "MicroBatch",
+    "ROUTER_KINDS",
+    "ReplicaSet",
     "Request",
     "Response",
     "RetryPolicy",
@@ -93,6 +107,7 @@ __all__ = [
     "deadline_due",
     "deadline_missed",
     "label_words_row",
+    "make_replica_router",
     "make_serving_router",
     "make_tier_ladder",
     "mixed_workload",

@@ -17,7 +17,10 @@ execution is pluggable via an *executor* that builds one closure per
   * ``LocalExecutor`` — ``build_context`` + ``search_with_context`` over an
     in-memory index on one device;
   * ``StreamingLocalExecutor`` — the same over the published snapshot of a
-    mutable ``StreamingIndex``.
+    mutable ``StreamingIndex``;
+  * ``DistributedExecutor`` — ``make_distributed_search`` over an index
+    placed on a device mesh (the scatter-search-merge path), uniform
+    ``pq_index`` payload.
 
 The port runs eagerly: there is no trace to count, so an executor counts
 its ``build()`` calls in ``traces`` (one per cache key), which keeps the
@@ -42,6 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.constraints import WORD_BITS, LabelSetConstraint, RangeConstraint
+from repro_torch.core.distributed import ShardedIndex, make_distributed_search
 from repro_torch.core.engine.context import build_context
 from repro_torch.core.engine.loop import search_with_context
 from repro_torch.core.estimator import SelectivityEstimator
@@ -252,6 +256,44 @@ class StreamingLocalExecutor:
         return fn
 
 
+class DistributedExecutor:
+    """Scatter-search-merge closures over a mesh-placed index.
+
+    One ``make_distributed_search`` per (family, tier) x bucket shape; the
+    uniform trailing ``pq_index`` payload (None for exact) means no
+    per-backend call branching here either. The runtime assembles each
+    microbatch on the mesh's first device, and the search leaves its
+    result there.
+    """
+
+    def __init__(self, mesh, index_s: ShardedIndex, pq_index=None):
+        self.mesh = mesh
+        self.index_s = index_s
+        self.pq_index = pq_index
+        self.traces = 0
+
+    @property
+    def dim(self) -> int:
+        return self.index_s.dim
+
+    @property
+    def device(self) -> torch.device:
+        return self.mesh.devices[0]
+
+    def build(
+        self, bucket: int, family: str, params: SearchParams
+    ) -> Callable[..., SearchResult]:
+        del bucket
+        self.traces += 1
+        ctype = LabelSetConstraint if family == "label" else RangeConstraint
+        search = make_distributed_search(self.mesh, params, constraint_type=ctype)
+
+        def fn(queries: torch.Tensor, constraint) -> SearchResult:
+            return search(self.index_s, queries, constraint, self.pq_index)
+
+        return fn
+
+
 # ---------------------------------------------------------------------------
 # hybrid routing plumbing (DESIGN.md §9)
 # ---------------------------------------------------------------------------
@@ -358,9 +400,13 @@ class ServingRuntime:
         max_fault_retries: int = 2,
         tracing: bool = True,
         logger: Optional[JsonLogger] = None,
+        replica_id: Optional[int] = None,
     ):
         self.executor = executor
         self.n_labels = int(n_labels)
+        # Which replica of a ReplicaSet this runtime is (None standalone);
+        # stamped into every trace so a tier's spans are attributable.
+        self.replica_id = replica_id
         tiers = tuple(tiers) if tiers is not None else make_tier_ladder()
         self.controller = controller or AdaptiveController(tiers, slo=slo)
         # The params each tier dispatches with: on a card, distances go
@@ -538,7 +584,9 @@ class ServingRuntime:
         self._in_flight += 1
         self.telemetry.on_submit()
         if self.tracing:
-            req.trace = RequestTrace(req.req_id, req.arrival_t)
+            req.trace = RequestTrace(
+                req.req_id, req.arrival_t, replica=self.replica_id
+            )
             req.trace.mark(f"route:{req.strategy}", req.arrival_t)
         self._log(
             "admit",

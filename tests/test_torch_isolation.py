@@ -1,8 +1,9 @@
 """The port stands alone: no file under src/repro_torch/ nor chip_smoke.py
 imports jax, jaxlib or the reference package, importing the port leaves
-jax out of sys.modules, and tensor-creating entry points without
-``device=`` raise where there is no CUDA device instead of dropping to the
-CPU."""
+jax out of sys.modules, tensor-creating entry points without ``device=``
+(``TwoTower`` and ``MLP`` too) raise where there is no CUDA device instead
+of dropping to the CPU, and no module says a path waits for ROADMAP item
+11b or 12 (both are ported)."""
 import ast
 import pathlib
 import subprocess
@@ -25,8 +26,12 @@ from repro_torch.interop import (
     streaming_index_from_reference,
     two_tower_params_from_reference,
 )
+from repro_torch.distributed import single_device_meshinfo
 from repro_torch.launch import serve
+from repro_torch.launch.mesh import make_test_mesh
+from repro_torch.models.common.modules import MLP
 from repro_torch.models.recsys import two_tower_init
+from repro_torch.models.recsys.models import TwoTower
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro")
@@ -59,7 +64,10 @@ def test_no_reference_imports():
             "serving/telemetry.py", "serving/retry.py", "serving/faults.py",
             "serving/runtime.py", "serving/workload.py", "obs/__init__.py",
             "obs/tracing.py", "obs/logs.py", "launch/__init__.py",
-            "launch/serve.py"} <= walked
+            "launch/serve.py", "obs/metrics.py", "obs/promparse.py", "obs/adapters.py",
+            "obs/http.py", "serving/replicas.py", "core/distributed.py",
+            "distributed/__init__.py", "distributed/meshinfo.py", "launch/mesh.py",
+            "archs/airship.py"} <= walked
     bad = {str(p.relative_to(ROOT)): sorted(_imported_roots(p) & set(FORBIDDEN))
            for p in files if _imported_roots(p) & set(FORBIDDEN)}
     assert not bad, bad
@@ -114,6 +122,16 @@ def test_tensor_creators_default_to_cuda_and_raise_without_it():
     with pytest.raises(RuntimeError, match="CUDA"):
         two_tower_init(g, cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
+        TwoTower(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MLP((4, 2))
+    assert TwoTower(cfg, device="cpu").item_emb.device.type == "cpu"
+    assert MLP((4, 2), device="cpu").layers[0].weight.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_test_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        single_device_meshinfo()
+    with pytest.raises(RuntimeError, match="CUDA"):
         two_tower_batch(0, 0, 4, cfg.user_vocab, cfg.item_vocab, cfg.hist_len)
     with pytest.raises(RuntimeError, match="CUDA"):
         shape_batch(cfg, "serve_p99")
@@ -139,6 +157,19 @@ def test_tensor_creators_default_to_cuda_and_raise_without_it():
     # the serve launcher's default device is the card, too
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--n", "64", "--requests", "1"])
+
+
+def test_no_module_waits_for_items_11b_or_12():
+    """The launcher's flags, the package docstrings and the two-tower model
+    no longer name ROADMAP item 11b or 12 as missing; the launcher takes
+    --serve-http, --replicas, --router and --distributed."""
+    bad = {str(p.relative_to(ROOT)) for p in _port_files()
+           if "item 11b" in p.read_text() or "item 12" in p.read_text()}
+    assert not bad, bad
+    args = serve.parse_args(["--serve-http", "0", "--replicas", "2", "--router",
+                             "least-loaded", "--distributed"])
+    assert (args.serve_http, args.replicas, args.router, args.distributed) == (
+        0, 2, "least-loaded", True)
 
 
 def test_generator_must_match_device():
