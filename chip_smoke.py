@@ -34,7 +34,17 @@ Phases, any failure exits non-zero:
      of padding only, L = 1, B = 1, D = 10 and 50 on the scalar path, rows
      V - 1 and around the 2**31-element mark, mode="mean"), exact on integer
      and float tables, timed against its bound, its plain version and one
-     torch.nn.functional.embedding_bag call;
+     torch.nn.functional.embedding_bag call. gather_distance runs at the
+     tuning table's configs for the walk's keys
+     (src/repro_torch/tune/table.json; the other tuner kernels have one
+     shape), and every bound comes from the
+     roofline model (src/repro_torch/roofline/model.py), each distinct row
+     counted once, with kernel_roofline's per-occurrence bound beside it;
+  3b. tune: for gather_distance, fused_expand, fused_expand_adc and pq_adc
+     at the main path's shapes, every point of the tuner's lattice (one
+     point, the default, for all but gather_distance) against the default
+     config bit for bit (distances and verdict masks), and the table's
+     choice timed against the default (a `tune {...}` line each);
   4. small world: the same searches on the card and on the CPU (plain
      versions) over an integer-valued world, exact and PQ, plus the PQ
      linear scan, must agree bit for bit; so must nn_descent with the same
@@ -168,7 +178,15 @@ with --distributed (a 1x1 mesh on the card). Phase 7 adds retrieval_cand
 with two_phase_topk on a (1, 4) mesh, equal to the single-device top-100
 up to ties. Request counts are cut for time (PERF.md §4), never widths.
 
-It prints a {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
+Phases 6, 6d and 7 print a `roofline {...}` line for serve_256,
+dist_256_p4 (airship_terms, the measured iters as est_iters, tp 1 and 4,
+one chip) and serve_bulk_tt (two_tower_serve_terms, the work the serve
+call does; the reference's recsys_terms beside it as reference_terms,
+which count in-batch logits serving never computes) beside the measured
+wall.
+
+It prints a {"kernels": [...]} line (each kernel's tuned config, null for
+l2_matmul and embedding_bag) and, last, {"ok": true, "device": ...}.
 It imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
@@ -191,8 +209,6 @@ os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 import torch  # noqa: E402 (after the allocator's setting)
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 L2_BYTES = 50 * 2**20
 B, D_MAIN = 256, 128
 TT_DIM = 256  # the two-tower item tower's output width (airship_tt_256's d)
@@ -239,6 +255,25 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
+def ptxas_summary(out: str) -> str:
+    """One line for a library's `-Xptxas -v` report: its kernel entries (one
+    per instantiated lattice point and family), their register range, and
+    the entries that spill."""
+    import re
+
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", out)]
+    spills, fn = [], None
+    for line in out.splitlines():
+        if "Function properties for" in line:
+            fn = line.split("for", 1)[1].strip()
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and (m.group(1) != "0" or m.group(2) != "0"):
+            spills.append(f"{fn} ({m.group(1)} / {m.group(2)} bytes)")
+    rng = f"{min(regs)}-{max(regs)}" if regs else "none"
+    return (f"{out.count('Compiling entry function')} entries, {rng} registers, "
+            f"{len(spills)} spilling{': ' + '; '.join(spills) if spills else ''}")
+
+
 # --------------------------------------------------------------------------- timing
 
 _first_reading = True
@@ -280,9 +315,38 @@ def device_ms(fn, arg_sets, reps: int = 100, replays: int = 5) -> float:
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """The least time, in ms, of work that moves ``n_bytes`` and does
+    ``n_ops`` float32 operations on one H100 (the roofline model's
+    constants, repro_torch/roofline/model.py), and which of the two bounds it."""
+    from repro_torch.roofline.model import work_bound
+
+    t, by = work_bound(n_bytes, n_ops)
+    return t * 1e3, by
+
+
+def occurrence_bound_ms(kernel: str, config, **shape) -> tuple[float, str]:
+    """kernel_roofline's bound, in ms: every candidate's words counted at each
+    occurrence (repro_torch/roofline/model.py), beside the smoke's bound,
+    which counts each distinct row once."""
+    from repro_torch.roofline.model import kernel_roofline
+
+    r = kernel_roofline(kernel, config, **shape)
+    return r.time_bound("cuda") * 1e3, r.bound_by("cuda")
+
+
+def table_config(kernel: str, d: int, deg: int = 32, beam: int = 1):
+    """The tuning table's config for a key on the card (what build_context
+    resolves for the main path's walks)."""
+    from repro_torch.tune import lookup
+
+    return lookup(kernel, d=d, deg=deg, beam=beam, platform="cuda")
+
+
+def config_dims(kernel: str, config) -> dict:
+    """The dimensions of ``config`` that ``kernel`` consumes."""
+    from repro_torch.tune import LATTICE
+
+    return {k: getattr(config, k) for k in LATTICE[kernel]}
 
 
 # --------------------------------------------------------------------------- kernels
@@ -345,6 +409,7 @@ def gathered_bytes(queries, corpus, ids):
 def kernel_phase(args, dev):
     from repro_torch.kernels.fused_expand import fused_expand_cuda, fused_expand_plain
     from repro_torch.kernels.gather_distance import gather_distance_cuda, gather_distance_plain
+    from repro_torch.tune import DEFAULT_CONFIGS
 
     gen = torch.Generator(device=dev).manual_seed(args.seed + 11)
     n, n_labels = args.n, 40
@@ -415,6 +480,14 @@ def kernel_phase(args, dev):
                          + vis_words * 4 + label_words.numel() * 4 + ids.numel() * 6)
         ops = 3.0 * D_MAIN * cands / n_sets
 
+        # gather_distance's config for this key from the tuning table, as
+        # the walks take it; fused_expand has one shape.
+        gd_cfg = table_config("gather_distance", D_MAIN, beam=m // 32)
+        fx_cfg = DEFAULT_CONFIGS["fused_exact"]
+
+        def gd_kernel(q, x, i):
+            return gather_distance_cuda(q, x, i, config=gd_cfg)
+
         def fx_kernel(q, x, i, v, meta, cons):
             return fused_expand_cuda(q, x, i, v, meta, cons, family="label")
 
@@ -423,19 +496,27 @@ def kernel_phase(args, dev):
 
         gd_bound = bound_ms(gd_bytes / n_sets, ops)
         fx_bound = bound_ms(fx_bytes / n_sets, ops)
+        shape = dict(b=B, m=m, d=D_MAIN)
         timings[m] = {
-            "gather_distance": dict(ms=device_ms(gather_distance_cuda, gd_sets),
+            "gather_distance": dict(ms=device_ms(gd_kernel, gd_sets),
                                     plain_ms=device_ms(gather_distance_plain, gd_sets),
-                                    bound_ms=gd_bound[0], bound_by=gd_bound[1]),
+                                    bound_ms=gd_bound[0], bound_by=gd_bound[1],
+                                    occurrence=occurrence_bound_ms("gather_distance", gd_cfg,
+                                                                   **shape),
+                                    config=config_dims("gather_distance", gd_cfg)),
             "fused_expand": dict(ms=device_ms(fx_kernel, fx_sets),
                                  plain_ms=device_ms(fx_plain, fx_sets),
-                                 bound_ms=fx_bound[0], bound_by=fx_bound[1]),
+                                 bound_ms=fx_bound[0], bound_by=fx_bound[1],
+                                 occurrence=occurrence_bound_ms("fused_exact", fx_cfg, **shape),
+                                 config=config_dims("fused_exact", fx_cfg)),
         }
         floor = launch_floor_ms(B, m, dev)
         for name, t in timings[m].items():
-            log(f"time {name} B={B} M={m} d={D_MAIN} n={n}: kernel {t['ms'] * 1e3:.2f} us, "
-                f"plain {t['plain_ms'] * 1e3:.2f} us, bound {t['bound_ms'] * 1e3:.2f} us "
-                f"({t['bound_by']}), launch floor {floor * 1e3:.2f} us ({B} x {m} out.zero_()), "
+            log(f"time {name} B={B} M={m} d={D_MAIN} n={n}: kernel {t['ms'] * 1e3:.2f} us at "
+                f"{json.dumps(t['config'])}, plain {t['plain_ms'] * 1e3:.2f} us, "
+                f"bound {t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}, each distinct row once; "
+                f"per occurrence {t['occurrence'][0] * 1e3:.2f} us, {t['occurrence'][1]}), "
+                f"launch floor {floor * 1e3:.2f} us ({B} x {m} out.zero_()), "
                 f"{n_sets} id sets cycled")
     del corpora, corpus
     torch.cuda.empty_cache()
@@ -518,16 +599,20 @@ def gather_d256_timing(gen, n, dev):
         n_bytes += nb + ids.numel() * 4
         cands += c
     bd = bound_ms(n_bytes / n_sets, 3.0 * TT_DIM * cands / n_sets)
-    got = gather_distance_cuda(*sets[0])
+    cfg = table_config("gather_distance", TT_DIM)
+    occ = occurrence_bound_ms("gather_distance", cfg, b=B, m=m, d=TT_DIM)
+    got = gather_distance_cuda(*sets[0], config=cfg)
     torch.cuda.synchronize()
     compare_dists(f"gather_distance d={TT_DIM}", got, gather_distance_plain(*sets[0]), False)
-    t = dict(ms=device_ms(gather_distance_cuda, sets),
+    t = dict(ms=device_ms(lambda q, x, i: gather_distance_cuda(q, x, i, config=cfg), sets),
              plain_ms=device_ms(gather_distance_plain, sets), bound_ms=bd[0], bound_by=bd[1])
     floor = launch_floor_ms(B, m, dev)
     log(f"time gather_distance B={B} M={m} d={TT_DIM} n={n} (airship_tt_256): kernel "
-        f"{t['ms'] * 1e3:.2f} us, plain {t['plain_ms'] * 1e3:.2f} us, bound "
-        f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}, {n_bytes / n_sets / 1e6:.2f} MB), "
-        f"launch floor {floor * 1e3:.2f} us, {n_sets} id sets cycled")
+        f"{t['ms'] * 1e3:.2f} us at {json.dumps(config_dims('gather_distance', cfg))} (the "
+        f"table's), plain {t['plain_ms'] * 1e3:.2f} us, bound {t['bound_ms'] * 1e3:.2f} us "
+        f"({t['bound_by']}, {n_bytes / n_sets / 1e6:.2f} MB; per occurrence "
+        f"{occ[0] * 1e3:.2f} us, {occ[1]}), launch floor {floor * 1e3:.2f} us, {n_sets} id sets "
+        f"cycled")
     del corpus
     torch.cuda.empty_cache()
 
@@ -605,6 +690,7 @@ def pq_kernel_phase(args, dev):
     from repro_torch.core.engine.context import PQBackend
     from repro_torch.kernels.fused_expand import fused_expand_adc_cuda, fused_expand_adc_plain
     from repro_torch.kernels.pq_adc import pq_adc_cuda, pq_adc_plain
+    from repro_torch.tune import DEFAULT_CONFIGS
 
     gen = torch.Generator(device=dev).manual_seed(args.seed + 13)
     n, n_labels, m_sub, n_cent = args.n, 40, 16, 256
@@ -701,6 +787,8 @@ def pq_kernel_phase(args, dev):
                         + label_words.numel() * 4 + lut_entries * 4 + ids.numel() * (4 + 6))
             adds += ids.numel() * (m_sub - 1)
 
+        cfg = DEFAULT_CONFIGS["fused_adc"]  # its one shape
+
         def fx_kernel(*a):
             return fused_expand_adc_cuda(*a, family="label")
 
@@ -709,14 +797,19 @@ def pq_kernel_phase(args, dev):
 
         bd = bound_ms(n_bytes / n_sets, adds / n_sets)
         timings[m] = dict(ms=device_ms(fx_kernel, sets), plain_ms=device_ms(fx_plain, sets),
-                          bound_ms=bd[0], bound_by=bd[1], library_ms=None)
+                          bound_ms=bd[0], bound_by=bd[1], library_ms=None,
+                          occurrence=occurrence_bound_ms("fused_adc", cfg, b=B, m=m, d=m_sub,
+                                                         n_cent=n_cent),
+                          config=config_dims("fused_adc", cfg))
         t = timings[m]
         floor = launch_floor_ms(B, m, dev)
         log(f"time fused_expand_adc B={B} M={m} m_sub={m_sub} n_cent={n_cent} n={n}: kernel "
-            f"{t['ms'] * 1e3:.2f} us, plain {t['plain_ms'] * 1e3:.2f} us, bound "
-            f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}), launch floor {floor * 1e3:.2f} us "
-            f"({B} x {m} out.zero_()), {n_sets} id sets cycled; no single PyTorch call "
-            f"computes it (library: none)")
+            f"{t['ms'] * 1e3:.2f} us at {json.dumps(t['config'])}, plain "
+            f"{t['plain_ms'] * 1e3:.2f} us, bound {t['bound_ms'] * 1e3:.2f} us "
+            f"({t['bound_by']}, each distinct word once; per occurrence "
+            f"{t['occurrence'][0] * 1e3:.2f} us, {t['occurrence'][1]}), launch floor "
+            f"{floor * 1e3:.2f} us ({B} x {m} out.zero_()), {n_sets} id sets cycled; no single "
+            f"PyTorch call computes it (library: none)")
 
     # pq_adc: the (B, N) output written once, the codes and the LUT read
     # once; m_sub - 1 adds a distance.
@@ -732,11 +825,16 @@ def pq_kernel_phase(args, dev):
     lib_err = float((lib.T - got).abs().max())
     check(lib_err <= 1e-3 * float(got.abs().max()), f"embedding_bag disagrees with pq_adc by {lib_err}")
     del lib, got
+    # The scan has one shape, its lattice's only point.
+    scan_cfg = DEFAULT_CONFIGS["pq_adc"]
     scan = dict(ms=device_ms(pq_adc_cuda, [(lut, codes)], reps=20, replays=3),
                 plain_ms=device_ms(pq_adc_plain, [(lut, codes)], reps=3, replays=2),
                 bound_ms=bd[0], bound_by=bd[1],
                 library_ms=device_ms(lambda o, t: F.embedding_bag(o, t, mode="sum"),
-                                     [(offsets, table)], reps=5, replays=3))
+                                     [(offsets, table)], reps=5, replays=3),
+                occurrence=occurrence_bound_ms("pq_adc", scan_cfg, b=B, m=n, d=m_sub,
+                                               n_cent=n_cent),
+                config=config_dims("pq_adc", scan_cfg))
     # The design's lookup floor: B * N * m_sub 4-byte shared-memory lookups
     # at 128 bytes a clock on every SM, without a bank conflict.
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -745,9 +843,10 @@ def pq_kernel_phase(args, dev):
                          capture_output=True, text=True, timeout=60).stdout.split()
     clk_hz = float(clk[0]) * 1e6 if clk else float("nan")
     floor_ms = B * n * m_sub * 4 / (128 * sms * clk_hz) * 1e3
-    log(f"time pq_adc B={B} N={n} m_sub={m_sub} n_cent={n_cent}: kernel {scan['ms']:.4f} ms, "
-        f"plain {scan['plain_ms']:.4f} ms, bound {scan['bound_ms']:.4f} ms ({scan['bound_by']}, "
-        f"{scan_bytes / 1e9:.3f} GB), library embedding_bag {scan['library_ms']:.4f} ms "
+    log(f"time pq_adc B={B} N={n} m_sub={m_sub} n_cent={n_cent}: kernel {scan['ms']:.4f} ms "
+        f"(its one shape), plain {scan['plain_ms']:.4f} ms, bound "
+        f"{scan['bound_ms']:.4f} ms ({scan['bound_by']}, {scan_bytes / 1e9:.3f} GB; "
+        f"kernel_roofline {scan['occurrence'][0]:.4f} ms, {scan['occurrence'][1]}), library embedding_bag {scan['library_ms']:.4f} ms "
         f"(max abs diff {lib_err:.3e}); lookup floor {floor_ms:.4f} ms ({B * n * m_sub:.3e} "
         f"lookups, 128 B a clock on {sms} SMs at {clk_hz / 1e9:.3f} GHz)")
     del offsets, table, lut, codes, visited
@@ -972,6 +1071,108 @@ def bag_kernel_phase(args, dev):
     del table
     torch.cuda.empty_cache()
     return max_err, timings
+
+
+# --------------------------------------------------------------------------- tune
+
+
+def tune_phase(args, dev) -> dict:
+    """Phase 3b: the tuner's lattice (repro_torch.tune) at the main path's
+    shapes: B = 256 queries, M = 32 candidates of n rows (d = 128; PQ
+    m_sub = 16, n_cent = 256), and the PQ scan over all n rows. For each
+    kernel of the tuner (only gather_distance has more than one point)
+    every lattice point is launched and its outputs (distances
+    and both verdict masks) held to the default config's bit for bit, and
+    the table's choice for the walk's key is timed against the default by
+    device_ms in turns (default, table, table, default; the faster reading
+    of each kept), beside kernel_roofline's bound. One `tune {...}` line a
+    kernel."""
+    from repro_torch.common.bits import n_words
+    from repro_torch.kernels.fused_expand import fused_expand_adc_cuda, fused_expand_cuda
+    from repro_torch.kernels.gather_distance import gather_distance_cuda
+    from repro_torch.kernels.pq_adc import pq_adc_cuda
+    from repro_torch.tune import DEFAULT_CONFIGS, lattice_configs
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 97)
+    n, m, m_sub, n_cent = args.n, 32, 16, 256
+    corpus = torch.randn((n, D_MAIN), generator=gen, device=dev)
+    queries = torch.randn((B, D_MAIN), generator=gen, device=dev)
+    labels = torch.randint(0, 10, (n,), generator=gen, dtype=torch.int32, device=dev)
+    codes = torch.randint(0, n_cent, (n, m_sub), generator=gen, dtype=torch.int32, device=dev)
+    lut = torch.rand((B, m_sub, n_cent), generator=gen, device=dev)
+    words = rand_words(gen, (B, 1), dev)
+    visited = rand_words(gen, (B, n_words(n)), dev)
+    n_sets = max(2, math.ceil(2 * L2_BYTES / (B * m * D_MAIN * 4)))
+    id_sets = [(torch.randint(-1, n, (B, m), generator=gen, dtype=torch.int32, device=dev),)
+               for _ in range(n_sets)]
+    # wrapper, (key d, deg, beam), a launcher at a config, its argument sets,
+    # the shape kernel_roofline takes
+    kernels = {
+        "gather_distance": ("gather_distance", (D_MAIN, 32, 1),
+                            lambda cfg: lambda i: gather_distance_cuda(queries, corpus, i,
+                                                                       config=cfg),
+                            id_sets, dict(b=B, m=m, d=D_MAIN)),
+        "fused_exact": ("fused_expand", (D_MAIN, 32, 1),  # one shape: cfg is the default
+                        lambda cfg: lambda i: fused_expand_cuda(queries, corpus, i, visited, labels,
+                                                                words, family="label"),
+                        id_sets, dict(b=B, m=m, d=D_MAIN)),
+        "fused_adc": ("fused_expand_adc", (m_sub, 32, 1),  # one shape
+                      lambda cfg: lambda i: fused_expand_adc_cuda(lut, codes, i, visited, labels,
+                                                                  words, family="label"),
+                      id_sets, dict(b=B, m=m, d=m_sub, n_cent=n_cent)),
+        "pq_adc": ("pq_adc", (m_sub, 1, 1),  # its lattice is its one shape
+                   lambda cfg: lambda: pq_adc_cuda(lut, codes),
+                   [()], dict(b=B, m=n, d=m_sub, n_cent=n_cent)),
+    }
+    out = {}
+    for kernel, (wrapper, (d, deg, beam), at, sets, shape) in kernels.items():
+        default = DEFAULT_CONFIGS[kernel]
+
+        def outputs(cfg):
+            got = at(cfg)(*sets[0])
+            torch.cuda.synchronize()
+            return got if isinstance(got, tuple) else (got,)
+
+        want = outputs(default)
+        points = lattice_configs(kernel)
+        for cfg in points:
+            got = outputs(cfg)
+            check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                  f"tune {kernel}: {config_dims(kernel, cfg)} differs from the default's bits")
+        chosen = table_config(kernel, d, deg=deg, beam=beam)
+        reps = dict(reps=10, replays=3) if kernel == "pq_adc" else {}
+        order = (default, chosen, chosen, default)
+        t = [device_ms(at(cfg), sets, **reps) for cfg in order]
+        table_ms, default_ms = min(t[1], t[2]), min(t[0], t[3])
+        bound = occurrence_bound_ms(kernel, chosen, **shape)
+        row = dict(kernel=kernel, wrapper=wrapper, key=dict(d=d, deg=deg, beam=beam),
+                   config=config_dims(kernel, chosen), default=config_dims(kernel, default),
+                   table_ms=table_ms, default_ms=default_ms, speedup=default_ms / table_ms,
+                   readings_ms=t, bound_ms=bound[0], bound_by=bound[1],
+                   lattice_points=len(points), bit_equal=True,
+                   outputs=["dists", "satisfied", "fresh"][:len(want)])
+        out[wrapper] = row
+        log(f"tune {json.dumps(row)}")
+    del corpus, codes, visited, id_sets
+    torch.cuda.empty_cache()
+    log(f"tune: phase wall {time.perf_counter() - t_phase:.1f} s (host clock)")
+    return out
+
+
+def roofline_line(cell: str, terms, wall_s: float, **extra) -> None:
+    """One `roofline {...}` line: the analytic bound of a cell's batch
+    (repro_torch/roofline/model.py, one H100) beside its measured wall."""
+    from repro_torch.roofline.model import RooflineTerms
+
+    flops, hbm, coll, model_flops = terms
+    r = RooflineTerms(cell=cell, mesh="1x1", chips=1, flops=flops, hbm_bytes=hbm,
+                      coll_bytes=coll, model_flops=model_flops)
+    log("roofline " + json.dumps(dict(
+        cell=cell, chips=1, **extra, flops=flops, hbm_bytes=hbm, coll_bytes=coll,
+        t_compute_ms=r.t_compute * 1e3, t_memory_ms=r.t_memory * 1e3,
+        t_collective_ms=r.t_collective * 1e3, bound_ms=r.step_time * 1e3,
+        bottleneck=r.bottleneck, wall_ms=wall_s * 1e3, bound_over_wall=r.step_time / wall_s)))
 
 
 # --------------------------------------------------------------------------- search
@@ -1430,6 +1631,13 @@ def search_phase(args, dev, launch: LaunchCounts):
 
     launches = {r["shape"]: r["launches"] for r in rows}
     check(results["serve_256"][2].stats.iters.item() > 0, "serve_256 ran no iteration")
+    from repro_torch.archs.airship import AirshipServeConfig
+    from repro_torch.roofline.model import airship_terms
+
+    row = next(r for r in rows if r["shape"] == "serve_256")
+    roofline_line("serve_256", airship_terms(AirshipServeConfig(n=args.n), B, 1,
+                                             est_iters=row["iters"], tp=1),
+                  row["wall_s"], tp=1, est_iters=row["iters"], batch=B)
     for name in ("serve_256", "serve_256_beam4", "serve_256_nnd"):
         check(launches[name]["gather_distance"] > 0, f"{name}: gather_distance was never launched")
     check(launches["serve_256_fused"]["fused_expand"] > 0,
@@ -2169,6 +2377,7 @@ def scaleout_phase(args, dev, launch: LaunchCounts, world) -> None:
         recall,
         shard_corpus_for_mesh,
     )
+    from repro_torch.roofline.model import airship_terms
     from repro_torch.archs.airship import (
         AIRSHIP_SHAPES,
         AirshipServeConfig,
@@ -2251,7 +2460,10 @@ def scaleout_phase(args, dev, launch: LaunchCounts, world) -> None:
               f"{name}: bad result shape or non-finite distances")
         check(rec >= 0.5, f"{name}: recall@10 {rec} < 0.5")
         check(len(walls) == DIST_SHARDS, f"{name}: {len(walls)} shard walks, expected {DIST_SHARDS}")
+        dist_rows[name] = row
         return res, counts
+
+    dist_rows = {}
 
     results = {}
     for shape in DIST_SHAPES:
@@ -2268,6 +2480,9 @@ def scaleout_phase(args, dev, launch: LaunchCounts, world) -> None:
         kernel = ("fused_expand_adc" if params.approx == "pq" and params.fuse_expand == "on"
                   else "fused_expand" if params.fuse_expand == "on" else "gather_distance")
         check(counts[kernel] >= DIST_SHARDS, f"{shape}: {kernel} launched {counts[kernel]} times")
+    row = dist_rows["dist_256_p4"]
+    roofline_line("dist_256_p4", airship_terms(cfg, B, 1, est_iters=row["iters"], tp=DIST_SHARDS),
+                  row["wall_s"], tp=DIST_SHARDS, est_iters=row["iters"], batch=B)
     a, f = results["serve_256"], results["serve_256_fused"]
     check(torch.equal(a.ids, f.ids) and torch.equal(a.dists, f.dists),
           "dist serve_256_fused differs from serve_256 (ids or dists)")
@@ -2659,6 +2874,7 @@ def two_tower_phase(args, dev, launch: LaunchCounts):
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.models.recsys import two_tower_init
     from repro_torch.models.recsys.models import VOCAB_PAD
+    from repro_torch.roofline.model import recsys_terms, two_tower_serve_terms
 
     bags_before = launch.total["embedding_bag"]
     torch.cuda.empty_cache()
@@ -2706,6 +2922,15 @@ def two_tower_phase(args, dev, launch: LaunchCounts):
                    launches={k: v for k, v in launches.items() if v})
         outs[shape] = (batch, fn, out)
         log(f"serve {json.dumps(row)}")
+        if shape == "serve_bulk":
+            # The bound is the call's own work, its valid history rows
+            # counted; the reference's terms ride along, not as a bound.
+            ref_flops, ref_hbm, ref_coll, _ = recsys_terms(cfg, b, 1, "serve")
+            hist_rows = int((batch["hist"] >= 0).sum())
+            roofline_line("serve_bulk_tt", two_tower_serve_terms(cfg, b, hist_rows), wall,
+                          kind="serve", batch=b, hist_rows=hist_rows,
+                          reference_terms=dict(flops=ref_flops, hbm_bytes=ref_hbm,
+                                               coll_bytes=ref_coll))
         check(launches["embedding_bag"] == 1, f"{shape}: embedding_bag launched "
                                               f"{launches['embedding_bag']} times, expected 1")
         if shape == "retrieval_cand":
@@ -2857,15 +3082,15 @@ def main() -> int:
     log(f"build: {', '.join(p.name for p in paths.values())} in "
         f"{time.perf_counter() - t0:.2f} s (set-up)")
     for stem, out in BUILD_LOGS.items():
-        for line in out.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"ptxas {stem}: {line.strip()}")
+        log(f"ptxas {stem}: {ptxas_summary(out)}")
 
     # 3.-6.
     max_err, timings = kernel_phase(args, dev)
     pq_err, pq_timings = pq_kernel_phase(args, dev)
     l2_err, l2_timing = l2_kernel_phase(args, dev)
     bag_err, bag_timings = bag_kernel_phase(args, dev)
+    # 3b. the tuner's lattice at the main path's shapes
+    tune_phase(args, dev)
     small_world_phase(args, dev)
     two_tower_small_phase(args, dev)
     launch = LaunchCounts()
@@ -2909,7 +3134,8 @@ def main() -> int:
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                             launches=launch.total[name], max_abs_err=max_err[name], ms=t["ms"],
                             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-                            bound_by=t["bound_by"], library_ms=t.get("library_ms")))
+                            bound_by=t["bound_by"], library_ms=t.get("library_ms"),
+                            config=t.get("config")))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

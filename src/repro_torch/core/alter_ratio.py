@@ -12,6 +12,8 @@ import torch
 
 from repro_torch.core.types import GraphIndex, SatisfiedFn
 
+_CHUNK = 32  # the width of XLA's CPU row reduce, which pinned_sum reproduces
+
 
 def estimate_alter_ratio(
     graph: GraphIndex,
@@ -41,14 +43,25 @@ def estimate_alter_ratio(
 
 
 def pinned_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the last axis in one fixed order on every device: zero-pad
-    to a power of two, then add the upper half onto the lower until one
-    column is left. ``torch.sum`` reduces in each device's own order, so
-    the card and the CPU would round a sum of inexact fractions (c / 12)
-    differently and their walks would part."""
-    width = 1 << max(0, (x.shape[-1] - 1).bit_length())
-    x = torch.nn.functional.pad(x, (0, width - x.shape[-1]))
-    while x.shape[-1] > 1:
-        h = x.shape[-1] // 2
-        x = x[..., :h] + x[..., h:]
-    return x[..., 0]
+    """Sum over the last axis in one fixed order on every device, the order
+    of the reference's XLA CPU reduce: view the axis as (S / 32, 32), sum
+    each 32-wide chunk left to right, one column add at a time, then the
+    chunk sums left to right. ``torch.sum`` reduces in each device's own
+    order, so the card and the CPU would round a sum of inexact fractions
+    (c / 12) differently and their walks would part.
+
+    A width that is not a multiple of 32 is padded with +0.0 to one (an
+    exact no-op on these non-negative terms), which keeps one order on every
+    device; there the reference's order is not known (measured at width 100
+    it is neither this one nor left to right), so such widths match it only
+    where the arithmetic is exact."""
+    s = x.shape[-1]
+    width = max(_CHUNK, -(-s // _CHUNK) * _CHUNK)
+    x = torch.nn.functional.pad(x, (0, width - s)).unflatten(-1, (-1, _CHUNK))
+    chunk = x[..., 0]
+    for j in range(1, _CHUNK):
+        chunk = chunk + x[..., j]
+    total = chunk[..., 0]
+    for i in range(1, chunk.shape[-1]):
+        total = total + chunk[..., i]
+    return total

@@ -194,7 +194,8 @@ def make_distributed_search(
     def shard_search(corpus, graph, queries, constraint, pq_index):
         if not with_attrs:
             corpus = Corpus(vectors=corpus.vectors, labels=corpus.labels)
-        ctx = build_context(corpus, constraint, queries, params, pq_index)
+        ctx = build_context(corpus, constraint, queries, params, pq_index,
+                            degree=graph.neighbors.shape[1])
         return search_with_context(ctx, corpus, graph, queries, params)
 
     def search(index: ShardedIndex, queries, constraint, pq_index=None, *,

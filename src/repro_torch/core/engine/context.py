@@ -15,8 +15,10 @@ sample_ids)`` (the exact backends use the pairwise matmul expansion over
 the shared build sample), ``fused_expand(queries, ids, visited, tables)``
 (the one-pass kernel: ``fused_expand`` over exact rows,
 ``fused_expand_adc`` over code rows) and the ``fusable`` / ``approximate``
-properties. The reference's kernel tuning-table lookup is dropped: the
-CUDA kernels take no block-shape parameters.
+properties. The ``gather_distance`` backend carries that kernel's block
+shape (``gd_config``), which ``build_context`` resolves from the committed
+tuning table (``repro_torch.tune``); the fused kernels and the PQ scan
+have one shape each.
 """
 from __future__ import annotations
 
@@ -36,6 +38,8 @@ from repro_torch.core.types import Corpus, SatisfiedFn, SearchParams
 from repro_torch.kernels.fused_expand import fused_expand, fused_expand_adc
 from repro_torch.kernels.gather_distance import gather_distance
 from repro_torch.kernels.pq_adc import adc_lookup, pq_adc_plain
+from repro_torch.tune.config import DEFAULT_CONFIGS, KernelConfig
+from repro_torch.tune.table import lookup as tune_lookup
 
 # "auto" fuses only where the fused path has been measured to win. It
 # returns the same results as the unfused path; flip this once a chip
@@ -85,8 +89,11 @@ class ExactBackend(_RowBackend):
 class L2KernelBackend(_RowBackend):
     """The ``gather_distance`` kernel over the same rows."""
 
+    gd_config: KernelConfig = DEFAULT_CONFIGS["gather_distance"]  # its block shape
+
     def distances(self, queries, ids):
-        return gather_distance(queries, self.vectors, ids.to(torch.int32).contiguous())
+        return gather_distance(queries, self.vectors, ids.to(torch.int32).contiguous(),
+                               config=self.gd_config)
 
 
 @dataclass(frozen=True)
@@ -144,12 +151,16 @@ class TraversalContext:
 
 
 def build_context(corpus: Corpus, constraint, queries, params: SearchParams,
-                  pq_index=None) -> TraversalContext:
+                  pq_index=None, degree: int = 0) -> TraversalContext:
     """Resolve (params, constraint, corpus) into one TraversalContext: the
     distance backend (``PQBackend`` over ``pq_index`` for approx="pq",
     which raises without one), the constraint closure and its raw table
     views (the UDF verdict column only where the fused path is reachable),
-    and the fuse decision."""
+    ``gather_distance``'s block shape from the tuning table (keyed on the
+    row width x ``degree`` x beam x the queries' device type; nearest-shape
+    fallback, host-side Python), and the fuse decision. ``degree`` is the
+    graph degree when the caller has one (0 = unknown: the lookup then
+    matches on the other key dimensions)."""
     satisfied = make_satisfied_fn(constraint, corpus)
     tables = constraint_tables(constraint, corpus, include_udf=params.fuse_expand != "off")
     if params.approx == "pq":
@@ -157,7 +168,10 @@ def build_context(corpus: Corpus, constraint, queries, params: SearchParams,
             raise ValueError("approx='pq' requires pq_index")
         backend = PQBackend(codes=pq_index.codes, lut=adc_table(pq_index, queries).contiguous())
     elif params.use_kernel:
-        backend = L2KernelBackend(vectors=corpus.vectors)
+        backend = L2KernelBackend(
+            vectors=corpus.vectors,
+            gd_config=tune_lookup("gather_distance", d=corpus.dim, deg=degree,
+                                  beam=params.beam_width, platform=queries.device.type))
     else:
         backend = ExactBackend(vectors=corpus.vectors)
     fusable = tables is not None and backend.fusable

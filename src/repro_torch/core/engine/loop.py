@@ -232,5 +232,6 @@ def constrained_search(corpus: Corpus, graph: GraphIndex, queries, constraint,
     elif entry is None and generator is not None:
         entry = torch.randint(0, corpus.n, (b,), generator=generator, dtype=torch.int32,
                               device=queries.device)
-    ctx = build_context(corpus, constraint, queries, params, pq_index)
+    ctx = build_context(corpus, constraint, queries, params, pq_index,
+                        degree=graph.neighbors.shape[1])
     return search_with_context(ctx, corpus, graph, queries, params, entry)

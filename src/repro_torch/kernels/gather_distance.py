@@ -14,23 +14,34 @@ loads before any reduction (rows of any d, or unaligned ones, take a path
 with the query row in shared memory, one warp a candidate); the (B, M, d)
 gather is never written back to memory. The plain version below
 materialises that gather and serves the CPU.
+
+``config`` is the kernel's block shape, a point of the tuner's lattice
+(``repro_torch.tune``: warps a block and rows in flight, read on the
+register path only); None is
+``DEFAULT_CONFIGS["gather_distance"]``, the shape the kernel had before
+the tuner. Every point gives the same bits; one off the lattice raises.
+The plain version ignores it.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from repro_torch.common.distances import batched_rowwise_sqdist
 from repro_torch.kernels import check_launch, current_stream_ptr, dispatch, kernel_entry, require
+from repro_torch.tune.config import DEFAULT_CONFIGS, KernelConfig
 
 MAX_DIM = 12288  # the query row must fit the 48 KB of static shared memory
-# queries, corpus, ids, out; B, M, d; stream
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+# queries, corpus, ids, out; B, M, d, tile_warps, rows_in_flight; stream
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
-def gather_distance_plain(queries, corpus, ids):
-    """The reference's arithmetic (``gather_distance/ref.py``) in PyTorch."""
+def gather_distance_plain(queries, corpus, ids, config: Optional[KernelConfig] = None):
+    """The reference's arithmetic (``gather_distance/ref.py``) in PyTorch;
+    ``config`` is the kernel's and changes nothing here."""
+    del config
     rows = corpus[ids.clamp_min(0).long()]
     return torch.where(ids >= 0, batched_rowwise_sqdist(queries, rows), float("inf"))
 
@@ -49,28 +60,30 @@ def _check(queries, corpus, ids) -> None:
     require(ids.shape[0] < 2**31 and ids.shape[1] < 2**31, "B and M must be < 2**31")
 
 
-def gather_distance_cuda(queries, corpus, ids):
+def gather_distance_cuda(queries, corpus, ids, config: Optional[KernelConfig] = None):
     """Launch the CUDA kernel on the current stream; does not synchronise."""
     _check(queries, corpus, ids)
+    cfg = config or DEFAULT_CONFIGS["gather_distance"]
     fn = kernel_entry("gather_distance", "repro_gather_distance", _ARGTYPES)
     b, d = queries.shape
     m = ids.shape[1]
     out = torch.empty((b, m), dtype=torch.float32, device=queries.device)
     status = fn(queries.data_ptr(), corpus.data_ptr(), ids.data_ptr(), out.data_ptr(),
-                b, m, d, current_stream_ptr(queries.device))
+                b, m, d, cfg.tile_warps, cfg.rows_in_flight, current_stream_ptr(queries.device))
     check_launch("gather_distance", status)
     gather_distance.launches += 1
     return out
 
 
-def gather_distance(queries, corpus, ids):
+def gather_distance(queries, corpus, ids, config: Optional[KernelConfig] = None):
     """(B, d) float32, (n, d) float32, (B, M) int32 -> (B, M) float32.
 
-    CUDA tensors launch the kernel (or raise); CPU tensors take the plain
-    version. ``gather_distance.launches`` counts kernel launches.
+    CUDA tensors launch the kernel at ``config`` (or raise); CPU tensors
+    take the plain version. ``gather_distance.launches`` counts kernel
+    launches.
     """
     return dispatch(queries.device, gather_distance_cuda, gather_distance_plain)(
-        queries, corpus, ids)
+        queries, corpus, ids, config)
 
 
 gather_distance.launches = 0

@@ -165,7 +165,8 @@ class LocalExecutor:
         self.traces += 1
 
         def fn(queries: torch.Tensor, constraint) -> SearchResult:
-            ctx = build_context(self.corpus, constraint, queries, params, self.pq_index)
+            ctx = build_context(self.corpus, constraint, queries, params, self.pq_index,
+                                degree=self.graph.neighbors.shape[1])
             return search_with_context(ctx, self.corpus, self.graph, queries, params)
 
         return fn
@@ -250,7 +251,8 @@ class StreamingLocalExecutor:
 
         def fn(queries: torch.Tensor, constraint) -> SearchResult:
             snap = self.snapshot  # the epoch pinned at dispatch time
-            ctx = build_context(snap.corpus, constraint, queries, params, None)
+            ctx = build_context(snap.corpus, constraint, queries, params, None,
+                                degree=snap.graph.neighbors.shape[1])
             return search_with_context(ctx, snap.corpus, snap.graph, queries, params)
 
         return fn

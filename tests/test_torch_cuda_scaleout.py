@@ -8,6 +8,8 @@ kernels must give the plain versions' bits):
     the card's shard walks launch their kernels;
   * two card replicas behind the HTTP front end answer sequential requests
     as two CPU replicas do (ids, dists, filled, tier, epoch);
+  * a degree-12 walk (inexact alter-ratio fractions) on the card equals
+    the CPU's, alter and prefer modes, label and range, samples 64 and 128;
   * the two-tower ``two_phase_topk`` on a (1, 4) card mesh equals the CPU's
     and the card's single-device top-100 up to ties: scores within 1e-5
     abs (the card's products may round differently), ids equal wherever a
@@ -110,6 +112,40 @@ def test_card_mesh_equals_cpu_mesh(dev, kind):
     for field in ("dist_evals", "hops", "visited", "iters", "beam_expansions"):
         assert torch.equal(getattr(a.stats, field), getattr(b.stats, field).cpu()), field
     assert (a.ids >= 0).sum() > B
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sample", (64, 128))
+def test_card_degree12_walk_equals_cpu(dev, sample):
+    """alter_ratio_k = min(16, 12): the Eq.-1 fractions c / 12 are inexact,
+    so the alter ratio's sum order decides its last bit. The pinned order
+    (``core/alter_ratio.py::pinned_sum``) gives the card the CPU's walk."""
+    rng = np.random.default_rng(12)
+    t = torch.from_numpy
+    n, d = 2048, 8
+    corpus = rt.Corpus(vectors=t(rng.integers(-6, 7, size=(n, d)).astype(np.float32)),
+                       labels=t(rng.integers(0, L, size=n).astype(np.int32)),
+                       attrs=t(rng.integers(0, 100, size=(n, 2)).astype(np.float32)))
+    graph = rt.build_index(torch.Generator().manual_seed(0), corpus, degree=12,
+                           sample_size=sample, device="cpu")
+    q = t(rng.integers(-6, 7, size=(64, d)).astype(np.float32))
+    words = t(rng.integers(0, 2**31, size=(64, 2)).astype(np.int32))
+    lo = t(rng.integers(0, 60, 64).astype(np.float32))
+    for mode in ("alter", "prefer"):
+        params = rt.SearchParams(mode=mode, k=10, ef_result=32, ef_sat=32, ef_other=32,
+                                 n_start=8, max_iters=96, alter_ratio_k=16, use_kernel=True)
+        for family in ("label", "range"):
+            out = {}
+            for device in ("cpu", "cuda"):
+                c, g = _on(device, corpus, graph)
+                cons = (rt.LabelSetConstraint(words=words.to(device)) if family == "label" else
+                        rt.RangeConstraint(lo=lo.to(device), hi=(lo + 40).to(device), col=1))
+                out[device] = rt.constrained_search(c, g, q.to(device), cons, params)
+            a, b = out["cpu"], out["cuda"]
+            assert torch.equal(a.ids, b.ids.cpu()) and torch.equal(a.dists, b.dists.cpu())
+            for field in ("dist_evals", "hops", "visited", "iters", "beam_expansions"):
+                assert torch.equal(getattr(a.stats, field), getattr(b.stats, field).cpu()), \
+                    (mode, family, field)
 
 
 def _post(addr, payload):
