@@ -6,8 +6,8 @@ Phases, any failure exits non-zero:
 
   1. environment: the card's name and power limit (nvidia-smi), versions,
      TF32 off for every float32 matrix product;
-  2. build: the six CUDA kernels from src/repro_torch/csrc (one nvcc each,
-     started together);
+  2. build: the seven CUDA kernels from src/repro_torch/csrc (one nvcc
+     each, started together);
   3. kernels: each kernel against its plain PyTorch version on the card at
      the search's shapes (n = 1M, d = 128, B = 256, M = 32 and 128; PQ
      m_sub = 16, n_cent = 256) and on edge cases (padding ids, M = 1, M not
@@ -84,6 +84,29 @@ Phases, any failure exits non-zero:
      max_iters TT_EF_RESULT / TT_MAX_ITERS) with recall@10 >= 0.5 against
      the exact oracle and every returned item in its category; the device
      busy share of one serve_bulk batch; peak device memory.
+  8. recsys training, after phase 7's tables are freed. The embedding
+     bag's backward kernel (no TPU counterpart: the gradient of
+     embedding_bag_sum) against its plain version, bit for bit, on integer
+     and float gradients, sum and mean, repeated ids, all-padding bags, ids
+     >= V, D = 256, 10, 128 and 13; its device time at the two-tower train
+     batch's bag (B = 65,536, L = 50, D = 256, V = 4M, 30% padding) beside
+     its bound (the dense (V, D) output written once, g and the ids read),
+     its plain version and one index_add_ of the masked rows into a zeroed
+     (V, D). Then AdamW (lr 1e-3) steps through
+     get_arch(name).make_cell("train_batch") and shape_batch at B = 65,536,
+     TF32 off, random weights from --seed: train_deepfm (the published
+     DeepFM, 39 fields, dim 10, MLP 400-400-400, 7,127,808 padded rows;
+     nothing cut; 5 steps), train_dlrm_mlperf (MLPerf widths: dim 128,
+     bottom 512-256-128, top 1024-1024-512-256-1; cut: each of the 26
+     tables capped at 4,000,000 rows, 187,771,136 -> 24,067,072 padded
+     rows; 3 steps) and train_two_tower (published widths: dim 256, towers
+     1024-512-256, history 50; cut: user_vocab and item_vocab 50M -> 4M;
+     the streamed logsumexp runs 16 chunks of 4,096; 3 steps, each one
+     embedding_bag and one embedding_bag_backward launch). One `train
+     {...}` line each (init, first and warm step wall ending in a sync,
+     examples/s, every step's loss, peak device memory, launches) and
+     `profile train_two_tower`; any loss not finite, any parameter leaf
+     unchanged or any bag launch count off fails the run.
 
 Between 6 and 7, phase 6b, streaming and hybrid, over phase 6's corpus,
 exact index, queries and search parameters (attrs (n, 2) uniform from a
@@ -186,7 +209,7 @@ which count in-batch logits serving never computes) beside the measured
 wall.
 
 It prints a {"kernels": [...]} line (each kernel's tuned config, null for
-l2_matmul and embedding_bag) and, last, {"ok": true, "device": ...}.
+l2_matmul, embedding_bag and embedding_bag_backward) and, last, {"ok": true, "device": ...}.
 It imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
@@ -1366,7 +1389,9 @@ def two_tower_small_phase(args, dev):
 
     cpu = torch.device("cpu")
     cfg = dataclasses.replace(tt_config(), item_vocab=4096, user_vocab=4096)
-    host = two_tower_init(torch.Generator().manual_seed(args.seed + 29), cfg, device=cpu)
+    # serving only: no autograd graph (the model is trainable)
+    host = two_tower_init(torch.Generator().manual_seed(args.seed + 29), cfg,
+                          device=cpu).requires_grad_(False)
     card = copy.deepcopy(host).to(dev)
     hb = two_tower_batch(args.seed, 0, 64, cfg.user_vocab, cfg.item_vocab, cfg.hist_len,
                          device=cpu)
@@ -1437,18 +1462,18 @@ def graph_invariants(name, vectors, nbrs, strict, rows=None) -> None:
 
 
 KERNEL_NAMES = ("gather_distance", "fused_expand", "fused_expand_adc", "pq_adc", "l2_matmul",
-                "embedding_bag")
+                "embedding_bag", "embedding_bag_backward")
 
 
 def kernel_counters():
-    from repro_torch.kernels.embedding_bag import embedding_bag
+    from repro_torch.kernels.embedding_bag import embedding_bag, embedding_bag_backward
     from repro_torch.kernels.fused_expand import fused_expand, fused_expand_adc
     from repro_torch.kernels.gather_distance import gather_distance
     from repro_torch.kernels.l2_matmul import pairwise_sqdist
     from repro_torch.kernels.pq_adc import pq_adc
 
     return dict(zip(KERNEL_NAMES, (gather_distance, fused_expand, fused_expand_adc, pq_adc,
-                                   pairwise_sqdist, embedding_bag)))
+                                   pairwise_sqdist, embedding_bag, embedding_bag_backward)))
 
 
 class LaunchCounts:
@@ -2891,7 +2916,7 @@ def two_tower_phase(args, dev, launch: LaunchCounts):
         f"card memory {torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} GB")
     gen = torch.Generator(device=dev).manual_seed(args.seed + 31)
     t0 = time.perf_counter()
-    model = two_tower_init(gen, cfg, device=dev)
+    model = two_tower_init(gen, cfg, device=dev).requires_grad_(False)  # serving only
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     # The item corpus: the item tower over items 0..n-1 (set-up of
@@ -3052,6 +3077,194 @@ def two_tower_phase(args, dev, launch: LaunchCounts):
                      f"shapes + retrieval_cand on the (1, 4) mesh + the walk's queries)")
 
 
+# --------------------------------------------------------------------------- training
+
+# Phase 8's cuts (widths are never cut): a DLRM table, and the two-tower
+# user and item vocabularies, capped at TRAIN_VOCAB_CAP rows (MLPerf's
+# max-ind-range hash trick), so that the tables, their dense gradients and
+# AdamW's two moments fit the card: DLRM 187,771,136 padded rows (96.1 GB of
+# tables alone) -> 24,067,072 (12.3 GB; 49.3 GB with grads, m and v);
+# two-tower 2 x 50M rows (~410 GB with grads, m and v) -> 2 x 4M (32.8 GB).
+# DeepFM trains at its published config, nothing cut.
+TRAIN_VOCAB_CAP = 4_000_000
+TRAIN_STEPS = (("deepfm", 5), ("dlrm-mlperf", 3), ("two-tower-retrieval", 3))
+BWD_B, BWD_L, BWD_D, BWD_V = 65_536, 50, 256, TRAIN_VOCAB_CAP  # the two-tower train batch's bag
+
+
+def train_arch(name):
+    """``get_arch(name)`` with phase 8's vocabulary cuts."""
+    import dataclasses
+
+    from repro_torch.archs import get_arch
+    from repro_torch.archs.recsys import RecsysArch
+
+    arch = get_arch(name)
+    cfg = arch.cfg
+    if cfg.model == "dlrm":
+        cfg = dataclasses.replace(cfg, vocab_sizes=tuple(min(v, TRAIN_VOCAB_CAP)
+                                                         for v in cfg.vocab_sizes))
+    elif cfg.model == "two_tower":
+        cfg = dataclasses.replace(cfg, user_vocab=TRAIN_VOCAB_CAP, item_vocab=TRAIN_VOCAB_CAP)
+    return RecsysArch(cfg, arch.shapes)
+
+
+def bag_backward_inputs(gen, v, d, b, length, integer, dev, pad=0.3):
+    """ids with ``pad`` padding, an all-padding bag 0, bag 1 holding row 0
+    twice, row V - 1 and ids past V (clamped to V - 1); g (B, D)."""
+    ids = torch.randint(0, v, (b, length), generator=gen, dtype=torch.int32, device=dev)
+    ids[torch.rand((b, length), generator=gen, device=dev) < pad] = -1
+    ids[0] = -1
+    ids[1, :5] = torch.tensor([0, 0, v - 1, v, v + 7], dtype=torch.int32)
+    if integer:
+        g = torch.randint(-8, 9, (b, d), generator=gen, device=dev).float()
+    else:
+        g = torch.randn((b, d), generator=gen, device=dev)
+    return ids, g
+
+
+def bag_backward_phase(args, dev):
+    """The embedding bag's backward kernel against its plain version, bit
+    for bit, on integer and float gradients in both modes (repeated ids,
+    all-padding bags, ids >= V, D = 256 / 10 / 128 / 13, the float4 and the
+    scalar paths); then its device time at the two-tower train batch's bag
+    against its bound, the plain version and one index_add_."""
+    from repro_torch.data import two_tower_batch
+    from repro_torch.kernels.embedding_bag import (
+        embedding_bag_backward_cuda,
+        embedding_bag_backward_plain,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 41)
+    max_err, n_checks = 0.0, 0
+    # (V, D, B, L): the train shape; heavy repeats (V far below B * L); the
+    # scalar path at D = 10 and 13; D = 128 (DLRM's width) with long runs.
+    cases = ((BWD_V, BWD_D, 4096, BWD_L), (1000, 10, 512, BWD_L), (50, 128, 300, 20),
+             (5000, 13, 77, 33), (3, 256, 64, 40))
+    for integer in (True, False):
+        for v, d, b, length in cases:
+            ids, g = bag_backward_inputs(gen, v, d, b, length, integer, dev)
+            for mode in ("sum", "mean"):
+                got = embedding_bag_backward_cuda(ids, g, v, mode)
+                torch.cuda.synchronize()
+                want = embedding_bag_backward_plain(ids, g, v, mode)
+                err = float((got - want).abs().max())
+                check(torch.equal(got, want), f"embedding_bag_backward {mode} "
+                      f"{'int' if integer else 'float'} V={v} D={d} B={b} L={length}: differs "
+                      f"from its plain version (max abs {err})")
+                max_err = max(max_err, err)
+                n_checks += 1
+    shapes = ", ".join(f"V={v} D={d} B={b} L={n}" for v, d, b, n in cases)
+    log(f"kernels: {n_checks} embedding_bag_backward kernel/plain comparisons passed, all exact "
+        f"(integer and float g; sum and mean; {shapes}; all-padding bags, repeated ids, ids >= "
+        f"V); max abs err {max_err:.3e}")
+
+    # Device time at the two-tower train batch's bag: its ids (30% padding)
+    # over the cut 4M-row item table, a float upstream gradient.
+    ids = two_tower_batch(args.seed, 0, BWD_B, BWD_V, BWD_V, BWD_L, device=dev)["hist"]
+    g = torch.randn((BWD_B, BWD_D), generator=gen, device=dev)
+    got = embedding_bag_backward_cuda(ids, g, BWD_V)
+    want = embedding_bag_backward_plain(ids, g, BWD_V)
+    err = float((got - want).abs().max())
+    check(torch.equal(got, want), f"embedding_bag_backward at the train shape: differs from its "
+                                  f"plain version (max abs {err})")
+    del got, want
+    valid = int((ids >= 0).sum())
+    n_bytes = BWD_V * BWD_D * 4 + BWD_B * BWD_D * 4 + ids.numel() * 4
+    bd = bound_ms(n_bytes, float(valid) * BWD_D)
+    # The library yardstick: index_add_ of the masked (B * L, D) rows (made
+    # once, outside the timing: 3.4 GB) into a zeroed (V, D).
+    flat = ids.reshape(-1)
+    rows = g.repeat_interleave(BWD_L, 0).mul_((flat >= 0)[:, None])
+    index = flat.clamp(0, BWD_V - 1).long()
+
+    def lib(index, rows):
+        return torch.zeros((BWD_V, BWD_D), device=dev).index_add_(0, index, rows)
+
+    lib_err = float((lib(index, rows) - embedding_bag_backward_cuda(ids, g, BWD_V)).abs().max())
+    check(lib_err <= 1e-4, f"index_add_ disagrees with embedding_bag_backward by {lib_err}")
+    t = dict(ms=events_ms(embedding_bag_backward_cuda, (ids, g, BWD_V), reps=10),
+             plain_ms=events_ms(embedding_bag_backward_plain, (ids, g, BWD_V), reps=2),
+             library_ms=events_ms(lib, (index, rows), reps=5),
+             bound_ms=bd[0], bound_by=bd[1], bytes=n_bytes)
+    t["ms_again"] = events_ms(embedding_bag_backward_cuda, (ids, g, BWD_V), reps=10)
+    del rows, index
+    torch.cuda.empty_cache()
+    log(f"time embedding_bag_backward train B={BWD_B} L={BWD_L} D={BWD_D} V={BWD_V} "
+        f"({valid} valid ids): kernel {t['ms']:.4f} ms (again {t['ms_again']:.4f} ms; stable "
+        f"sort of the keys, zeroed (V, D) output and the kernel), plain {t['plain_ms']:.4f} ms, "
+        f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}, {n_bytes / 1e9:.4f} GB: the dense "
+        f"output written once + g + ids), {n_bytes / t['ms'] / 1e6:.1f} GB/s; library "
+        f"torch.zeros((V, D)).index_add_(0, ids, masked rows) {t['library_ms']:.4f} ms (max abs "
+        f"diff {lib_err:.3e})")
+    return max_err, t
+
+
+def train_phase(args, dev, launch: LaunchCounts) -> None:
+    """Phase 8: AdamW training through ``get_arch(name).make_cell("train_batch")``
+    and ``shape_batch`` on the card: DeepFM (published config, 5 steps), DLRM
+    (MLPerf widths, tables capped, 3 steps), two-tower (published widths,
+    vocabularies capped, 3 steps; the forward bag and its backward kernel
+    once a step). One `train {...}` line each; fails on a loss that is not
+    finite, a parameter leaf that did not change, or a bag launch count."""
+    from repro_torch.archs.recsys import shape_batch
+    from repro_torch.train import reference_layout
+
+    t_phase = time.perf_counter()
+    for name, steps in TRAIN_STEPS:
+        arch = train_arch(name)
+        cfg = arch.cfg
+        b = arch.shapes["train_batch"]["batch"]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cell = arch.make_cell("train_batch")
+        t0 = time.perf_counter()
+        model, opt_state, batch = cell.make_inputs(args.seed, dev)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        views = reference_layout(model)
+        n_params = sum(p.numel() for p in views.values())
+        sums = {k: float(p.detach().sum(dtype=torch.float64)) for k, p in views.items()}
+        walls, losses = [], []
+        launch.reset()
+        for step in range(steps):
+            if step:
+                batch = shape_batch(cfg, "train_batch", args.seed, step, shapes=arch.shapes,
+                                    device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model, opt_state, metrics = cell.fn(model, opt_state, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            losses.append(float(metrics["loss"]))
+        launches = launch.read()
+        peak = torch.cuda.max_memory_allocated()
+        unchanged = [k for k, p in views.items()
+                     if float(p.detach().sum(dtype=torch.float64)) == sums[k]]
+        warm = sum(walls[1:]) / len(walls[1:])  # the steps after the first
+        row = dict(cell=f"train_{cfg.name.replace('-', '_')}", model=cfg.model, batch=b,
+                   steps=steps, init_s=t_init, first_step_s=walls[0], step_s_warm=warm,
+                   step_s=walls, examples_per_s=b / warm, loss=losses,
+                   peak_gb=peak / 1e9, params=n_params, leaves=len(views),
+                   launches={k: v for k, v in launches.items() if v})
+        if cfg.model == "dlrm":
+            row["tables_rows"] = sum(cfg.padded_vocab(v, 256) for v in cfg.vocab_sizes)
+        log(f"train {json.dumps(row)}")
+        check(all(math.isfinite(x) for x in losses), f"train {name}: a loss is not finite")
+        check(not unchanged, f"train {name}: parameters did not change: {unchanged[:5]}")
+        bags = 0 if cfg.model != "two_tower" else steps
+        check(launches["embedding_bag"] == bags and launches["embedding_bag_backward"] == bags,
+              f"train {name}: bag kernels launched {launches['embedding_bag']} / "
+              f"{launches['embedding_bag_backward']} times, expected {bags} each")
+        if cfg.model == "two_tower":
+            profile_batch("train_two_tower",
+                          lambda: cell.fn(model, opt_state, shape_batch(
+                              cfg, "train_batch", args.seed, steps, shapes=arch.shapes,
+                              device=dev)))
+        del model, opt_state, batch, views, metrics
+        log_memory(f"after train {name}")
+    log(f"training: phase wall {time.perf_counter() - t_phase:.1f} s (host clock)")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1_000_000, help="corpus size (airship-sift1m: 1M)")
@@ -3108,13 +3321,20 @@ def main() -> int:
     log_memory("after phase 6d, the world freed")
     # 7. two-tower-retrieval, after the airship-sift1m world is freed
     two_tower_phase(args, dev, launch)
+    log_memory("after phase 7, its tables freed")
+    # 8. recsys training: the bag's backward kernel, then DeepFM, DLRM and
+    # the two-tower model
+    bwd_err, bwd_timing = bag_backward_phase(args, dev)
+    train_phase(args, dev, launch)
 
-    max_err.update(pq_err, l2_matmul=l2_err, embedding_bag=bag_err)
+    max_err.update(pq_err, l2_matmul=l2_err, embedding_bag=bag_err,
+                   embedding_bag_backward=bwd_err)
     rows = {name: timings[32][name] for name in ("gather_distance", "fused_expand")}
     rows["fused_expand_adc"] = pq_timings["fused_expand_adc"][32]
     rows["pq_adc"] = pq_timings["pq_adc"]
     rows["l2_matmul"] = l2_timing
     rows["embedding_bag"] = bag_timings["serve_bulk"]
+    rows["embedding_bag_backward"] = bwd_timing
     sources = {
         "gather_distance": ("src/repro_torch/csrc/gather_distance.cu",
                             "src/repro/kernels/gather_distance/gather_distance.py:85"),
@@ -3127,6 +3347,9 @@ def main() -> int:
                       "src/repro/kernels/l2_matmul/l2_matmul.py:48"),
         "embedding_bag": ("src/repro_torch/csrc/embedding_bag.cu",
                           "src/repro/kernels/embedding_bag/embedding_bag.py:39"),
+        # No TPU kernel: the reference differentiates embedding_bag_sum's jnp.
+        "embedding_bag_backward": ("src/repro_torch/csrc/embedding_bag_backward.cu",
+                                   "src/repro/models/recsys/models.py:94"),
     }
     kernels = []
     for name, (source, replaces) in sources.items():

@@ -6,8 +6,8 @@ Corpus + per-shard subgraphs are split by rows over ``model``
 (scatter-search-merge, core/distributed.py); query batches split over the
 data axes. The serve step is the full constrained graph search
 (mode=prefer) + one gather-and-merge of every shard's top-k. Plain
-functions, as ``archs/recsys.py``: there is no ``CellSpec`` and no abstract
-shapes (the dry run is ROADMAP item 14).
+functions: no ``AirshipArch`` in the registry (``archs/base.py``) and no
+abstract shapes; the dry run's AIRSHIP cells are ROADMAP item 14e.
 """
 from __future__ import annotations
 

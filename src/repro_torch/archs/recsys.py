@@ -1,12 +1,15 @@
-"""RecSys serve shapes: serve_p99 / serve_bulk / retrieval_cand (port of
-``repro.archs.recsys``, the two-tower model's serve branches of
-``RecsysArch.make_cell``).
+"""RecSys cells: train_batch / serve_p99 / serve_bulk / retrieval_cand (port
+of ``repro.archs.recsys``) for DLRM, DeepFM and the two-tower model.
 
-serve_p99 and serve_bulk score each user against the item of its row,
-sum(user . item(item_id)); retrieval_cand (one user against 1M candidate
-item embeddings) is the brute-force top-k that AIRSHIP's constrained graph
-search replaces. Training (train_batch) and the dlrm / deepfm / sasrec
-models are not ported yet (ROADMAP item 14).
+train_batch is one AdamW step (lr 1e-3, as the reference's
+``make_cell``) of the model's loss through ``make_train_step``.
+serve_p99 and serve_bulk score rows: the two-tower model each user
+against the item of its row, sum(user . item(item_id)); DLRM and DeepFM
+sigmoid(logit) of each feature row. retrieval_cand is, for the two-tower
+model, one user against 1M candidate item embeddings (the brute-force
+top-k that AIRSHIP's constrained graph search replaces) and, for DLRM
+and DeepFM, bulk scoring of ``n_candidates`` feature rows for one
+request. SASRec is ROADMAP item 14b.
 """
 from __future__ import annotations
 
@@ -15,10 +18,14 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from repro_torch.archs.base import Arch, CellSpec
 from repro_torch.common.device import resolve_device
-from repro_torch.data.pipeline import two_tower_batch
+from repro_torch.data.pipeline import deepfm_batch, dlrm_batch, two_tower_batch
 from repro_torch.distributed.meshinfo import MeshInfo
+from repro_torch.models.recsys import models as rs
 from repro_torch.models.recsys.models import RecsysConfig, TwoTower
+from repro_torch.train.optimizer import adamw
+from repro_torch.train.train_step import make_train_step, reference_layout
 
 RECSYS_SHAPES: Dict[str, dict] = {
     "train_batch": dict(kind="train", batch=65536),
@@ -27,23 +34,18 @@ RECSYS_SHAPES: Dict[str, dict] = {
     "retrieval_cand": dict(kind="serve", batch=1, n_candidates=1_000_000),
 }
 
-
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP item 14)")
-
-
-def train_batch(*args, **kwargs):
-    """The recsys training step: not ported yet (ROADMAP item 14)."""
-    _not_ported("the recsys training step")
+_INIT = {"dlrm": rs.dlrm_init, "deepfm": rs.deepfm_init, "two_tower": rs.two_tower_init}
+_LOSS = {"dlrm": rs.dlrm_loss, "deepfm": rs.deepfm_loss, "two_tower": rs.two_tower_loss}
 
 
-def _serve_shape(cfg: RecsysConfig, shape: str, shapes: Optional[Dict[str, dict]]) -> dict:
-    sh = (shapes or RECSYS_SHAPES)[shape]
-    if sh["kind"] == "train":
-        train_batch()
-    if cfg.model != "two_tower":
-        _not_ported(f"{cfg.model} serving")
-    return sh
+def _check_model(cfg: RecsysConfig) -> None:
+    if cfg.model not in _INIT:
+        raise NotImplementedError(f"{cfg.model} is not ported yet (ROADMAP item 14b)")
+
+
+def _shape(cfg: RecsysConfig, shape: str, shapes: Optional[Dict[str, dict]]) -> dict:
+    _check_model(cfg)
+    return (shapes or RECSYS_SHAPES)[shape]
 
 
 @torch.inference_mode()
@@ -61,11 +63,22 @@ def serve_retrieval(model: TwoTower, batch: dict, mesh: Optional[MeshInfo] = Non
     return model.score_candidates(batch, mesh, two_phase_topk=True)
 
 
+@torch.inference_mode()
+def serve_ranking(model, batch: dict):
+    """DLRM / DeepFM serving: (B,) sigmoid of each feature row's logit."""
+    return torch.sigmoid(model(batch))
+
+
 def serve_fn(cfg: RecsysConfig, shape: str, shapes: Optional[Dict[str, dict]] = None,
-             mesh: Optional[MeshInfo] = None) -> Callable[[TwoTower, dict], object]:
-    """The serve function of ``shape``: ``fn(model, batch)``; retrieval_cand
-    runs its two-phase top-k over ``mesh`` when one is given."""
-    sh = _serve_shape(cfg, shape, shapes)
+             mesh: Optional[MeshInfo] = None) -> Callable[[torch.nn.Module, dict], object]:
+    """The serve function of ``shape``: ``fn(model, batch)``; the two-tower
+    retrieval_cand runs its two-phase top-k over ``mesh`` when one is
+    given."""
+    sh = _shape(cfg, shape, shapes)
+    if sh["kind"] == "train":
+        raise ValueError(f"{shape} is a train shape: RecsysArch.make_cell builds its step")
+    if cfg.model != "two_tower":
+        return serve_ranking
     if sh.get("n_candidates"):
         return functools.partial(serve_retrieval, mesh=mesh)
     return serve_scores
@@ -74,17 +87,84 @@ def serve_fn(cfg: RecsysConfig, shape: str, shapes: Optional[Dict[str, dict]] = 
 def shape_batch(cfg: RecsysConfig, shape: str, seed: int = 0, step: int = 0, *,
                 shapes: Optional[Dict[str, dict]] = None, candidates=None,
                 device="cuda") -> dict:
-    """The batch of ``shape`` from ``two_tower_batch(seed, step)`` on
-    ``device``; retrieval_cand takes ``candidates`` ((n_candidates, D)
-    item-tower rows) in place of the item ids."""
-    sh = _serve_shape(cfg, shape, shapes)
+    """The batch of ``shape`` from the model's generator at (seed, step) on
+    ``device``: ``dlrm_batch`` / ``deepfm_batch`` (no label when serving;
+    retrieval_cand scores ``n_candidates`` rows) or ``two_tower_batch``,
+    whose retrieval_cand takes ``candidates`` ((n_candidates, D) item-tower
+    rows) in place of the item ids."""
+    sh = _shape(cfg, shape, shapes)
     dev = resolve_device(device)
+    n_cand = sh.get("n_candidates", 0)
+    if cfg.model != "two_tower":
+        b = n_cand or sh["batch"]
+        if cfg.model == "dlrm":
+            batch = dlrm_batch(seed, step, b, cfg.n_dense, cfg.vocab_sizes, device=dev)
+        else:
+            batch = deepfm_batch(seed, step, b, cfg.vocab_sizes, device=dev)
+        if sh["kind"] == "serve":
+            del batch["label"]
+        return batch
     batch = two_tower_batch(seed, step, sh["batch"], cfg.user_vocab, cfg.item_vocab,
                             cfg.hist_len, device=dev)
-    n_cand = sh.get("n_candidates", 0)
     if n_cand:
         if candidates is None or candidates.shape[0] != n_cand:
             raise ValueError(f"{shape} takes ({n_cand}, D) candidates")
         del batch["item_id"]
         batch["candidates"] = candidates.to(dev)
     return batch
+
+
+class RecsysArch(Arch):
+    family = "recsys"
+
+    def __init__(self, cfg: RecsysConfig, shapes: Optional[Dict[str, dict]] = None):
+        self.name = cfg.name
+        self.cfg = cfg
+        self.shapes = shapes or RECSYS_SHAPES
+
+    def shape_names(self):
+        return list(self.shapes)
+
+    def loss(self, model, batch):
+        """(loss, {"loss": loss}) of the model's objective."""
+        return _LOSS[self.cfg.model](model, batch)
+
+    def make_cell(self, shape: str, mi: Optional[MeshInfo] = None) -> CellSpec:
+        """train_batch: ``fn(model, opt_state, batch) -> (model, opt_state,
+        metrics)``, one AdamW step (lr 1e-3) in place. Serve shapes:
+        ``fn(model, batch)`` (``serve_fn``). ``make_inputs(seed, device)``
+        draws the model from ``seed`` and the batch of step 0 (retrieval_cand
+        of the two-tower model: the item tower over items 0..C-1, modulo the
+        vocab, as candidates)."""
+        cfg = self.cfg
+        sh = _shape(cfg, shape, self.shapes)
+        name = f"{self.name}:{shape}"
+
+        def model_of(seed, device):  # the reference's init laws, drawn from seed
+            dev = resolve_device(device)
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            return _INIT[cfg.model](gen, cfg, device=dev), dev
+
+        if sh["kind"] == "train":
+            opt = adamw(lr=1e-3)
+
+            def make_train_inputs(seed: int = 0, device="cuda"):
+                model, dev = model_of(seed, device)
+                batch = shape_batch(cfg, shape, seed, 0, shapes=self.shapes, device=dev)
+                return model, opt.init(reference_layout(model)), batch
+
+            return CellSpec(name=name, kind="train", fn=make_train_step(self.loss, opt),
+                            make_inputs=make_train_inputs)
+
+        def make_serve_inputs(seed: int = 0, device="cuda"):
+            model, dev = model_of(seed, device)
+            cand = None
+            if cfg.model == "two_tower" and sh.get("n_candidates"):
+                ids = torch.arange(sh["n_candidates"], device=dev) % cfg.item_vocab
+                with torch.inference_mode():
+                    cand = model.item(ids.to(torch.int32))
+            return model, shape_batch(cfg, shape, seed, 0, shapes=self.shapes,
+                                      candidates=cand, device=dev)
+
+        return CellSpec(name=name, kind="serve", fn=serve_fn(cfg, shape, self.shapes, mi),
+                        make_inputs=make_serve_inputs)

@@ -1,4 +1,11 @@
-from repro_torch.common.distances import batched_rowwise_sqdist, squared_l2
+from repro_torch.common.distances import (
+    batched_rowwise_sqdist,
+    cosine_distance,
+    neg_inner_product,
+    squared_l2,
+    squared_l2_one_to_many,
+)
 from repro_torch.common.kmeans import kmeans
 
-__all__ = ["batched_rowwise_sqdist", "kmeans", "squared_l2"]
+__all__ = ["batched_rowwise_sqdist", "cosine_distance", "kmeans", "neg_inner_product",
+           "squared_l2", "squared_l2_one_to_many"]

@@ -1,4 +1,6 @@
-"""Squared-L2 distance primitives (port of ``repro.common.distances``).
+"""Distance primitives (port of ``repro.common.distances``): squared L2,
+unless noted, and the inner-product and cosine variants of the MIPS-style
+retrieval paths (two-tower).
 
 Matrix products run in full float32: the port never enables TF32, because
 the seeding distances and the exact oracle go through ``squared_l2``.
@@ -35,3 +37,21 @@ def batched_rowwise_sqdist(q: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     """(B, d) queries vs (B, M, d) gathered rows -> (B, M) squared distances."""
     diff = rows.float() - q.float()[:, None, :]
     return (diff * diff).sum(-1)
+
+
+def squared_l2_one_to_many(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Squared L2 between a single query (d,) and rows of ``x`` (N, d)."""
+    diff = x.float() - q.float()[None, :]
+    return (diff * diff).sum(-1)
+
+
+def neg_inner_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Negative inner product (smaller is more similar), (A, d) x (B, d)."""
+    return -(a.float() @ b.float().T)
+
+
+def cosine_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """1 - cosine similarity, (A, d) x (B, d); norms offset by 1e-12."""
+    an = a / (torch.linalg.vector_norm(a, dim=-1, keepdim=True) + 1e-12)
+    bn = b / (torch.linalg.vector_norm(b, dim=-1, keepdim=True) + 1e-12)
+    return 1.0 - an @ bn.T

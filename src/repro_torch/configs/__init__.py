@@ -1,8 +1,24 @@
-"""Recsys configurations of the port (port of the two-tower entries of
-``repro.configs.other_configs``), as ``RecsysConfig`` values."""
+"""Recsys configurations of the port (port of the recsys entries of
+``repro.configs.other_configs``), as ``RecsysConfig`` values, and the
+registry of archs under the reference's names
+(``repro/configs/__init__.py``). ``NOT_PORTED`` names the archs the port
+lacks and the ROADMAP item that ports each."""
 from __future__ import annotations
 
+from repro_torch.archs.base import register
+from repro_torch.archs.recsys import RecsysArch
 from repro_torch.models.recsys.models import RecsysConfig
+
+# MLPerf DLRM (Criteo 1TB) categorical vocab sizes: 26 fields.
+CRITEO_VOCABS = (
+    39884406, 39043, 17289, 7420, 20263, 3, 7120, 1543, 63, 38532951,
+    2953546, 403346, 10, 2208, 11938, 155, 4, 976, 14, 39979771,
+    25641295, 39664984, 585935, 12972, 108, 36,
+)
+
+# DeepFM on Criteo-style features: 13 bucketized numeric (vocab 1024) +
+# 26 categorical hashed to <= 1M rows (hash trick, standard DeepFM practice).
+DEEPFM_VOCABS = tuple([1024] * 13 + [min(v, 1_000_000) for v in CRITEO_VOCABS])
 
 # Serve shapes of the reference's smoke recsys arch (other_configs.py
 # smoke_recsys); the published shapes are archs/recsys.py RECSYS_SHAPES.
@@ -12,6 +28,31 @@ SMOKE_RECSYS_SHAPES = {
     "serve_bulk": dict(kind="serve", batch=32),
     "retrieval_cand": dict(kind="serve", batch=1, n_candidates=256),
 }
+
+
+def dlrm_mlperf() -> RecsysConfig:
+    """[arXiv:1906.00091] MLPerf config: 13 dense, 26 sparse, dim 128,
+    bottom 512-256-128, top 1024-1024-512-256-1, dot interaction."""
+    return RecsysConfig(
+        name="dlrm-mlperf",
+        model="dlrm",
+        embed_dim=128,
+        vocab_sizes=CRITEO_VOCABS,
+        n_dense=13,
+        bot_mlp=(512, 256, 128),
+        top_mlp=(1024, 1024, 512, 256, 1),
+    )
+
+
+def deepfm() -> RecsysConfig:
+    """[arXiv:1703.04247]: 39 fields, dim 10, MLP 400-400-400, FM interaction."""
+    return RecsysConfig(
+        name="deepfm",
+        model="deepfm",
+        embed_dim=10,
+        vocab_sizes=DEEPFM_VOCABS,
+        mlp=(400, 400, 400),
+    )
 
 
 def two_tower_retrieval() -> RecsysConfig:
@@ -29,6 +70,20 @@ def two_tower_retrieval() -> RecsysConfig:
     )
 
 
+def smoke_dlrm() -> RecsysConfig:
+    return RecsysConfig(
+        name="smoke-dlrm", model="dlrm", embed_dim=8,
+        vocab_sizes=(100, 50, 30), n_dense=4, bot_mlp=(16, 8), top_mlp=(16, 1),
+    )
+
+
+def smoke_deepfm() -> RecsysConfig:
+    return RecsysConfig(
+        name="smoke-deepfm", model="deepfm", embed_dim=5,
+        vocab_sizes=(40,) * 6, mlp=(16, 16),
+    )
+
+
 def smoke_two_tower() -> RecsysConfig:
     return RecsysConfig(
         name="smoke-two-tower", model="two_tower", embed_dim=16,
@@ -36,4 +91,24 @@ def smoke_two_tower() -> RecsysConfig:
     )
 
 
-__all__ = ["SMOKE_RECSYS_SHAPES", "smoke_two_tower", "two_tower_retrieval"]
+# The reference's registered names the port does not have, and the ROADMAP
+# item of each.
+NOT_PORTED = {
+    **dict.fromkeys(("sasrec", "smoke-sasrec"), "14b"),
+    **dict.fromkeys(("deepseek-v2-236b", "deepseek-v3-671b", "command-r-plus-104b",
+                     "command-r-35b", "granite-3-2b", "smoke-gqa", "smoke-mla-moe"), "14c"),
+    **dict.fromkeys(("mace", "smoke-mace"), "14d"),
+    # the dry run's AIRSHIP cells; the serve path itself is archs/airship.py
+    **dict.fromkeys(("airship-sift1m", "smoke-airship"), "14e"),
+}
+
+register("dlrm-mlperf", lambda: RecsysArch(dlrm_mlperf()))
+register("deepfm", lambda: RecsysArch(deepfm()))
+register("two-tower-retrieval", lambda: RecsysArch(two_tower_retrieval()))
+register("smoke-dlrm", lambda: RecsysArch(smoke_dlrm(), SMOKE_RECSYS_SHAPES))
+register("smoke-deepfm", lambda: RecsysArch(smoke_deepfm(), SMOKE_RECSYS_SHAPES))
+register("smoke-two-tower", lambda: RecsysArch(smoke_two_tower(), SMOKE_RECSYS_SHAPES))
+
+__all__ = ["CRITEO_VOCABS", "DEEPFM_VOCABS", "NOT_PORTED", "SMOKE_RECSYS_SHAPES", "deepfm",
+           "dlrm_mlperf", "smoke_deepfm", "smoke_dlrm", "smoke_two_tower",
+           "two_tower_retrieval"]

@@ -1,4 +1,4 @@
-from repro_torch.data.pipeline import two_tower_batch
+from repro_torch.data.pipeline import deepfm_batch, dlrm_batch, two_tower_batch
 from repro_torch.data.synthetic import (
     clustered_vectors,
     kmeans_labels,
@@ -9,6 +9,8 @@ from repro_torch.data.synthetic import (
 
 __all__ = [
     "clustered_vectors",
+    "deepfm_batch",
+    "dlrm_batch",
     "kmeans_labels",
     "make_labeled_corpus",
     "make_queries",

@@ -1,5 +1,6 @@
-"""Deterministic synthetic batches (port of ``repro.data.pipeline``; the
-two-tower generator so far).
+"""Deterministic synthetic batches (port of ``repro.data.pipeline``: the
+DLRM, DeepFM and two-tower generators; the LM, SASRec and GNN ones are
+ROADMAP items 14b-14d).
 
 Every batch is a pure function of (seed, step), drawn with numpy exactly
 as the reference draws it, so the port's batches equal the reference's
@@ -17,8 +18,38 @@ def _rng(seed: int, step: int) -> np.random.Generator:
     return np.random.default_rng(np.random.SeedSequence([seed, step]))
 
 
-def _tensor(a: np.ndarray, dev: torch.device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)
+def _tensor(a: np.ndarray, dev: torch.device, dtype=np.int32) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(dev)
+
+
+def _sparse(r: np.random.Generator, batch: int, vocabs) -> np.ndarray:
+    return np.stack([r.integers(0, v, size=batch) for v in vocabs], axis=1)
+
+
+def dlrm_batch(seed: int, step: int, batch: int, n_dense: int, vocabs, device="cuda") -> dict:
+    """{"dense": (batch, n_dense) float32 normal, "sparse": (batch, F) int32
+    uniform in each field's vocab, "label": (batch,) float32 0 / 1} on
+    ``device``."""
+    dev = resolve_device(device)
+    r = _rng(seed, step)
+    sparse = _sparse(r, batch, vocabs)
+    return {
+        "dense": _tensor(r.normal(size=(batch, n_dense)), dev, np.float32),
+        "sparse": _tensor(sparse, dev),
+        "label": _tensor(r.integers(0, 2, size=batch), dev, np.float32),
+    }
+
+
+def deepfm_batch(seed: int, step: int, batch: int, vocabs, device="cuda") -> dict:
+    """{"sparse": (batch, F) int32, "label": (batch,) float32 0 / 1} on
+    ``device``."""
+    dev = resolve_device(device)
+    r = _rng(seed, step)
+    sparse = _sparse(r, batch, vocabs)
+    return {
+        "sparse": _tensor(sparse, dev),
+        "label": _tensor(r.integers(0, 2, size=batch), dev, np.float32),
+    }
 
 
 def two_tower_batch(seed: int, step: int, batch: int, user_vocab: int, item_vocab: int,

@@ -16,8 +16,9 @@ from repro_torch.common.device import resolve_device
 from repro_torch.core.constraints import LabelSetConstraint, RangeConstraint
 from repro_torch.core.pq import PQIndex
 from repro_torch.core.types import Corpus, GraphIndex
-from repro_torch.models.recsys.models import RecsysConfig, TwoTower
+from repro_torch.models.recsys.models import DLRM, DeepFM, RecsysConfig, TwoTower
 from repro_torch.streaming.slots import SlotPool, StreamingIndex
+from repro_torch.train.train_step import reference_layout
 
 
 def _tensor(a: np.ndarray, dtype, dev: torch.device) -> torch.Tensor:
@@ -126,31 +127,97 @@ def streaming_index_from_reference(
     return index
 
 
+def _leaves(tree, path=()):
+    """(path, array) of every leaf of a nested dict / list param tree."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, path + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, path + (i,))
+    else:
+        yield path, tree
+
+
+def _port_name(path) -> str:
+    """The port's parameter name of a reference tree path (the inverse of
+    ``train.reference_key``): ("bot", "layers", 0, "w") ->
+    ``bot.layers.0.weight``; a layer's "b" -> ``bias``."""
+    parts = [str(p) for p in path]
+    if parts[-1] == "w":
+        parts[-1] = "weight"
+    elif parts[-1] == "b" and len(path) > 1 and isinstance(path[-2], int):
+        parts[-1] = "bias"
+    return ".".join(parts)
+
+
+def _by_port_name(tree, name: str) -> dict:
+    """The leaves of a reference tree keyed by the port's names."""
+    out = {_port_name(path): np.asarray(a) for path, a in _leaves(tree)}
+    if not out:
+        raise ValueError(f"{name}: an empty tree")
+    return out
+
+
+_MODELS = {"dlrm": DLRM, "deepfm": DeepFM, "two_tower": TwoTower}
+
+
+def recsys_params_from_reference(params, cfg: RecsysConfig, *, device="cuda"):
+    """The reference's recsys param tree as numpy arrays (``dlrm_init``,
+    ``deepfm_init`` or ``two_tower_init``'s) -> the port's ``DLRM``,
+    ``DeepFM`` or ``TwoTower`` for ``cfg`` on ``device``. Each leaf is
+    copied into the parameter's view in the reference's layout
+    (``train.reference_layout``), so the reference's (in, out) ``w`` lands
+    in ``nn.Linear.weight`` as ``w.T``. Every parameter must be given, with
+    its shape."""
+    if cfg.model not in _MODELS:
+        raise ValueError(f"{cfg.name}: no port of a {cfg.model} model")
+    dev = resolve_device(device)
+    model = _MODELS[cfg.model](cfg, device=dev)
+    views = reference_layout(model)
+    leaves = _by_port_name(params, cfg.name)
+    if set(leaves) != set(views):
+        raise ValueError(f"{cfg.name}: the reference's leaves {sorted(set(leaves) - set(views))} "
+                         f"have no parameter, the parameters {sorted(set(views) - set(leaves))} "
+                         f"no leaf")
+    with torch.no_grad():
+        for k, view in views.items():
+            got = _tensor(leaves[k], np.float32, dev)
+            if got.shape != view.shape:
+                raise ValueError(f"{k}: shape {tuple(got.shape)} (the reference's layout), "
+                                 f"{cfg.name} has {tuple(view.shape)}")
+            view.copy_(got)
+    return model
+
+
 def two_tower_params_from_reference(params, cfg: RecsysConfig, *, device="cuda") -> TwoTower:
     """The reference's two-tower param tree as numpy arrays (``user_emb``,
     ``item_emb``, ``user_tower`` / ``item_tower`` {"layers": [{"w", "b"}]},
-    ``log_tau``) -> a ``TwoTower`` for ``cfg`` on ``device``. The
-    reference's ``w`` is (in, out); ``nn.Linear.weight`` takes ``w.T``."""
+    ``log_tau``) -> a trainable ``TwoTower`` for ``cfg`` on ``device``
+    (``recsys_params_from_reference``)."""
+    if cfg.model != "two_tower":
+        raise ValueError(f"{cfg.name} is a {cfg.model} config, not two_tower")
+    return recsys_params_from_reference(params, cfg, device=device)
+
+
+def adamw_state_from_reference(state, model, *, device="cuda") -> dict:
+    """The reference's AdamW state ({"m": tree, "v": tree, "count": int})
+    as numpy arrays -> the port's, keyed by ``model``'s parameter names in
+    the reference's layout (``train.optimizer.adamw``), on ``device``: a
+    step can start from the reference's state mid-run."""
     dev = resolve_device(device)
-    model = TwoTower(cfg, device=dev)
-    with torch.no_grad():
-        for name in ("user_emb", "item_emb", "log_tau"):
-            want = getattr(model, name)
-            got = _tensor(params[name], np.float32, dev)
-            if got.shape != want.shape:
-                raise ValueError(f"{name}: shape {tuple(got.shape)}, {cfg.name} has "
-                                 f"{tuple(want.shape)}")
-            want.copy_(got)
-        for name in ("user_tower", "item_tower"):
-            layers = getattr(model, name).layers
-            ref = params[name]["layers"]
-            if len(ref) != len(layers):
-                raise ValueError(f"{name}: {len(ref)} layers, {cfg.name} has {len(layers)}")
-            for layer, p in zip(layers, ref):
-                w = _tensor(np.asarray(p["w"]).T, np.float32, dev)
-                if w.shape != layer.weight.shape:
-                    raise ValueError(f"{name}: weight (in, out) {tuple(w.T.shape)}, "
-                                     f"{cfg.name} has {tuple(layer.weight.T.shape)}")
-                layer.weight.copy_(w)
-                layer.bias.copy_(_tensor(p["b"], np.float32, dev))
-    return model
+    views = reference_layout(model)
+    out = {"count": torch.tensor(int(np.asarray(state["count"])), dtype=torch.int32, device=dev)}
+    for key in ("m", "v"):
+        leaves = _by_port_name(state[key], key)
+        if set(leaves) != set(views):
+            raise ValueError(f"state {key}: leaves {sorted(leaves)} differ from the model's "
+                             f"parameters {sorted(views)}")
+        out[key] = {}
+        for k, view in views.items():
+            t = _tensor(leaves[k], np.float32, dev)
+            if t.shape != view.shape:
+                raise ValueError(f"state {key}[{k}]: shape {tuple(t.shape)}, the parameter's "
+                                 f"{tuple(view.shape)}")
+            out[key][k] = t
+    return out

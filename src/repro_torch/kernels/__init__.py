@@ -30,7 +30,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 KERNEL_STEMS = ("gather_distance", "fused_expand", "fused_expand_adc", "pq_adc", "l2_matmul",
-                "embedding_bag")
+                "embedding_bag", "embedding_bag_backward")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # Last ptxas report (registers, spills) per stem, for the smoke's log.

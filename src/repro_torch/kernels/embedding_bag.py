@@ -20,6 +20,19 @@ right (l = 0, 1, ...) from +0.0, one rounded add at a time, as the Pallas
 kernel's grid does, so the card's bags equal the CPU's bit for bit on float
 tables too. Ids at or above V are clamped to V - 1 by the kernel (the plain
 version's gather raises on them).
+
+The gradient: ``embedding_bag`` is a ``torch.autograd.Function`` when the
+table needs a gradient. Its backward, ``embedding_bag_backward``, writes
+the dense (V, D) d_table the reference's ``jax.grad`` of
+``embedding_bag_sum`` gives: d_table[r] = the sum of g[b] over every
+(b, l) with ids[b, l] == r (g[b] divided by its bag's count first in mean
+mode). No TPU kernel stands behind it (the reference differentiates the
+jnp gather); on the card it is the CUDA kernel
+``csrc/embedding_bag_backward.cu``, bound by the bytes of the dense
+output. Its order is pinned too: ``torch.sort`` orders the flattened ids
+stably (padding last), and each row's contributions are added in
+row-major (b, l) order from +0.0, one rounded add at a time, on the card
+and in the plain version alike.
 """
 from __future__ import annotations
 
@@ -33,6 +46,9 @@ MODES = ("sum", "mean")
 # table, ids, out; B, L, D; V; vec4, mean; stream
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_longlong]
              + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+# keys, pos, g, out; n; L, D; V; vec4; stream
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 2
+                 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
 
 
 def _check_mode(mode: str) -> None:
@@ -45,13 +61,19 @@ def embedding_bag_plain(table, ids, mode: str = "sum"):
     left to right from a zero accumulator (the Pallas kernel's order), so
     the (B, L, D) gather is never whole."""
     _check_mode(mode)
-    acc = torch.zeros((ids.shape[0], table.shape[1]), dtype=torch.float32, device=table.device)
+    dtype = torch.promote_types(table.dtype, torch.float32)  # float64 stays (gradcheck)
+    acc = torch.zeros((ids.shape[0], table.shape[1]), dtype=dtype, device=table.device)
     for col in ids.T:
-        rows = table.index_select(0, col.clamp_min(0).long()).to(torch.float32)
+        rows = table.index_select(0, col.clamp_min(0).long()).to(dtype)
         acc = acc + torch.where((col >= 0)[:, None], rows, 0.0)
     if mode == "mean":  # divide by max(count of ids >= 0, 1), in float32
-        acc = acc / (ids >= 0).sum(-1, keepdim=True).clamp_min(1).to(torch.float32)
+        acc = acc / _bag_counts(ids, dtype)
     return acc
+
+
+def _bag_counts(ids, dtype):
+    """(B, 1) max(count of ids >= 0, 1) in ``dtype``."""
+    return (ids >= 0).sum(-1, keepdim=True).clamp_min(1).to(dtype)
 
 
 def _check(table, ids) -> None:
@@ -81,15 +103,119 @@ def embedding_bag_cuda(table, ids, mode: str = "sum"):
     return out
 
 
+class _EmbeddingBag(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, ids, mode):
+        ctx.save_for_backward(ids)
+        ctx.mode, ctx.v = mode, table.shape[0]
+        return dispatch(table.device, embedding_bag_cuda, embedding_bag_plain)(table, ids, mode)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        return embedding_bag_backward(ids, g.contiguous(), ctx.v, mode=ctx.mode), None, None
+
+
 def embedding_bag(table, ids, *, mode: str = "sum"):
     """(V, D) float32 table, (B, L) int32 ids (-1 pads) -> (B, D) float32.
 
     ``mode="mean"`` divides each bag by max(its count of ids >= 0, 1); any
     other mode but "sum" raises. CUDA tensors launch the kernel (or raise);
-    CPU tensors take the plain version. ``embedding_bag.launches`` counts
-    kernel launches.
+    CPU tensors take the plain version. Where the table needs a gradient,
+    the call is recorded for autograd and its backward is
+    ``embedding_bag_backward``. ``embedding_bag.launches`` counts kernel
+    launches.
     """
+    if torch.is_grad_enabled() and table.requires_grad:
+        return _EmbeddingBag.apply(table, ids, mode)
     return dispatch(table.device, embedding_bag_cuda, embedding_bag_plain)(table, ids, mode)
 
 
 embedding_bag.launches = 0
+
+
+# --------------------------------------------------------------------------- backward
+
+
+def _scaled_grad(ids, g, mode: str):
+    """g, each bag's row divided by its count in mean mode (the gradient of
+    the forward's division)."""
+    _check_mode(mode)
+    return g / _bag_counts(ids, g.dtype) if mode == "mean" else g
+
+
+def sorted_keys(ids, v: int):
+    """(keys, pos): the flattened ids with padding (< 0) as ``v`` and ids at
+    or above ``v`` clamped to v - 1, sorted stably (int32), and each key's
+    flat position b * L + l (int64): within a run of equal ids, row-major
+    order."""
+    flat = ids.reshape(-1)
+    keys = torch.where(flat >= 0, flat.clamp_max(v - 1), torch.full_like(flat, v))
+    out = torch.sort(keys, stable=True)
+    return out.values, out.indices
+
+
+def embedding_bag_backward_plain(ids, g, v: int, mode: str = "sum"):
+    """The kernel's order in plain PyTorch: the stable sort, then a
+    segmented sum of each run of equal ids, left to right from +0.0 (one
+    add a run per pass; as many passes as the longest run)."""
+    gs = _scaled_grad(ids, g, mode)
+    keys, pos = sorted_keys(ids, v)
+    n = int((keys < v).sum())
+    keys, pos = keys[:n], pos[:n]
+    out = torch.zeros((v, g.shape[1]), dtype=g.dtype, device=g.device)
+    if n == 0:
+        return out
+    start = torch.ones(n, dtype=torch.bool, device=g.device)
+    start[1:] = keys[1:] != keys[:-1]
+    run = torch.cumsum(start, 0) - 1
+    first = torch.nonzero(start).squeeze(1)
+    rank = torch.arange(n, device=g.device) - first[run]
+    bags = pos // ids.shape[1]
+    acc = torch.zeros((first.numel(), g.shape[1]), dtype=g.dtype, device=g.device)
+    for r in range(int(rank.max()) + 1):
+        sel = torch.nonzero(rank == r).squeeze(1)
+        idx = run[sel]
+        acc[idx] = acc[idx] + gs[bags[sel]]
+    out[keys[first].long()] = acc
+    return out
+
+
+def _check_backward(ids, g, v: int) -> None:
+    require(ids.device == g.device, f"ids is on {ids.device}, g on {g.device}")
+    for name, t, dtype in (("g", g, torch.float32), ("ids", ids, torch.int32)):
+        require(t.dtype == dtype, f"{name} must be {dtype}, got {t.dtype}")
+        require(t.dim() == 2, f"{name} must be 2-D")
+        require(t.is_contiguous(), f"{name} must be contiguous")
+    require(g.shape[0] == ids.shape[0], f"g has {g.shape[0]} rows, ids {ids.shape[0]} bags")
+    require(1 <= v < 2**31 - 1, "V must be in [1, 2**31 - 1): padding sorts as V in int32")
+    require(ids.shape[1] >= 1 and g.shape[1] < 2**31, "L must be >= 1 and D < 2**31")
+
+
+def embedding_bag_backward_cuda(ids, g, v: int, mode: str = "sum"):
+    """Launch the backward kernel on the current stream (after the stable
+    sort of the keys and a zeroed (V, D) output); does not synchronise."""
+    _check_backward(ids, g, v)
+    fn = kernel_entry("embedding_bag_backward", "repro_embedding_bag_backward", _BWD_ARGTYPES)
+    gs = _scaled_grad(ids, g, mode).contiguous()
+    keys, pos = sorted_keys(ids, v)
+    d = g.shape[1]
+    out = torch.zeros((v, d), dtype=torch.float32, device=g.device)
+    vec4 = int(d % 4 == 0 and gs.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+    status = fn(keys.data_ptr(), pos.data_ptr(), gs.data_ptr(), out.data_ptr(), keys.numel(),
+                ids.shape[1], d, v, vec4, current_stream_ptr(g.device))
+    check_launch("embedding_bag_backward", status)
+    embedding_bag_backward.launches += 1
+    return out
+
+
+def embedding_bag_backward(ids, g, v: int, *, mode: str = "sum"):
+    """(B, L) int32 ids (-1 pads), (B, D) float32 upstream gradient, V ->
+    the dense (V, D) gradient of ``embedding_bag``'s table. CUDA tensors
+    launch the kernel (or raise); CPU tensors take the plain version.
+    ``embedding_bag_backward.launches`` counts kernel launches."""
+    return dispatch(g.device, embedding_bag_backward_cuda, embedding_bag_backward_plain)(
+        ids, g, v, mode)
+
+
+embedding_bag_backward.launches = 0

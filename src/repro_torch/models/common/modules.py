@@ -1,17 +1,28 @@
 """Shared building blocks (port of ``repro.models.common.modules``).
 
-``MLP`` is the reference's ``mlp_init`` / ``mlp_apply`` pair as an
-``nn.Module``: ``nn.Linear`` layers with a ReLU between them and, with
-``final_act``, after the last. ``init_`` draws the reference's
-``dense_init`` law from an explicit generator: weights uniform in
-[-1/sqrt(d_in), 1/sqrt(d_in)], biases zero. The numbers differ from the
-reference's threefry draws; ``interop.two_tower_params_from_reference``
-carries the reference's own weights across.
+Each reference ``*_init`` / ``*_apply`` pair is an ``nn.Module``:
+
+- ``Dense``: ``x @ w``, no bias (``dense_init``); weights uniform in
+  [-1/sqrt(d_in), 1/sqrt(d_in)].
+- ``MLP``: ``nn.Linear`` layers (``mlp_init`` / ``mlp_apply``) with ``act``
+  between them and, with ``final_act``, after the last; ``bias=False``
+  drops the biases. Weights as ``Dense``, biases zero.
+- ``RMSNorm`` (eps 1e-6) and ``LayerNorm`` (eps 1e-5): computed in
+  float32, the variance in two passes as the reference takes it (mean of
+  the squares; mean of the centred squares), cast back to the input's type.
+- ``Embedding``: a (vocab, d) table drawn normal * 0.02.
+
+``init_`` draws the reference's law from an explicit generator. The
+numbers differ from the reference's threefry draws;
+``interop.recsys_params_from_reference`` carries the reference's own
+weights across. ``nn.Linear`` keeps its weight as (out, in), the
+transpose of the reference's ``w``. RoPE and ``chunked_attention`` are
+ROADMAP item 14b.
 """
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Callable, Sequence
 
 import torch
 from torch import nn
@@ -19,22 +30,45 @@ from torch import nn
 from repro_torch.common.device import resolve_device
 
 
+def _uniform_(weight, generator: torch.Generator, d_in: int):
+    scale = 1.0 / math.sqrt(d_in)
+    return weight.uniform_(-scale, scale, generator=generator)
+
+
+class Dense(nn.Module):
+    """``dense_apply``: ``x @ w`` with no bias; ``weight`` is (d_out, d_in)."""
+
+    def __init__(self, d_in: int, d_out: int, *, device="cuda"):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty((d_out, d_in), device=resolve_device(device)))
+
+    @torch.no_grad()
+    def init_(self, generator: torch.Generator) -> "Dense":
+        _uniform_(self.weight, generator, self.weight.shape[1])
+        return self
+
+    def forward(self, x):
+        return x @ self.weight.T.to(x.dtype)
+
+
 class MLP(nn.Module):
-    def __init__(self, dims: Sequence[int], *, final_act: bool = False, device="cuda"):
+    def __init__(self, dims: Sequence[int], *, final_act: bool = False, bias: bool = True,
+                 act: Callable = torch.relu, device="cuda"):
         super().__init__()
         device = resolve_device(device)
         # skip_init: no draw from torch's global generator; init_ fills them.
         self.layers = nn.ModuleList(
-            nn.utils.skip_init(nn.Linear, a, b, device=device)
+            nn.utils.skip_init(nn.Linear, a, b, bias=bias, device=device)
             for a, b in zip(dims[:-1], dims[1:]))
         self.final_act = final_act
+        self.act = act
 
     @torch.no_grad()
     def init_(self, generator: torch.Generator) -> "MLP":
         for layer in self.layers:
-            scale = 1.0 / math.sqrt(layer.in_features)
-            layer.weight.uniform_(-scale, scale, generator=generator)
-            layer.bias.zero_()
+            _uniform_(layer.weight, generator, layer.in_features)
+            if layer.bias is not None:
+                layer.bias.zero_()
         return self
 
     def forward(self, x):
@@ -42,5 +76,51 @@ class MLP(nn.Module):
         for i, layer in enumerate(self.layers):
             x = layer(x)
             if i < n - 1 or self.final_act:
-                x = torch.relu(x)
+                x = self.act(x)
         return x
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, d: int, *, eps: float = 1e-6, device="cuda"):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones((d,), device=resolve_device(device)))
+        self.eps = eps
+
+    def forward(self, x):
+        x32 = x.float()
+        var = (x32 * x32).mean(-1, keepdim=True)
+        y = x32 * torch.rsqrt(var + self.eps)
+        return (y * self.scale.float()).to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, d: int, *, eps: float = 1e-5, device="cuda"):
+        super().__init__()
+        device = resolve_device(device)
+        self.scale = nn.Parameter(torch.ones((d,), device=device))
+        self.bias = nn.Parameter(torch.zeros((d,), device=device))
+        self.eps = eps
+
+    def forward(self, x):
+        x32 = x.float()
+        mu = x32.mean(-1, keepdim=True)
+        centred = x32 - mu
+        var = (centred * centred).mean(-1, keepdim=True)
+        y = centred * torch.rsqrt(var + self.eps)
+        return (y * self.scale.float() + self.bias.float()).to(x.dtype)
+
+
+class Embedding(nn.Module):
+    """``embedding_apply``: rows of ``table`` (vocab, d) at ``ids``."""
+
+    def __init__(self, vocab: int, d: int, *, device="cuda"):
+        super().__init__()
+        self.table = nn.Parameter(torch.empty((vocab, d), device=resolve_device(device)))
+
+    @torch.no_grad()
+    def init_(self, generator: torch.Generator) -> "Embedding":
+        self.table.normal_(generator=generator).mul_(0.02)
+        return self
+
+    def forward(self, ids):
+        return self.table[ids.long()]

@@ -1,31 +1,46 @@
-"""The two-tower retrieval model's serving path (port of
-``repro.models.recsys.models``: ``RecsysConfig``, ``embedding_bag_sum``
-and the two-tower functions).
+"""RecSys models of the port (port of ``repro.models.recsys.models``):
+``RecsysConfig``, DLRM, DeepFM and the two-tower retrieval model, with their
+losses.
 
-The user tower reads the user's row and the bag of the user's item
-history, the item tower the item's row; both end in a ReLU MLP and an L2
-normalisation, so a dot product of their outputs is a cosine and
-inner-product order equals L2 order (what lets an L2 proximity graph
-serve this MIPS). The history bag is the ``embedding_bag`` kernel
-(``kernels/embedding_bag.py``), the TPU package's hot path of this lookup.
-The tower products and ``u @ cand.T`` are plain float32 products
-(``nn.Linear``, ``torch.matmul``), as the reference leaves them to XLA:
-they must run with TF32 off on the card.
+- ``DLRM`` (MLPerf): a bottom MLP over the dense features (ReLU after its
+  last layer too), one row gather a sparse field (``_lookup``), the dot
+  interaction of the 27 vectors by ``bmm`` and its strict lower triangle
+  (``torch.tril_indices(k=-1)``, the order of ``jnp.tril_indices``), then
+  the top MLP; ``dlrm_loss`` is the mean ``_bce`` of its logits.
+- ``DeepFM``: the FM term 0.5 ((sum v)^2 - sum v^2), width-1 linear
+  tables, the deep MLP over the flattened embeddings and a bias.
+- ``TwoTower``: the user tower reads the user's row and the bag of the
+  user's item history, the item tower the item's row; both end in a ReLU
+  MLP and an L2 normalisation, so a dot product of their outputs is a
+  cosine and inner-product order equals L2 order (what lets an L2
+  proximity graph serve this MIPS). The history bag is the
+  ``embedding_bag`` kernel (``kernels/embedding_bag.py``), the TPU
+  package's hot path of this lookup, and its gradient the
+  ``embedding_bag_backward`` kernel. ``two_tower_loss`` is the in-batch
+  sampled softmax; past ``neg_chunk`` users its logsumexp is streamed
+  over chunks of negatives, each chunk recomputed in the backward
+  (``torch.utils.checkpoint``), so the logits in memory stay (B,
+  neg_chunk).
 
-Serving only: the model's tensors do not require gradients. The
-reference's ``mi`` (mesh) argument survives only where it changes the
-computation: ``score_candidates``'s two-phase top-k over a device mesh
-(``distributed/meshinfo.py``); elsewhere its layout constraints do nothing
-on one controller. DLRM, DeepFM, SASRec and the training loss are not
-ported (ROADMAP item 14).
+Every model is trainable: its parameters require gradients. Serving
+calls (``archs/recsys.py``) run under ``torch.inference_mode``. Products
+are plain float32 products (``nn.Linear``, ``torch.bmm``,
+``torch.matmul``), as the reference leaves them to XLA: they must run
+with TF32 off on the card. The reference's ``mi`` (mesh) argument
+survives only where it changes the computation: ``score_candidates``'s
+two-phase top-k over a device mesh (``distributed/meshinfo.py``);
+elsewhere its layout constraints do nothing on one controller. SASRec is
+ROADMAP item 14b.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Tuple
+import math
+from typing import Any, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.device import check_generator, resolve_device
 from repro_torch.kernels.embedding_bag import embedding_bag
@@ -33,6 +48,7 @@ from repro_torch.models.common.modules import MLP
 
 VOCAB_PAD = 256  # tables are padded to a multiple of this many rows
 FILL_CHUNK_ELEMS = 1 << 28  # elements of one normal_ call when filling a table
+NEG_CHUNK = 4096  # negatives a chunk of the streamed logsumexp (two_tower_loss)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +86,110 @@ def embedding_bag_sum(table, ids):
     return embedding_bag(table, ids, mode="sum")
 
 
+def _tables(cfg: RecsysConfig, vocabs: Sequence[int], dim: int, device) -> nn.ParameterDict:
+    """Tables ``t0``, ``t1``, ... of (padded vocab, dim), uninitialised."""
+    return nn.ParameterDict({
+        f"t{i}": nn.Parameter(torch.empty((cfg.padded_vocab(v, VOCAB_PAD), dim),
+                                          dtype=cfg.param_dtype, device=device))
+        for i, v in enumerate(vocabs)})
+
+
+def _fill_tables_(tables: nn.ParameterDict, generator: torch.Generator, dim: int) -> None:
+    """``_tables_init``'s law: normal / sqrt(dim), tables in field order."""
+    for i in range(len(tables)):
+        fill_normal_(tables[f"t{i}"], generator, 1.0 / math.sqrt(dim))
+
+
+def _lookup(tables: nn.ParameterDict, ids):
+    """ids (B, F) -> (B, F, D): one gather per field table."""
+    return torch.stack([tables[f"t{i}"].index_select(0, ids[:, i].long())
+                        for i in range(ids.shape[1])], dim=1)
+
+
+def _bce(logit, label):
+    """max(logit, 0) - logit * label + log1p(exp(-|logit|)); ``torch.maximum``
+    splits the gradient of a tie as ``jnp.maximum`` does."""
+    return (torch.maximum(logit, logit.new_zeros(())) - logit * label
+            + torch.log1p(torch.exp(-logit.abs())))
+
+
+def _mean_bce(logit, label):
+    loss = _bce(logit.float(), label.float()).mean()
+    return loss, {"loss": loss}
+
+
+class DLRM(nn.Module):
+    """Parameters as in ``dlrm_init``: ``tables`` t0..t{F-1} (padded vocab,
+    D), ``bot`` (n_dense -> bot_mlp) and ``top`` (F + 1 choose 2 + bot_mlp[-1]
+    -> top_mlp). Built uninitialised; fill it with ``dlrm_init`` or
+    ``interop.recsys_params_from_reference``."""
+
+    def __init__(self, cfg: RecsysConfig, device="cuda"):
+        super().__init__()
+        if cfg.model != "dlrm":
+            raise ValueError(f"{cfg.name} is a {cfg.model} config, not dlrm")
+        device = resolve_device(device)
+        self.cfg = cfg
+        n_f = len(cfg.vocab_sizes) + 1  # + the dense projection
+        n_inter = n_f * (n_f - 1) // 2
+        self.tables = _tables(cfg, cfg.vocab_sizes, cfg.embed_dim, device)
+        self.bot = MLP((cfg.n_dense,) + tuple(cfg.bot_mlp), final_act=True, device=device)
+        self.top = MLP((n_inter + cfg.bot_mlp[-1],) + tuple(cfg.top_mlp), device=device)
+
+    def forward(self, batch):
+        """{"dense": (B, n_dense) float32, "sparse": (B, F) int32} -> (B,) logits."""
+        cd = self.cfg.compute_dtype
+        x0 = self.bot(batch["dense"].to(cd))  # (B, D)
+        emb = _lookup(self.tables, batch["sparse"]).to(cd)  # (B, F, D)
+        z = torch.cat([x0[:, None], emb], dim=1)  # (B, F + 1, D)
+        inter = torch.bmm(z, z.transpose(1, 2))  # (B, F + 1, F + 1) dot interaction
+        n_f = z.shape[1]
+        iu, ju = torch.tril_indices(n_f, n_f, -1, device=z.device)
+        top_in = torch.cat([x0, inter[:, iu, ju]], dim=-1)
+        return self.top(top_in)[..., 0]
+
+
+def dlrm_loss(model: DLRM, batch):
+    """(mean binary cross-entropy of the logits against ``batch["label"]``,
+    {"loss": it})."""
+    return _mean_bce(model(batch), batch["label"])
+
+
+class DeepFM(nn.Module):
+    """Parameters as in ``deepfm_init``: ``tables`` (padded vocab, D),
+    ``linear`` (padded vocab, 1), ``deep`` (F * D -> mlp -> 1) and a scalar
+    ``bias``."""
+
+    def __init__(self, cfg: RecsysConfig, device="cuda"):
+        super().__init__()
+        if cfg.model != "deepfm":
+            raise ValueError(f"{cfg.name} is a {cfg.model} config, not deepfm")
+        device = resolve_device(device)
+        self.cfg = cfg
+        n_f = len(cfg.vocab_sizes)
+        self.tables = _tables(cfg, cfg.vocab_sizes, cfg.embed_dim, device)
+        self.linear = _tables(cfg, cfg.vocab_sizes, 1, device)
+        self.deep = MLP((n_f * cfg.embed_dim,) + tuple(cfg.mlp) + (1,), device=device)
+        self.bias = nn.Parameter(torch.zeros((), dtype=cfg.param_dtype, device=device))
+
+    def forward(self, batch):
+        """{"sparse": (B, F) int32} -> (B,) logits."""
+        cd = self.cfg.compute_dtype
+        sparse = batch["sparse"]
+        emb = _lookup(self.tables, sparse).to(cd)  # (B, F, D)
+        lin = _lookup(self.linear, sparse)[..., 0].to(cd)  # (B, F)
+        # FM second order: 0.5 * ((sum v)^2 - sum v^2)
+        s = emb.sum(1)
+        s2 = (emb * emb).sum(1)
+        fm = 0.5 * (s * s - s2).sum(-1)
+        deep = self.deep(emb.reshape(emb.shape[0], -1))[..., 0]
+        return fm + lin.sum(-1) + deep + self.bias.float()
+
+
+def deepfm_loss(model: DeepFM, batch):
+    return _mean_bce(model(batch), batch["label"])
+
+
 def _normalise(x):
     return x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + 1e-8)
 
@@ -97,16 +217,13 @@ class TwoTower(nn.Module):
 
         def table(v):
             shape = (cfg.padded_vocab(v, VOCAB_PAD), d)
-            return nn.Parameter(torch.empty(shape, dtype=cfg.param_dtype, device=device),
-                                requires_grad=False)
+            return nn.Parameter(torch.empty(shape, dtype=cfg.param_dtype, device=device))
 
         self.user_emb = table(cfg.user_vocab)
         self.item_emb = table(cfg.item_vocab)
         self.user_tower = MLP((2 * d,) + tuple(cfg.tower_mlp), device=device)
         self.item_tower = MLP((d,) + tuple(cfg.tower_mlp), device=device)
-        self.log_tau = nn.Parameter(torch.zeros((), dtype=torch.float32, device=device),
-                                    requires_grad=False)
-        self.requires_grad_(False)
+        self.log_tau = nn.Parameter(torch.zeros((), dtype=torch.float32, device=device))
 
     def user(self, batch):
         """{"user_id": (B,), "hist": (B, hist_len)} int32 -> (B, tower_mlp[-1])
@@ -121,6 +238,7 @@ class TwoTower(nn.Module):
         ie = self.item_emb.index_select(0, item_ids.long()).to(self.cfg.compute_dtype)
         return _normalise(self.item_tower(ie))
 
+    @torch.inference_mode()
     def score_candidates(self, batch, mesh=None, *, two_phase_topk: bool = True):
         """retrieval_cand: the users of ``batch`` against its (C, D)
         ``candidates`` -> (values, int32 ids) of the top min(100, C) scores,
@@ -130,7 +248,8 @@ class TwoTower(nn.Module):
         ``two_phase_topk``, the candidates split over the model axis: each
         shard takes its own top-k and only (P x k) score / id pairs reach
         the merge (``two_phase_topk``). Otherwise the single-device branch:
-        one product and one top-k."""
+        one product and one top-k. A serving call: it runs under
+        ``torch.inference_mode``."""
         u = self.user(batch)
         cand = batch["candidates"].to(u.dtype)
         c = cand.shape[0]
@@ -138,6 +257,45 @@ class TwoTower(nn.Module):
         if two_phase_topk and mesh is not None and mesh.tp_size > 1 and c % mesh.tp_size == 0:
             return two_phase_topk_scores(u, cand, mesh, k)
         return stable_topk(u @ cand.T, k)
+
+
+def _lse_chunk(m, lsum, u32, vc, tau):
+    """One step of the online logsumexp over a chunk of negatives."""
+    logits = (u32 @ vc.T) / tau  # (B, chunk)
+    m_new = torch.maximum(m, logits.amax(-1))
+    lsum = lsum * torch.exp(m - m_new) + torch.exp(logits - m_new[:, None]).sum(-1)
+    return m_new, lsum
+
+
+def two_tower_loss(model: TwoTower, batch, *, neg_chunk: int = NEG_CHUNK):
+    """In-batch sampled softmax (RecSys'19 two-tower retrieval objective):
+    mean over users of logsumexp_j(u_b . v_j / tau) - u_b . v_b / tau.
+
+    For B <= ``neg_chunk`` the (B, B) logits are taken whole. Past it (B a
+    multiple of ``neg_chunk``) the logsumexp is the reference's online
+    recurrence over chunks of ``neg_chunk`` negatives, each chunk under
+    ``torch.utils.checkpoint``: the backward recomputes its (B, neg_chunk)
+    logits instead of keeping all of them (17 GB in float32 at B = 65,536).
+    """
+    u = model.user(batch)  # (B, D)
+    v = model.item(batch["item_id"])  # (B, D)
+    tau = torch.maximum(torch.exp(model.log_tau), model.log_tau.new_tensor(1e-3))
+    b = u.shape[0]
+    diag = (u * v).sum(-1).float() / tau
+    if b <= neg_chunk:
+        lse = torch.logsumexp((u @ v.T).float() / tau, dim=-1)
+    else:
+        if b % neg_chunk:
+            raise ValueError(f"batch {b} is not a multiple of neg_chunk {neg_chunk}")
+        u32 = u.float()
+        vc_all = v.float().reshape(b // neg_chunk, neg_chunk, -1)
+        m = torch.full((b,), -math.inf, dtype=torch.float32, device=u.device)
+        lsum = torch.zeros((b,), dtype=torch.float32, device=u.device)
+        for vc in vc_all:
+            m, lsum = checkpoint(_lse_chunk, m, lsum, u32, vc, tau, use_reentrant=False)
+        lse = m + torch.log(torch.maximum(lsum, lsum.new_tensor(1e-30)))
+    loss = (lse - diag).mean()
+    return loss, {"loss": loss}
 
 
 def two_phase_topk_scores(u, cand, mesh, k: int):
@@ -194,4 +352,30 @@ def two_tower_init(generator: torch.Generator, cfg: RecsysConfig, device="cuda")
     fill_normal_(model.item_emb, generator, 0.02)
     model.user_tower.init_(generator)
     model.item_tower.init_(generator)
+    return model
+
+
+def dlrm_init(generator: torch.Generator, cfg: RecsysConfig, device="cuda") -> DLRM:
+    """A ``DLRM`` on ``device`` with the reference's init laws, drawn from
+    ``generator``: the tables normal / sqrt(D) in field order, then the
+    bottom and top MLPs (``MLP.init_``)."""
+    dev = resolve_device(device)
+    check_generator(generator, dev)
+    model = DLRM(cfg, device=dev)
+    _fill_tables_(model.tables, generator, cfg.embed_dim)
+    model.bot.init_(generator)
+    model.top.init_(generator)
+    return model
+
+
+def deepfm_init(generator: torch.Generator, cfg: RecsysConfig, device="cuda") -> DeepFM:
+    """A ``DeepFM`` on ``device`` with the reference's init laws: the tables
+    normal / sqrt(D), the linear tables normal (width 1), the deep MLP, the
+    bias 0."""
+    dev = resolve_device(device)
+    check_generator(generator, dev)
+    model = DeepFM(cfg, device=dev)
+    _fill_tables_(model.tables, generator, cfg.embed_dim)
+    _fill_tables_(model.linear, generator, 1)
+    model.deep.init_(generator)
     return model

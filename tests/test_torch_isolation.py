@@ -1,9 +1,10 @@
 """The port stands alone: no file under src/repro_torch/ nor chip_smoke.py
 imports jax, jaxlib or the reference package, importing the port leaves
 jax out of sys.modules, tensor-creating entry points without ``device=``
-(``TwoTower`` and ``MLP`` too) raise where there is no CUDA device instead
-of dropping to the CPU, and no module says a path waits for ROADMAP item
-11b or 12 (both are ported)."""
+(``TwoTower``, ``DLRM``, ``DeepFM``, ``MLP``, the recsys batches, inits,
+interop and cells too) raise where there is no CUDA device instead of
+dropping to the CPU, and no module says a path waits for ROADMAP item 11b
+or 12 (both are ported)."""
 import ast
 import pathlib
 import subprocess
@@ -17,21 +18,25 @@ from repro_torch.core.queue import queue_init
 from repro_torch.core.visited import visited_init
 from repro_torch.data import make_labeled_corpus
 from repro_torch.graph import build_index, build_partitioned_index, nn_descent
+from repro_torch.archs import get_arch
 from repro_torch.archs.recsys import shape_batch
-from repro_torch.configs import smoke_two_tower
-from repro_torch.data import two_tower_batch
+from repro_torch.configs import smoke_deepfm, smoke_dlrm, smoke_two_tower
+from repro_torch.data import deepfm_batch, dlrm_batch, two_tower_batch
 from repro_torch.interop import (
+    adamw_state_from_reference,
     from_reference_arrays,
     pq_index_from_reference,
+    recsys_params_from_reference,
     streaming_index_from_reference,
     two_tower_params_from_reference,
 )
 from repro_torch.distributed import single_device_meshinfo
 from repro_torch.launch import serve
 from repro_torch.launch.mesh import make_test_mesh
-from repro_torch.models.common.modules import MLP
-from repro_torch.models.recsys import two_tower_init
+from repro_torch.models.common.modules import MLP, Dense, Embedding, LayerNorm, RMSNorm
+from repro_torch.models.recsys import DLRM, DeepFM, deepfm_init, dlrm_init, two_tower_init
 from repro_torch.models.recsys.models import TwoTower
+from repro_torch.train import reference_layout
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro")
@@ -68,7 +73,11 @@ def test_no_reference_imports():
             "obs/http.py", "serving/replicas.py", "core/distributed.py",
             "distributed/__init__.py", "distributed/meshinfo.py", "launch/mesh.py",
             "archs/airship.py", "tune/__init__.py", "tune/config.py", "tune/table.py",
-            "tune/sweep.py", "roofline/__init__.py", "roofline/model.py"} <= walked
+            "tune/sweep.py", "roofline/__init__.py", "roofline/model.py",
+            "train/__init__.py", "train/optimizer.py", "train/train_step.py",
+            "archs/base.py", "archs/recsys.py", "configs/__init__.py",
+            "models/common/modules.py", "models/recsys/models.py", "data/pipeline.py",
+            "common/distances.py", "kernels/embedding_bag.py", "interop.py"} <= walked
     bad = {str(p.relative_to(ROOT)): sorted(_imported_roots(p) & set(FORBIDDEN))
            for p in files if _imported_roots(p) & set(FORBIDDEN)}
     assert not bad, bad
@@ -128,6 +137,24 @@ def test_tensor_creators_default_to_cuda_and_raise_without_it():
         MLP((4, 2))
     assert TwoTower(cfg, device="cpu").item_emb.device.type == "cpu"
     assert MLP((4, 2), device="cpu").layers[0].weight.device.type == "cpu"
+    for module in (DLRM(smoke_dlrm(), device="cpu"), DeepFM(smoke_deepfm(), device="cpu")):
+        assert all(p.device.type == "cpu" for p in module.parameters())
+    for make in (lambda: DLRM(smoke_dlrm()), lambda: DeepFM(smoke_deepfm()),
+                 lambda: dlrm_init(g, smoke_dlrm()), lambda: deepfm_init(g, smoke_deepfm()),
+                 lambda: Dense(4, 2), lambda: RMSNorm(4), lambda: LayerNorm(4),
+                 lambda: Embedding(8, 2),
+                 lambda: dlrm_batch(0, 0, 4, 4, (10, 10)), lambda: deepfm_batch(0, 0, 4, (10,)),
+                 lambda: shape_batch(smoke_dlrm(), "train_batch"),
+                 lambda: get_arch("smoke-deepfm").make_cell("train_batch").make_inputs(0)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    dlrm = dlrm_init(g, smoke_dlrm(), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        recsys_params_from_reference(dlrm.state_dict(), smoke_dlrm())
+    state = {"m": {}, "v": {}, "count": 0}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        adamw_state_from_reference(state, dlrm)
+    assert reference_layout(dlrm)["bot.layers.0.weight"].shape == (4, 16)
     with pytest.raises(RuntimeError, match="CUDA"):
         make_test_mesh()
     with pytest.raises(RuntimeError, match="CUDA"):
