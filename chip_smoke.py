@@ -107,6 +107,31 @@ Phases, any failure exits non-zero:
      examples/s, every step's loss, peak device memory, launches) and
      `profile train_two_tower`; any loss not finite, any parameter leaf
      unchanged or any bag launch count off fails the run.
+  9. attention, SASRec and dense-GQA LM serving, after phase 8 (no ported
+     kernel lies on this path: the reference's attention is plain JAX).
+     9a: flash_attention (models/common/flash.py) forward and backward
+     against F.scaled_dot_product_attention (the yardstick, never the
+     path; causal, enable_gqa, gradients by torch.autograd.grad) in
+     float32 at granite's heads (B 1, S 4,096, H 32 / 8, dh 64, chunk 512)
+     and at SASRec's train batch (B 65,536, S 50, H 1, dh 50, chunk 50):
+     outputs within ATTN_OUT_TOL, gradients within ATTN_GRAD_RTOL of their
+     largest, card == CPU on a small case; one `attn {...}` line a shape
+     (CUDA events). 9b: SASRec at its published config (arXiv 1808.09781:
+     dim 50, 2 blocks, 1 head, seq 50, item_vocab 1M; nothing cut): 3
+     AdamW steps of train_batch at B 65,536 (finite losses, every leaf
+     moves), serve_p99 (512 x 100 candidates), serve_bulk (262,144 x 100)
+     and retrieval_cand (1 x 1,000,000); one `sasrec {...}` line each (wall
+     ending in a sync, users/s or examples/s, peak memory). 9c:
+     granite-3-2b at full width and depth (40 layers, bf16 weights from
+     --seed, 2.64e9 parameters): decode == teacher forcing at 2 layers of
+     its width in float32 (2e-3) and bf16 (0.1); prefill_32k at batch 1
+     (cut from 32), decode_32k at batch 16 (cut from 128; a 42.9 GB cache)
+     and long_500k as published (a 524,288-token cache, 42.9 GB), 8 decode
+     steps from random bf16 caches at the last 8 positions, one cache alive
+     at a time; every logit finite, the cache's data_ptr unchanged across
+     each step; one `lm {...}` line each (wall, tokens/s, peak memory,
+     kernel launches a step, the bound from lm_serve_bound) and `profile
+     decode_32k` / `profile long_500k`.
 
 Between 6 and 7, phase 6b, streaming and hybrid, over phase 6's corpus,
 exact index, queries and search parameters (attrs (n, 2) uniform from a
@@ -2829,10 +2854,11 @@ def knn_graph_recall(graph, exact, chunk=65536) -> float:
     return hits / int((exact >= 0).sum())
 
 
-def profile_batch(name, run) -> None:
+def profile_batch(name, run):
     """Device busy share of one batch and its costliest kernels, from a
-    torch.profiler trace (prints "not measured" where the trace has no
-    device events). The batch runs twice: the first, a warm-up step of the
+    torch.profiler trace (prints "not measured" and returns None where the
+    trace has no device events; else returns the traced batch's wall, its
+    device busy seconds and its kernel count). The batch runs twice: the first, a warm-up step of the
     profiler's schedule, is traced and discarded, so no kernel of the
     recorded batch falls before the trace is running (a trace started
     right at the batch lost its first kernels)."""
@@ -2859,7 +2885,7 @@ def profile_batch(name, run) -> None:
     busy_us = sum(us for _, us in by_name.values())
     if busy_us == 0:
         log(f"profile {name}: device time not measured (the trace holds no device events)")
-        return
+        return None
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
     log(f"profile {name}: wall {wall * 1e3:.1f} ms (profiler on), device busy "
         f"{busy_us / 1e3:.1f} ms = {busy_us / 1e6 / wall:.3f} of wall, "
@@ -2877,6 +2903,7 @@ def profile_batch(name, run) -> None:
                 f"{sum(n for n, _ in hits)} launches")
     if not found:
         log(f"profile {name}:   no ported kernel in the trace")
+    return dict(wall_s=wall, busy_s=busy_us / 1e6, kernels=sum(n for n, _ in by_name.values()))
 
 
 def two_tower_phase(args, dev, launch: LaunchCounts):
@@ -3265,6 +3292,314 @@ def train_phase(args, dev, launch: LaunchCounts) -> None:
     log(f"training: phase wall {time.perf_counter() - t_phase:.1f} s (host clock)")
 
 
+# --------------------------------------------------------------------------- phase 9
+# 9a: flash_attention against F.scaled_dot_product_attention at granite's
+# prefill heads (S cut to 4,096: SDPA's float32 math path holds the whole
+# (B, H, S, S) score matrix) and at SASRec's train batch.
+ATTN_SHAPES = {
+    "granite_4k": dict(b=1, s=4096, h=32, hkv=8, dh=64, chunk=512),
+    "sasrec_train": dict(b=65_536, s=50, h=1, hkv=1, dh=50, chunk=50),
+}
+ATTN_OUT_TOL = 1e-4  # absolute, on outputs of |v|-weighted means (values O(1))
+ATTN_GRAD_RTOL = 1e-4  # of each gradient's largest element
+SASREC_STEPS = 3
+SASREC_SERVE = ("serve_p99", "serve_bulk", "retrieval_cand")
+# 9c: granite-3-2b's serve cells. prefill_32k at batch 1 (at 32 one f32
+# score chunk is 68.7 GB), decode_32k at batch 16 (the cache 42.9 GB, 343.6
+# GB at 128), long_500k as published; 8 decode steps from random bf16
+# caches at the last 8 positions.
+LM_NAME = "granite-3-2b"
+LM_BATCH = {"prefill_32k": 1, "decode_32k": 16, "long_500k": 1}
+LM_DECODE_STEPS = 8
+LM_TF_TOKENS = 32  # teacher-forcing check: (2, 32) tokens at 2 layers of full width
+LM_TF_TOL = {"float32": 2e-3, "bfloat16": 0.1}  # abs on logits; 2e-3 is tests/test_models.py's
+
+
+def sdpa(q, k, v):
+    """The yardstick: one F.scaled_dot_product_attention call, causal, GQA,
+    on (B, S, H, dh) tensors."""
+    import torch.nn.functional as F
+
+    out = F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                         is_causal=True, enable_gqa=True)
+    return out.transpose(1, 2)
+
+
+def attention_phase(args, dev) -> None:
+    """9a: flash_attention forward and backward against SDPA in float32 at
+    the two shapes, and card == CPU on a small case; one `attn {...}` line
+    a shape."""
+    from repro_torch.models.common.flash import AttnMeta, flash_attention
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 91)
+    # card == CPU (2, 64, 4 heads over 2, dh 16, chunk 24: a padded tail)
+    small = [torch.randn(shape, generator=gen, device=dev)
+             for shape in ((2, 64, 4, 16), (2, 64, 2, 16), (2, 64, 2, 16), (2, 64, 4, 16))]
+    meta = AttnMeta(causal=True, q_offset=0, chunk=24, soft_cap=0.0)
+    errs = []
+    for d in (dev, torch.device("cpu")):
+        q, k, v, w = (t.to(d).requires_grad_(i < 3) for i, t in enumerate(small))
+        out = flash_attention(q, k, v, meta)
+        errs.append([out.detach().cpu()] + [g.cpu() for g in
+                                            torch.autograd.grad(out, (q, k, v), w)])
+    small_err = max(float((a - b).abs().max()) for a, b in zip(*errs))
+    check(small_err <= 2e-5, f"attn: flash_attention on the card differs from the CPU by "
+                             f"{small_err}")
+    log(f"attn: card == CPU on (2, 64, 4 / 2, 16), chunk 24, forward and gradients: max abs "
+        f"diff {small_err:.3e} (tolerance 2e-5)")
+    for name, sh in ATTN_SHAPES.items():
+        b, n, h, hkv, dh = sh["b"], sh["s"], sh["h"], sh["hkv"], sh["dh"]
+        q = torch.randn((b, n, h, dh), generator=gen, device=dev).requires_grad_()
+        k = torch.randn((b, n, hkv, dh), generator=gen, device=dev).requires_grad_()
+        v = torch.randn((b, n, hkv, dh), generator=gen, device=dev).requires_grad_()
+        dout = torch.randn((b, n, h, dh), generator=gen, device=dev)
+        meta = AttnMeta(causal=True, q_offset=0, chunk=sh["chunk"], soft_cap=0.0)
+
+        def flash(q, k, v):
+            return flash_attention(q, k, v, meta)
+
+        def fwd_bwd(fn):
+            def run(q, k, v, dout):
+                out = fn(q, k, v)
+                return torch.autograd.grad(out, (q, k, v), dout)
+            return run
+
+        got, want = flash(q, k, v), sdpa(q, k, v)
+        out_err = float((got - want).detach().abs().max())
+        g_got = torch.autograd.grad(got, (q, k, v), dout)
+        g_want = torch.autograd.grad(want, (q, k, v), dout)
+        grad_err = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                       for a, b in zip(g_got, g_want))
+        del got, want, g_got, g_want
+        check(out_err <= ATTN_OUT_TOL, f"attn {name}: flash_attention differs from SDPA by "
+                                       f"{out_err} (tolerance {ATTN_OUT_TOL})")
+        check(grad_err <= ATTN_GRAD_RTOL, f"attn {name}: gradients differ from SDPA's by "
+                                          f"{grad_err} of their largest (tolerance "
+                                          f"{ATTN_GRAD_RTOL})")
+        with torch.no_grad():
+            fwd_ms = events_ms(flash, (q, k, v), reps=3)
+            sdpa_fwd_ms = events_ms(sdpa, (q, k, v), reps=3)
+        bwd_ms = events_ms(fwd_bwd(flash), (q, k, v, dout), reps=3)
+        sdpa_bwd_ms = events_ms(fwd_bwd(sdpa), (q, k, v, dout), reps=3)
+        # the flash loop computes the whole rectangle, 4 b h s^2 dh operations
+        # forward; the causal function needs the lower triangle's, and q, k,
+        # v read and the output written once
+        flops = 4.0 * b * h * n * n * dh
+        fwd_bound = bound_ms(4.0 * b * n * dh * (2 * h + 2 * hkv), 2.0 * b * h * n * (n + 1) * dh)
+        row = dict(shape=name, b=b, s=n, h=h, hkv=hkv, dh=dh, chunk=sh["chunk"],
+                   max_abs_err=out_err, grad_rel_err=grad_err, flash_fwd_ms=fwd_ms,
+                   sdpa_fwd_ms=sdpa_fwd_ms, flash_fwd_bwd_ms=bwd_ms,
+                   sdpa_fwd_bwd_ms=sdpa_bwd_ms, fwd_ratio=fwd_ms / sdpa_fwd_ms,
+                   fwd_bound_ms=fwd_bound[0], fwd_bound_by=fwd_bound[1],
+                   fwd_tflops_rectangle=flops / fwd_ms / 1e9)
+        log(f"attn {json.dumps(row)}")
+        del q, k, v, dout
+        torch.cuda.empty_cache()
+
+
+def sasrec_phase(args, dev) -> None:
+    """9b: SASRec at its published config (arXiv 1808.09781; nothing cut):
+    3 AdamW steps of train_batch (B = 65,536), then serve_p99, serve_bulk
+    and retrieval_cand; one `sasrec {...}` line each."""
+    from repro_torch.archs import get_arch
+    from repro_torch.archs.recsys import shape_batch
+    from repro_torch.train import reference_layout
+
+    arch = get_arch("sasrec")
+    cfg = arch.cfg
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cell = arch.make_cell("train_batch")
+    t0 = time.perf_counter()
+    model, opt_state, batch = cell.make_inputs(args.seed, dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    views = reference_layout(model)
+    sums = {k: float(p.detach().sum(dtype=torch.float64)) for k, p in views.items()}
+    b = arch.shapes["train_batch"]["batch"]
+    walls, losses = [], []
+    for step in range(SASREC_STEPS):
+        if step:
+            batch = shape_batch(cfg, "train_batch", args.seed, step, shapes=arch.shapes,
+                                device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, opt_state, metrics = cell.fn(model, opt_state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+    unchanged = [k for k, p in views.items()
+                 if float(p.detach().sum(dtype=torch.float64)) == sums[k]]
+    warm = sum(walls[1:]) / len(walls[1:])
+    log("sasrec " + json.dumps(dict(
+        cell="train_batch", batch=b, steps=SASREC_STEPS, init_s=t_init, first_step_s=walls[0],
+        step_s_warm=warm, step_s=walls, examples_per_s=b / warm, loss=losses,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9, leaves=len(views))))
+    check(all(math.isfinite(x) for x in losses), "sasrec train_batch: a loss is not finite")
+    check(not unchanged, f"sasrec train_batch: parameters did not change: {unchanged}")
+    del opt_state, batch, metrics, views
+    for shape in SASREC_SERVE:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fn = arch.make_cell(shape).fn
+        batch = shape_batch(cfg, shape, args.seed, 0, shapes=arch.shapes, device=dev)
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            scores = fn(model, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        users = batch["seq"].shape[0]
+        check(tuple(scores.shape) == tuple(batch["candidates"].shape)
+              and bool(torch.isfinite(scores).all()), f"sasrec {shape}: scores of shape "
+                                                      f"{tuple(scores.shape)}, or not finite")
+        warm = min(walls[1:])
+        log("sasrec " + json.dumps(dict(
+            cell=shape, users=users, candidates=batch["candidates"].shape[1],
+            first_wall_s=walls[0], wall_s=warm, users_per_s=users / warm,
+            scored_per_s=scores.numel() / warm,
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9)))
+        del batch, scores
+    del model
+    log_memory("after phase 9b")
+
+
+def lm_arch(shape: str):
+    """granite-3-2b's LMArch with phase 9c's batch of ``shape``."""
+    from repro_torch.archs import get_arch
+    from repro_torch.archs.lm import LMArch
+
+    arch = get_arch(LM_NAME)
+    shapes = {k: dict(v, global_batch=LM_BATCH.get(k, v["global_batch"]))
+              for k, v in arch.shapes.items()}
+    return LMArch(arch.cfg, arch.optimizer_name, shapes, arch.grad_accum)
+
+
+def lm_teacher_forcing(args, dev) -> None:
+    """Decode equals teacher forcing on the card at 2 layers of granite's full
+    width, in float32 and in bf16: (2, LM_TF_TOKENS) tokens decoded one at
+    a time from a zero cache against forward_hidden @ lm_head at every
+    position."""
+    import dataclasses
+
+    from repro_torch.models.transformer import decode_step, forward_hidden, init_cache, init_params
+
+    base = dataclasses.replace(lm_arch("prefill_32k").cfg, n_layers=2)
+    toks = torch.randint(0, base.vocab_size, (2, LM_TF_TOKENS), dtype=torch.int32, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(args.seed + 7))
+    for dt in (torch.float32, torch.bfloat16):
+        cfg = dataclasses.replace(base, param_dtype=dt, compute_dtype=dt)
+        model = init_params(torch.Generator(device=dev).manual_seed(args.seed), cfg, device=dev)
+        with torch.inference_mode():
+            ref = model.lm_head(forward_hidden(model, toks)).float()
+            cache = init_cache(cfg, 2, LM_TF_TOKENS, device=dev)
+            outs = []
+            for t in range(LM_TF_TOKENS):
+                lg, cache = decode_step(model, cache, toks[:, t])
+                outs.append(lg)
+            err = float((torch.stack(outs, 1) - ref).abs().max())
+        tol = LM_TF_TOL[str(dt).split(".")[1]]
+        log(f"lm: decode == teacher forcing at 2 layers of {LM_NAME}'s width, {dt}: max abs "
+            f"diff {err:.3e} on logits up to {float(ref.abs().max()):.3f} (tolerance {tol})")
+        check(err <= tol, f"lm: decode differs from teacher forcing by {err} ({dt})")
+        del model, cache, ref, outs
+
+
+def lm_phase(args, dev) -> None:
+    """9c: granite-3-2b at full width and depth, bf16 weights from --seed:
+    prefill_32k (batch 1), decode_32k (batch 16) and long_500k (batch 1),
+    8 decode steps each from a random bf16 cache at its last 8 positions;
+    one `lm {...}` line a cell and `profile decode_32k`."""
+    from repro_torch.data import lm_batch
+    from repro_torch.models.transformer import init_params
+    from repro_torch.roofline.model import lm_serve_bound
+
+    lm_teacher_forcing(args, dev)
+    cfg = lm_arch("prefill_32k").cfg
+    t0 = time.perf_counter()
+    model = init_params(torch.Generator(device=dev).manual_seed(args.seed), cfg, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"lm: {LM_NAME} {n_params} parameters ({cfg.param_dtype}, "
+        f"{sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9:.3f} GB) drawn in "
+        f"{time.perf_counter() - t0:.2f} s; param_count() {cfg.param_count()}")
+    check(n_params == cfg.param_count(), "lm: the model's parameters differ from param_count()")
+
+    for shape in ("prefill_32k", "decode_32k", "long_500k"):
+        arch = lm_arch(shape)
+        sh = arch.shapes[shape]
+        b, n = sh["global_batch"], sh["seq_len"]
+        fn = arch.make_cell(shape).fn
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        if shape == "prefill_32k":
+            bound = lm_serve_bound(cfg, "prefill", b, n)
+            tokens = lm_batch(args.seed, 0, b, n, cfg.vocab_size, device=dev)["tokens"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = fn(model, tokens)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            check(tuple(logits.shape) == (b, cfg.vocab_padded)
+                  and logits.dtype == torch.float32 and bool(torch.isfinite(logits).all()),
+                  f"lm {shape}: logits of shape {tuple(logits.shape)} {logits.dtype}, or not "
+                  f"finite")
+            row = dict(cell=shape, batch=b, seq=n, layers=cfg.n_layers, wall_s=wall,
+                       tokens_per_s=b * n / wall)
+            del tokens, logits
+        else:
+            bound = lm_serve_bound(cfg, "decode", b, n)
+            cache = lm_cache(cfg, b, n, args.seed, dev)
+            ptrs = (cache["k"].data_ptr(), cache["v"].data_ptr())
+            tokens = lm_batch(args.seed, 1, b, LM_DECODE_STEPS, cfg.vocab_size,
+                              device=dev)["tokens"]
+            walls = []
+            for t in range(LM_DECODE_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, cache = fn(model, cache, tokens[:, t])
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                check(bool(torch.isfinite(logits).all())
+                      and tuple(logits.shape) == (b, cfg.vocab_padded),
+                      f"lm {shape}: step {t}'s logits are not finite or of shape "
+                      f"{tuple(logits.shape)}")
+                check((cache["k"].data_ptr(), cache["v"].data_ptr()) == ptrs,
+                      f"lm {shape}: the cache moved in step {t}")
+            check(int(cache["pos"]) == n, f"lm {shape}: pos {int(cache['pos'])} after the steps")
+            warm = sorted(walls[1:])[len(walls[1:]) // 2]
+            row = dict(cell=shape, batch=b, cache_len=n, cache_gb=2 * cache["k"].numel() * 2 / 1e9,
+                       steps=LM_DECODE_STEPS, first_step_s=walls[0], step_s_median=warm,
+                       step_s=walls, tokens_per_s=b / warm)
+            cache["pos"] = torch.tensor(n - 1, dtype=torch.int32, device=dev)
+            prof = profile_batch(shape, lambda: fn(model, cache, tokens[:, 0]))
+            row["launches_per_step"] = prof["kernels"] if prof else "not measured"
+            del cache, logits, tokens
+        row.update(peak_gb=torch.cuda.max_memory_allocated() / 1e9, bound_s=bound["bound_s"],
+                   bound_by=bound["bound_by"], bound_share=bound["bound_s"] / (
+                       row.get("wall_s") or row["step_s_median"]),
+                   flops_attn=bound["flops_attn"], flops_proj=bound["flops_proj"],
+                   hbm_bytes=bound["hbm_bytes"])
+        log(f"lm {json.dumps(row)}")
+        log_memory(f"after lm {shape}")
+    del model
+
+
+def lm_cache(cfg, b: int, n: int, seed: int, dev) -> dict:
+    """A decode cache of (L, b, n, Hkv, dh) bf16 k and v filled with normal
+    draws from ``seed``, at position n - LM_DECODE_STEPS."""
+    from repro_torch.models.transformer import init_cache
+
+    cache = init_cache(cfg, b, n, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    for key in ("k", "v"):
+        for layer in cache[key]:
+            layer.normal_(generator=gen)
+    cache["pos"].fill_(n - LM_DECODE_STEPS)
+    return cache
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1_000_000, help="corpus size (airship-sift1m: 1M)")
@@ -3281,6 +3616,8 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 products (phase 9's LM) accumulate in float32
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda", 0)
     log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}; "
@@ -3326,6 +3663,14 @@ def main() -> int:
     # the two-tower model
     bwd_err, bwd_timing = bag_backward_phase(args, dev)
     train_phase(args, dev, launch)
+    log_memory("after phase 8")
+    # 9. attention, SASRec and granite-3-2b serving (no ported kernel on
+    # this path: launch counts stay as phases 3-8 left them)
+    t9 = time.perf_counter()
+    attention_phase(args, dev)
+    sasrec_phase(args, dev)
+    lm_phase(args, dev)
+    log(f"phase 9: wall {time.perf_counter() - t9:.1f} s (host clock)")
 
     max_err.update(pq_err, l2_matmul=l2_err, embedding_bag=bag_err,
                    embedding_bag_backward=bwd_err)

@@ -5,8 +5,8 @@ plus a function that builds the step's inputs on a device.
 The reference's ``CellSpec`` also carries abstract input shapes and their
 PartitionSpecs, which its dry run lowers and compiles; the port runs
 eagerly on one controller, so ``make_inputs`` takes their place. Names the
-port lacks (SASRec, the LM and GNN archs, the AIRSHIP cells of the dry
-run) raise with the ROADMAP item that ports them.
+port lacks (the MLA / MoE LM archs, the GNN archs, the AIRSHIP cells of
+the dry run) raise with the ROADMAP item that ports them.
 """
 from __future__ import annotations
 

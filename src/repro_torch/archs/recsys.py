@@ -1,15 +1,17 @@
 """RecSys cells: train_batch / serve_p99 / serve_bulk / retrieval_cand (port
-of ``repro.archs.recsys``) for DLRM, DeepFM and the two-tower model.
+of ``repro.archs.recsys``) for DLRM, DeepFM, SASRec and the two-tower
+model.
 
 train_batch is one AdamW step (lr 1e-3, as the reference's
 ``make_cell``) of the model's loss through ``make_train_step``.
 serve_p99 and serve_bulk score rows: the two-tower model each user
 against the item of its row, sum(user . item(item_id)); DLRM and DeepFM
-sigmoid(logit) of each feature row. retrieval_cand is, for the two-tower
+sigmoid(logit) of each feature row; SASRec each sequence's last position
+against its 100 candidate items. retrieval_cand is, for the two-tower
 model, one user against 1M candidate item embeddings (the brute-force
-top-k that AIRSHIP's constrained graph search replaces) and, for DLRM
-and DeepFM, bulk scoring of ``n_candidates`` feature rows for one
-request. SASRec is ROADMAP item 14b.
+top-k that AIRSHIP's constrained graph search replaces), for SASRec one
+sequence against 1M candidate item ids and, for DLRM and DeepFM, bulk
+scoring of ``n_candidates`` feature rows for one request.
 """
 from __future__ import annotations
 
@@ -20,7 +22,13 @@ import torch
 
 from repro_torch.archs.base import Arch, CellSpec
 from repro_torch.common.device import resolve_device
-from repro_torch.data.pipeline import deepfm_batch, dlrm_batch, two_tower_batch
+from repro_torch.data.pipeline import (
+    deepfm_batch,
+    dlrm_batch,
+    sasrec_batch,
+    sasrec_serve_batch,
+    two_tower_batch,
+)
 from repro_torch.distributed.meshinfo import MeshInfo
 from repro_torch.models.recsys import models as rs
 from repro_torch.models.recsys.models import RecsysConfig, TwoTower
@@ -34,13 +42,16 @@ RECSYS_SHAPES: Dict[str, dict] = {
     "retrieval_cand": dict(kind="serve", batch=1, n_candidates=1_000_000),
 }
 
-_INIT = {"dlrm": rs.dlrm_init, "deepfm": rs.deepfm_init, "two_tower": rs.two_tower_init}
-_LOSS = {"dlrm": rs.dlrm_loss, "deepfm": rs.deepfm_loss, "two_tower": rs.two_tower_loss}
+_INIT = {"dlrm": rs.dlrm_init, "deepfm": rs.deepfm_init, "sasrec": rs.sasrec_init,
+         "two_tower": rs.two_tower_init}
+_LOSS = {"dlrm": rs.dlrm_loss, "deepfm": rs.deepfm_loss, "sasrec": rs.sasrec_loss,
+         "two_tower": rs.two_tower_loss}
+SASREC_CANDIDATES = 100  # candidates a sequence in serve_p99 / serve_bulk
 
 
 def _check_model(cfg: RecsysConfig) -> None:
     if cfg.model not in _INIT:
-        raise NotImplementedError(f"{cfg.model} is not ported yet (ROADMAP item 14b)")
+        raise ValueError(f"{cfg.name}: no recsys model {cfg.model!r}")
 
 
 def _shape(cfg: RecsysConfig, shape: str, shapes: Optional[Dict[str, dict]]) -> dict:
@@ -64,6 +75,13 @@ def serve_retrieval(model: TwoTower, batch: dict, mesh: Optional[MeshInfo] = Non
 
 
 @torch.inference_mode()
+def serve_sasrec(model, batch: dict):
+    """SASRec serving: (B, C) scores of each sequence's last position
+    against its candidates."""
+    return rs.sasrec_serve(model, batch)
+
+
+@torch.inference_mode()
 def serve_ranking(model, batch: dict):
     """DLRM / DeepFM serving: (B,) sigmoid of each feature row's logit."""
     return torch.sigmoid(model(batch))
@@ -77,6 +95,8 @@ def serve_fn(cfg: RecsysConfig, shape: str, shapes: Optional[Dict[str, dict]] = 
     sh = _shape(cfg, shape, shapes)
     if sh["kind"] == "train":
         raise ValueError(f"{shape} is a train shape: RecsysArch.make_cell builds its step")
+    if cfg.model == "sasrec":
+        return serve_sasrec
     if cfg.model != "two_tower":
         return serve_ranking
     if sh.get("n_candidates"):
@@ -89,12 +109,19 @@ def shape_batch(cfg: RecsysConfig, shape: str, seed: int = 0, step: int = 0, *,
                 device="cuda") -> dict:
     """The batch of ``shape`` from the model's generator at (seed, step) on
     ``device``: ``dlrm_batch`` / ``deepfm_batch`` (no label when serving;
-    retrieval_cand scores ``n_candidates`` rows) or ``two_tower_batch``,
-    whose retrieval_cand takes ``candidates`` ((n_candidates, D) item-tower
-    rows) in place of the item ids."""
+    retrieval_cand scores ``n_candidates`` rows), ``sasrec_batch`` (serving:
+    ``sasrec_serve_batch`` with ``n_candidates`` or 100 candidates a
+    sequence) or ``two_tower_batch``, whose retrieval_cand takes
+    ``candidates`` ((n_candidates, D) item-tower rows) in place of the item
+    ids."""
     sh = _shape(cfg, shape, shapes)
     dev = resolve_device(device)
     n_cand = sh.get("n_candidates", 0)
+    if cfg.model == "sasrec":
+        if sh["kind"] == "train":
+            return sasrec_batch(seed, step, sh["batch"], cfg.seq_len, cfg.item_vocab, device=dev)
+        return sasrec_serve_batch(seed, step, sh["batch"], cfg.seq_len, cfg.item_vocab,
+                                  n_cand or SASREC_CANDIDATES, device=dev)
     if cfg.model != "two_tower":
         b = n_cand or sh["batch"]
         if cfg.model == "dlrm":

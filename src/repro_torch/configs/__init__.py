@@ -1,12 +1,13 @@
 """Recsys configurations of the port (port of the recsys entries of
-``repro.configs.other_configs``), as ``RecsysConfig`` values, and the
-registry of archs under the reference's names
-(``repro/configs/__init__.py``). ``NOT_PORTED`` names the archs the port
-lacks and the ROADMAP item that ports each."""
+``repro.configs.other_configs``), as ``RecsysConfig`` values, the dense
+GQA LM configurations (``lm_configs.py``), and the registry of archs under
+the reference's names (``repro/configs/__init__.py``). ``NOT_PORTED``
+names the archs the port lacks and the ROADMAP item that ports each."""
 from __future__ import annotations
 
 from repro_torch.archs.base import register
 from repro_torch.archs.recsys import RecsysArch
+from repro_torch.configs import lm_configs as lm
 from repro_torch.models.recsys.models import RecsysConfig
 
 # MLPerf DLRM (Criteo 1TB) categorical vocab sizes: 26 fields.
@@ -70,6 +71,28 @@ def two_tower_retrieval() -> RecsysConfig:
     )
 
 
+def sasrec() -> RecsysConfig:
+    """[arXiv:1808.09781]: dim 50, 2 blocks, 1 head, seq 50; item vocab 1M
+    (industrial scale: the paper does not pin it), so that retrieval_cand's
+    1M candidates are defined."""
+    return RecsysConfig(
+        name="sasrec",
+        model="sasrec",
+        embed_dim=50,
+        seq_len=50,
+        n_blocks=2,
+        n_heads=1,
+        item_vocab=1_000_000,
+    )
+
+
+def smoke_sasrec() -> RecsysConfig:
+    return RecsysConfig(
+        name="smoke-sasrec", model="sasrec", embed_dim=16,
+        seq_len=10, n_blocks=2, n_heads=1, item_vocab=200,
+    )
+
+
 def smoke_dlrm() -> RecsysConfig:
     return RecsysConfig(
         name="smoke-dlrm", model="dlrm", embed_dim=8,
@@ -94,9 +117,8 @@ def smoke_two_tower() -> RecsysConfig:
 # The reference's registered names the port does not have, and the ROADMAP
 # item of each.
 NOT_PORTED = {
-    **dict.fromkeys(("sasrec", "smoke-sasrec"), "14b"),
-    **dict.fromkeys(("deepseek-v2-236b", "deepseek-v3-671b", "command-r-plus-104b",
-                     "command-r-35b", "granite-3-2b", "smoke-gqa", "smoke-mla-moe"), "14c"),
+    # MLA, MoE and MTP
+    **dict.fromkeys(("deepseek-v2-236b", "deepseek-v3-671b", "smoke-mla-moe"), "14c"),
     **dict.fromkeys(("mace", "smoke-mace"), "14d"),
     # the dry run's AIRSHIP cells; the serve path itself is archs/airship.py
     **dict.fromkeys(("airship-sift1m", "smoke-airship"), "14e"),
@@ -108,7 +130,13 @@ register("two-tower-retrieval", lambda: RecsysArch(two_tower_retrieval()))
 register("smoke-dlrm", lambda: RecsysArch(smoke_dlrm(), SMOKE_RECSYS_SHAPES))
 register("smoke-deepfm", lambda: RecsysArch(smoke_deepfm(), SMOKE_RECSYS_SHAPES))
 register("smoke-two-tower", lambda: RecsysArch(smoke_two_tower(), SMOKE_RECSYS_SHAPES))
+register("sasrec", lambda: RecsysArch(sasrec()))
+register("smoke-sasrec", lambda: RecsysArch(smoke_sasrec(), SMOKE_RECSYS_SHAPES))
+register("command-r-plus-104b", lm.command_r_plus_104b)
+register("command-r-35b", lm.command_r_35b)
+register("granite-3-2b", lm.granite_3_2b)
+register("smoke-gqa", lm.smoke_gqa)
 
 __all__ = ["CRITEO_VOCABS", "DEEPFM_VOCABS", "NOT_PORTED", "SMOKE_RECSYS_SHAPES", "deepfm",
-           "dlrm_mlperf", "smoke_deepfm", "smoke_dlrm", "smoke_two_tower",
-           "two_tower_retrieval"]
+           "dlrm_mlperf", "sasrec", "smoke_deepfm", "smoke_dlrm", "smoke_sasrec",
+           "smoke_two_tower", "two_tower_retrieval"]

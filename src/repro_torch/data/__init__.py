@@ -1,4 +1,11 @@
-from repro_torch.data.pipeline import deepfm_batch, dlrm_batch, two_tower_batch
+from repro_torch.data.pipeline import (
+    deepfm_batch,
+    dlrm_batch,
+    lm_batch,
+    sasrec_batch,
+    sasrec_serve_batch,
+    two_tower_batch,
+)
 from repro_torch.data.synthetic import (
     clustered_vectors,
     kmeans_labels,
@@ -12,8 +19,11 @@ __all__ = [
     "deepfm_batch",
     "dlrm_batch",
     "kmeans_labels",
+    "lm_batch",
     "make_labeled_corpus",
     "make_queries",
     "randomize_labels",
+    "sasrec_batch",
+    "sasrec_serve_batch",
     "two_tower_batch",
 ]

@@ -1,6 +1,6 @@
-"""Deterministic synthetic batches (port of ``repro.data.pipeline``: the
-DLRM, DeepFM and two-tower generators; the LM, SASRec and GNN ones are
-ROADMAP items 14b-14d).
+"""Deterministic synthetic batches (port of ``repro.data.pipeline``: the LM,
+DLRM, DeepFM, SASRec and two-tower generators; the GNN one is ROADMAP
+item 14d).
 
 Every batch is a pure function of (seed, step), drawn with numpy exactly
 as the reference draws it, so the port's batches equal the reference's
@@ -26,6 +26,14 @@ def _sparse(r: np.random.Generator, batch: int, vocabs) -> np.ndarray:
     return np.stack([r.integers(0, v, size=batch) for v in vocabs], axis=1)
 
 
+def lm_batch(seed: int, step: int, batch: int, seq: int, vocab: int, device="cuda") -> dict:
+    """{"tokens": (batch, seq) int32} on ``device``: a zipf(1.3) marginal
+    over the vocab, clamped at vocab - 1."""
+    dev = resolve_device(device)
+    z = _rng(seed, step).zipf(1.3, size=(batch, seq)).astype(np.int64)
+    return {"tokens": _tensor(np.minimum(z, vocab - 1), dev)}
+
+
 def dlrm_batch(seed: int, step: int, batch: int, n_dense: int, vocabs, device="cuda") -> dict:
     """{"dense": (batch, n_dense) float32 normal, "sparse": (batch, F) int32
     uniform in each field's vocab, "label": (batch,) float32 0 / 1} on
@@ -49,6 +57,35 @@ def deepfm_batch(seed: int, step: int, batch: int, vocabs, device="cuda") -> dic
     return {
         "sparse": _tensor(sparse, dev),
         "label": _tensor(r.integers(0, 2, size=batch), dev, np.float32),
+    }
+
+
+def sasrec_batch(seed: int, step: int, batch: int, seq: int, vocab: int, device="cuda") -> dict:
+    """{"seq", "pos", "neg"}: (batch, seq) int32 item ids in [1, vocab) on
+    ``device``; ``pos`` is ``seq`` shifted by one (the next item), ``neg``
+    drawn on its own."""
+    dev = resolve_device(device)
+    r = _rng(seed, step)
+    seqs = r.integers(1, vocab, size=(batch, seq + 1)).astype(np.int32)
+    return {
+        "seq": _tensor(seqs[:, :-1], dev),
+        "pos": _tensor(seqs[:, 1:], dev),
+        "neg": _tensor(r.integers(1, vocab, size=(batch, seq)), dev),
+    }
+
+
+def sasrec_serve_batch(seed: int, step: int, batch: int, seq: int, vocab: int,
+                       n_candidates: int, device="cuda") -> dict:
+    """{"seq": (batch, seq), "candidates": (batch, n_candidates)} int32 item
+    ids in [1, vocab) on ``device``: ``seq`` is ``sasrec_batch``'s at the
+    same (seed, step), the candidates are drawn after it. The reference
+    gives the serve cells' inputs as shapes only; this is the port's draw."""
+    dev = resolve_device(device)
+    r = _rng(seed, step)
+    seqs = r.integers(1, vocab, size=(batch, seq + 1)).astype(np.int32)
+    return {
+        "seq": _tensor(seqs[:, :-1], dev),
+        "candidates": _tensor(r.integers(1, vocab, size=(batch, n_candidates)), dev),
     }
 
 

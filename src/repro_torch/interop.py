@@ -3,7 +3,12 @@
 Tests build worlds with the JAX package, call ``np.asarray`` on its arrays
 and hand them here. uint32 words (tombstones, label words) are
 reinterpreted as int32 with ``.view(np.int32)``: the same bits, no change
-of value. Nothing of the JAX package is imported.
+of value. A bf16 array (``np.asarray`` of a JAX bf16 array, whose dtype
+is named "bfloat16") crosses as its uint16 bits viewed as
+``torch.bfloat16``. The reference stacks a model's layers on a leading
+axis (SASRec's ``blocks``, the LM's ``dense_layers``); where the port
+holds them as an ``nn.ModuleList`` they are unstacked in order. Nothing
+of the JAX package is imported.
 """
 from __future__ import annotations
 
@@ -11,12 +16,14 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.common.device import resolve_device
 from repro_torch.core.constraints import LabelSetConstraint, RangeConstraint
 from repro_torch.core.pq import PQIndex
 from repro_torch.core.types import Corpus, GraphIndex
-from repro_torch.models.recsys.models import DLRM, DeepFM, RecsysConfig, TwoTower
+from repro_torch.models.recsys.models import DLRM, DeepFM, RecsysConfig, SASRec, TwoTower
+from repro_torch.models.transformer.model import Transformer, TransformerConfig
 from repro_torch.streaming.slots import SlotPool, StreamingIndex
 from repro_torch.train.train_step import reference_layout
 
@@ -127,6 +134,28 @@ def streaming_index_from_reference(
     return index
 
 
+def _param_tensor(a, dev: torch.device) -> torch.Tensor:
+    """A leaf as a tensor of its own dtype: bf16 through its uint16 bits."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(a.view(np.uint16))).view(torch.bfloat16).to(dev)
+    return _tensor(a, np.float32, dev)
+
+
+def _unstacked(tree, model: nn.Module):
+    """``tree`` with each top-level entry that ``model`` holds as an
+    ``nn.ModuleList`` split along its leading (layer) axis into a list."""
+    def take(t, i):
+        return {k: take(v, i) for k, v in t.items()} if isinstance(t, dict) else t[i]
+
+    out = dict(tree)
+    for k, v in tree.items():
+        layers = getattr(model, k, None)
+        if isinstance(layers, nn.ModuleList) and isinstance(v, dict):
+            out[k] = [take(v, i) for i in range(len(layers))]
+    return out
+
+
 def _leaves(tree, path=()):
     """(path, array) of every leaf of a nested dict / list param tree."""
     if isinstance(tree, dict):
@@ -159,35 +188,58 @@ def _by_port_name(tree, name: str) -> dict:
     return out
 
 
-_MODELS = {"dlrm": DLRM, "deepfm": DeepFM, "two_tower": TwoTower}
+_MODELS = {"dlrm": DLRM, "deepfm": DeepFM, "sasrec": SASRec, "two_tower": TwoTower}
 
 
-def recsys_params_from_reference(params, cfg: RecsysConfig, *, device="cuda"):
-    """The reference's recsys param tree as numpy arrays (``dlrm_init``,
-    ``deepfm_init`` or ``two_tower_init``'s) -> the port's ``DLRM``,
-    ``DeepFM`` or ``TwoTower`` for ``cfg`` on ``device``. Each leaf is
-    copied into the parameter's view in the reference's layout
-    (``train.reference_layout``), so the reference's (in, out) ``w`` lands
-    in ``nn.Linear.weight`` as ``w.T``. Every parameter must be given, with
-    its shape."""
-    if cfg.model not in _MODELS:
-        raise ValueError(f"{cfg.name}: no port of a {cfg.model} model")
-    dev = resolve_device(device)
-    model = _MODELS[cfg.model](cfg, device=dev)
+def _load(model: nn.Module, params, name: str, dev: torch.device) -> nn.Module:
+    """Copy each leaf of the reference's tree into ``model``'s parameter view
+    in the reference's layout (``train.reference_layout``), so the
+    reference's (in, out) ``w`` lands in a (out, in) ``weight`` as ``w.T``.
+    Every parameter must be given, with its shape and dtype."""
     views = reference_layout(model)
-    leaves = _by_port_name(params, cfg.name)
+    leaves = _by_port_name(_unstacked(params, model), name)
     if set(leaves) != set(views):
-        raise ValueError(f"{cfg.name}: the reference's leaves {sorted(set(leaves) - set(views))} "
+        raise ValueError(f"{name}: the reference's leaves {sorted(set(leaves) - set(views))} "
                          f"have no parameter, the parameters {sorted(set(views) - set(leaves))} "
                          f"no leaf")
     with torch.no_grad():
         for k, view in views.items():
-            got = _tensor(leaves[k], np.float32, dev)
-            if got.shape != view.shape:
-                raise ValueError(f"{k}: shape {tuple(got.shape)} (the reference's layout), "
-                                 f"{cfg.name} has {tuple(view.shape)}")
+            got = _param_tensor(leaves[k], dev)
+            if got.shape != view.shape or got.dtype != view.dtype:
+                raise ValueError(f"{k}: {got.dtype} {tuple(got.shape)} (the reference's layout), "
+                                 f"{name} has {view.dtype} {tuple(view.shape)}")
             view.copy_(got)
     return model
+
+
+def recsys_params_from_reference(params, cfg: RecsysConfig, *, device="cuda"):
+    """The reference's recsys param tree as numpy arrays (``dlrm_init``,
+    ``deepfm_init``, ``sasrec_init`` or ``two_tower_init``'s) -> the port's
+    ``DLRM``, ``DeepFM``, ``SASRec`` or ``TwoTower`` for ``cfg`` on
+    ``device``."""
+    if cfg.model not in _MODELS:
+        raise ValueError(f"{cfg.name}: no port of a {cfg.model} model")
+    dev = resolve_device(device)
+    return _load(_MODELS[cfg.model](cfg, device=dev), params, cfg.name, dev)
+
+
+def sasrec_params_from_reference(params, cfg: RecsysConfig, *, device="cuda") -> SASRec:
+    """The reference's SASRec param tree as numpy arrays (``items``, ``pos``,
+    ``blocks`` stacked on a leading axis, ``final_ln``) -> a trainable
+    ``SASRec`` for ``cfg`` on ``device``, one block a stacked entry."""
+    if cfg.model != "sasrec":
+        raise ValueError(f"{cfg.name} is a {cfg.model} config, not sasrec")
+    return recsys_params_from_reference(params, cfg, device=device)
+
+
+def lm_params_from_reference(params, cfg: TransformerConfig, *, device="cuda") -> Transformer:
+    """The reference's transformer param tree as numpy arrays
+    (``init_params``': ``embed``, ``final_norm``, ``lm_head`` and the
+    stacked ``dense_layers``; bf16 leaves as ml_dtypes bfloat16 arrays) ->
+    the port's ``Transformer`` for ``cfg`` on ``device``, layer l of the
+    stack in ``dense_layers[l]``."""
+    dev = resolve_device(device)
+    return _load(Transformer(cfg, device=dev), params, cfg.name, dev)
 
 
 def two_tower_params_from_reference(params, cfg: RecsysConfig, *, device="cuda") -> TwoTower:
@@ -203,13 +255,14 @@ def two_tower_params_from_reference(params, cfg: RecsysConfig, *, device="cuda")
 def adamw_state_from_reference(state, model, *, device="cuda") -> dict:
     """The reference's AdamW state ({"m": tree, "v": tree, "count": int})
     as numpy arrays -> the port's, keyed by ``model``'s parameter names in
-    the reference's layout (``train.optimizer.adamw``), on ``device``: a
-    step can start from the reference's state mid-run."""
+    the reference's layout (``train.optimizer.adamw``; stacked layers split
+    as the parameters are), on ``device``: a step can start from the
+    reference's state mid-run."""
     dev = resolve_device(device)
     views = reference_layout(model)
     out = {"count": torch.tensor(int(np.asarray(state["count"])), dtype=torch.int32, device=dev)}
     for key in ("m", "v"):
-        leaves = _by_port_name(state[key], key)
+        leaves = _by_port_name(_unstacked(state[key], model), key)
         if set(leaves) != set(views):
             raise ValueError(f"state {key}: leaves {sorted(leaves)} differ from the model's "
                              f"parameters {sorted(views)}")

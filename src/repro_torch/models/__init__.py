@@ -1,2 +1,3 @@
-"""Model families of the port (port of ``repro.models``): the two-tower
-recsys model's serving path so far."""
+"""Model families of the port (port of ``repro.models``): the shared
+modules and flash attention (``common``), the recsys models (``recsys``)
+and the dense GQA transformer (``transformer``)."""

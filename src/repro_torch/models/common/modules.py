@@ -16,8 +16,13 @@ Each reference ``*_init`` / ``*_apply`` pair is an ``nn.Module``:
 numbers differ from the reference's threefry draws;
 ``interop.recsys_params_from_reference`` carries the reference's own
 weights across. ``nn.Linear`` keeps its weight as (out, in), the
-transpose of the reference's ``w``. RoPE and ``chunked_attention`` are
-ROADMAP item 14b.
+transpose of the reference's ``w``. ``Dense``, the norms and
+``Embedding`` take a ``dtype`` (float32 by default; the LM keeps bf16).
+
+RoPE (``rope_frequencies``, ``apply_rope``) turns pairs of the two
+halves of the last axis by angles computed in float32, as the reference
+does. ``chunked_attention`` is the online-softmax attention of
+``models/common/flash.py``.
 """
 from __future__ import annotations
 
@@ -38,9 +43,10 @@ def _uniform_(weight, generator: torch.Generator, d_in: int):
 class Dense(nn.Module):
     """``dense_apply``: ``x @ w`` with no bias; ``weight`` is (d_out, d_in)."""
 
-    def __init__(self, d_in: int, d_out: int, *, device="cuda"):
+    def __init__(self, d_in: int, d_out: int, *, dtype=torch.float32, device="cuda"):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty((d_out, d_in), device=resolve_device(device)))
+        self.weight = nn.Parameter(torch.empty((d_out, d_in), dtype=dtype,
+                                               device=resolve_device(device)))
 
     @torch.no_grad()
     def init_(self, generator: torch.Generator) -> "Dense":
@@ -81,9 +87,9 @@ class MLP(nn.Module):
 
 
 class RMSNorm(nn.Module):
-    def __init__(self, d: int, *, eps: float = 1e-6, device="cuda"):
+    def __init__(self, d: int, *, eps: float = 1e-6, dtype=torch.float32, device="cuda"):
         super().__init__()
-        self.scale = nn.Parameter(torch.ones((d,), device=resolve_device(device)))
+        self.scale = nn.Parameter(torch.ones((d,), dtype=dtype, device=resolve_device(device)))
         self.eps = eps
 
     def forward(self, x):
@@ -94,11 +100,11 @@ class RMSNorm(nn.Module):
 
 
 class LayerNorm(nn.Module):
-    def __init__(self, d: int, *, eps: float = 1e-5, device="cuda"):
+    def __init__(self, d: int, *, eps: float = 1e-5, dtype=torch.float32, device="cuda"):
         super().__init__()
         device = resolve_device(device)
-        self.scale = nn.Parameter(torch.ones((d,), device=device))
-        self.bias = nn.Parameter(torch.zeros((d,), device=device))
+        self.scale = nn.Parameter(torch.ones((d,), dtype=dtype, device=device))
+        self.bias = nn.Parameter(torch.zeros((d,), dtype=dtype, device=device))
         self.eps = eps
 
     def forward(self, x):
@@ -113,9 +119,10 @@ class LayerNorm(nn.Module):
 class Embedding(nn.Module):
     """``embedding_apply``: rows of ``table`` (vocab, d) at ``ids``."""
 
-    def __init__(self, vocab: int, d: int, *, device="cuda"):
+    def __init__(self, vocab: int, d: int, *, dtype=torch.float32, device="cuda"):
         super().__init__()
-        self.table = nn.Parameter(torch.empty((vocab, d), device=resolve_device(device)))
+        self.table = nn.Parameter(torch.empty((vocab, d), dtype=dtype,
+                                              device=resolve_device(device)))
 
     @torch.no_grad()
     def init_(self, generator: torch.Generator) -> "Embedding":
@@ -124,3 +131,45 @@ class Embedding(nn.Module):
 
     def forward(self, ids):
         return self.table[ids.long()]
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+def rope_frequencies(d_rot: int, theta: float = 10_000.0, device="cuda"):
+    """(d_rot / 2,) float32 inverse frequencies 1 / theta^(2i / d_rot)."""
+    exps = torch.arange(0, d_rot, 2, dtype=torch.float32, device=resolve_device(device)) / d_rot
+    return 1.0 / (theta ** exps)
+
+
+def rotate_halves(x, cos, sin):
+    """[x1 cos - x2 sin, x2 cos + x1 sin] over the two halves of the last
+    axis, in float32, cast back to ``x``'s dtype."""
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def apply_rope(x, positions, theta: float = 10_000.0):
+    """x: (..., S, H, d_rot); positions: (S,) -- head axis required."""
+    freqs = rope_frequencies(x.shape[-1], theta, device=x.device)
+    angles = (positions[:, None].float() * freqs)[:, None, :]  # (S, 1, d_rot / 2)
+    return rotate_halves(x, torch.cos(angles), torch.sin(angles))
+
+
+# ---------------------------------------------------------------------------
+# Memory-bounded attention: the online-softmax flash attention with its
+# FA2 backward (models/common/flash.py).
+# ---------------------------------------------------------------------------
+def chunked_attention(q, k, v, *, causal: bool, q_offset: int = 0, chunk: int = 512,
+                      logit_soft_cap: float = 0.0):
+    """q: (B, Sq, H, dh), k / v: (B, Skv, Hkv, dh[v]) -> (B, Sq, H, dhv).
+
+    GQA-aware (H % Hkv == 0) online-softmax attention with a
+    FlashAttention-2 backward; never materialises (Sq, Skv) scores. The
+    reference's ``mi`` only constrains layouts, which one controller does
+    not have."""
+    from repro_torch.models.common.flash import AttnMeta, flash_attention
+
+    meta = AttnMeta(causal=causal, q_offset=int(q_offset), chunk=chunk,
+                    soft_cap=logit_soft_cap)
+    return flash_attention(q, k, v, meta)

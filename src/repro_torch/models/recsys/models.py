@@ -22,6 +22,14 @@ losses.
   (``torch.utils.checkpoint``), so the logits in memory stay (B,
   neg_chunk).
 
+- ``SASRec`` (arXiv 1808.09781): item and position embeddings, then
+  ``n_blocks`` pre-norm blocks (LayerNorm, bias-free q / k / v / o
+  projections around causal ``chunked_attention`` with chunk min(64, S),
+  LayerNorm, a bias-free ReLU feed-forward), a final LayerNorm.
+  ``sasrec_loss`` is the BCE of each position's next item against one
+  sampled negative, masked by ``pos > 0``; ``sasrec_serve`` scores the
+  last position against (B, C) candidate items.
+
 Every model is trainable: its parameters require gradients. Serving
 calls (``archs/recsys.py``) run under ``torch.inference_mode``. Products
 are plain float32 products (``nn.Linear``, ``torch.bmm``,
@@ -29,8 +37,7 @@ are plain float32 products (``nn.Linear``, ``torch.bmm``,
 with TF32 off on the card. The reference's ``mi`` (mesh) argument
 survives only where it changes the computation: ``score_candidates``'s
 two-phase top-k over a device mesh (``distributed/meshinfo.py``);
-elsewhere its layout constraints do nothing on one controller. SASRec is
-ROADMAP item 14b.
+elsewhere its layout constraints do nothing on one controller.
 """
 from __future__ import annotations
 
@@ -44,7 +51,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.device import check_generator, resolve_device
 from repro_torch.kernels.embedding_bag import embedding_bag
-from repro_torch.models.common.modules import MLP
+from repro_torch.models.common.modules import MLP, Dense, LayerNorm, chunked_attention
 
 VOCAB_PAD = 256  # tables are padded to a multiple of this many rows
 FILL_CHUNK_ELEMS = 1 << 28  # elements of one normal_ call when filling a table
@@ -338,6 +345,99 @@ def fill_normal_(t, generator: torch.Generator, scale: float):
     for s in range(0, t.shape[0], rows):
         t[s : s + rows].normal_(generator=generator).mul_(scale)
     return t
+
+
+class SASRecBlock(nn.Module):
+    """One block of ``sasrec_init``'s ``blocks``: ``ln1``, ``wq`` / ``wk`` /
+    ``wv`` / ``wo``, ``ln2``, ``ff1`` / ``ff2``; no projection has a bias."""
+
+    def __init__(self, d: int, dtype, device):
+        super().__init__()
+        self.ln1 = LayerNorm(d, dtype=dtype, device=device)
+        self.wq, self.wk, self.wv, self.wo = (Dense(d, d, dtype=dtype, device=device)
+                                              for _ in range(4))
+        self.ln2 = LayerNorm(d, dtype=dtype, device=device)
+        self.ff1, self.ff2 = (Dense(d, d, dtype=dtype, device=device) for _ in range(2))
+
+
+class SASRec(nn.Module):
+    """Parameters as in ``sasrec_init``: ``items`` (padded vocab, D), ``pos``
+    (seq_len, D), ``blocks`` (one ``SASRecBlock`` each, where the reference
+    stacks them on a leading axis) and ``final_ln``. Built uninitialised;
+    fill it with ``sasrec_init`` or ``interop.sasrec_params_from_reference``."""
+
+    def __init__(self, cfg: RecsysConfig, device="cuda"):
+        super().__init__()
+        if cfg.model != "sasrec":
+            raise ValueError(f"{cfg.name} is a {cfg.model} config, not sasrec")
+        device = resolve_device(device)
+        d = cfg.embed_dim
+        self.cfg = cfg
+        self.items = nn.Parameter(torch.empty((cfg.padded_vocab(cfg.item_vocab, VOCAB_PAD), d),
+                                              dtype=cfg.param_dtype, device=device))
+        self.pos = nn.Parameter(torch.empty((cfg.seq_len, d), dtype=cfg.param_dtype,
+                                            device=device))
+        self.blocks = nn.ModuleList(SASRecBlock(d, cfg.param_dtype, device)
+                                    for _ in range(cfg.n_blocks))
+        self.final_ln = LayerNorm(d, dtype=cfg.param_dtype, device=device)
+
+    def hidden(self, seq):
+        """seq (B, S) int32 item ids (0 = padding) -> (B, S, D)
+        (``sasrec_hidden``)."""
+        cfg = self.cfg
+        b, s = seq.shape
+        cd = cfg.compute_dtype
+        h = self.items[seq.long()].to(cd) + self.pos[None, :s].to(cd)
+        nh, d = cfg.n_heads, cfg.embed_dim
+        for bp in self.blocks:
+            x = bp.ln1(h)
+            q, k, v = (w(x).reshape(b, s, nh, d // nh) for w in (bp.wq, bp.wk, bp.wv))
+            a = chunked_attention(q, k, v, causal=True, chunk=min(64, s))
+            h = h + bp.wo(a.reshape(b, s, d))
+            x = bp.ln2(h)
+            h = h + bp.ff2(torch.relu(bp.ff1(x)))
+        return self.final_ln(h)
+
+    def forward(self, seq):
+        return self.hidden(seq)
+
+
+def sasrec_loss(model: SASRec, batch):
+    """BCE over (positive next item, sampled negative) pairs, SASRec §3:
+    the sum over positions with ``pos > 0`` over max(their count, 1)."""
+    h = model.hidden(batch["seq"])  # (B, S, D)
+    pos_e = model.items[batch["pos"].long()].to(h.dtype)
+    neg_e = model.items[batch["neg"].long()].to(h.dtype)
+    pos_s = (h * pos_e).sum(-1).float()
+    neg_s = (h * neg_e).sum(-1).float()
+    mask = (batch["pos"] > 0).float()
+    per = _bce(pos_s, torch.ones_like(pos_s)) + _bce(neg_s, torch.zeros_like(neg_s))
+    loss = (per * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    return loss, {"loss": loss}
+
+
+def sasrec_serve(model: SASRec, batch):
+    """The last position of each sequence against its (B, C) candidate
+    items -> (B, C) scores."""
+    h = model.hidden(batch["seq"])[:, -1]  # (B, D)
+    cand = model.items[batch["candidates"].long()].to(h.dtype)  # (B, C, D)
+    return torch.bmm(cand, h[:, :, None])[..., 0]
+
+
+def sasrec_init(generator: torch.Generator, cfg: RecsysConfig, device="cuda") -> SASRec:
+    """A ``SASRec`` on ``device`` with the reference's init laws, drawn from
+    ``generator``: ``items`` and ``pos`` normal * 0.02, then each block's
+    wq, wk, wv, wo, ff1, ff2 (``Dense.init_``); LayerNorms at ones and
+    zeros."""
+    dev = resolve_device(device)
+    check_generator(generator, dev)
+    model = SASRec(cfg, device=dev)
+    fill_normal_(model.items, generator, 0.02)
+    fill_normal_(model.pos, generator, 0.02)
+    for bp in model.blocks:
+        for w in (bp.wq, bp.wk, bp.wv, bp.wo, bp.ff1, bp.ff2):
+            w.init_(generator)
+    return model
 
 
 def two_tower_init(generator: torch.Generator, cfg: RecsysConfig, device="cuda") -> TwoTower:

@@ -1,11 +1,11 @@
-"""Analytic roofline model for one NVIDIA H100 (port of the kernel, AIRSHIP
-and recsys parts of ``repro.roofline.model``).
+"""Analytic roofline model for one NVIDIA H100 (port of the kernel, AIRSHIP,
+recsys and LM-serving parts of ``repro.roofline.model``).
 
 Every bound is the larger of two times: the bytes the work must move over
 the card's memory rate, and its operations over the card's peak rate for
-their type. The port computes in float32 outside the tensor cores
-everywhere (TF32 off), so ``PEAK_FLOPS`` is that rate; the bf16 rate is a
-named constant for later slices.
+their type. The port computes in float32 outside the tensor cores (TF32
+off), so ``PEAK_FLOPS`` is that rate; the LM's bf16 projections run on the
+tensor cores, and ``lm_serve_bound`` counts them at ``BF16_FLOPS``.
 
 Hardware constants: one NVIDIA H100 SXM5 80GB (NVIDIA H100 Tensor Core GPU
 data sheet, SXM column; dense rates at the full 700 W power limit; the
@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Optional
+
+import torch
 
 from repro_torch.tune.config import effective_m_blk, register_path
 
@@ -77,6 +79,106 @@ class RooflineTerms:
     def roofline_fraction(self) -> float:
         """Achievable MFU bound: useful flops / (step_time * peak)."""
         return self.model_flops / (self.step_time * self.chips * PEAK_FLOPS)
+
+
+# ---------------------------------------------------------------------------
+# LM transformers (serving; lm_train_terms waits with LM training, item 14c)
+# ---------------------------------------------------------------------------
+def _lm_matmul_params(cfg) -> tuple[float, float]:
+    """(total matmul params, active matmul params per token), the
+    reference's count; ``cfg`` is a ``TransformerConfig``."""
+    d = cfg.d_model
+    if cfg.attn_type == "mla":
+        per = cfg.kv_lora_rank * cfg.n_heads * (cfg.d_nope + cfg.d_v)  # wkv_b
+        per += d * (cfg.kv_lora_rank + cfg.d_rope)  # wkv_a
+        per += cfg.n_heads * cfg.d_v * d  # wo
+        if cfg.q_lora_rank:
+            per += d * cfg.q_lora_rank + cfg.q_lora_rank * cfg.n_heads * (cfg.d_nope + cfg.d_rope)
+        else:
+            per += d * cfg.n_heads * (cfg.d_nope + cfg.d_rope)
+    else:
+        per = d * cfg.n_heads * cfg.head_dim * 2 + d * cfg.n_kv_heads * cfg.head_dim * 2
+    dense_ffn = 3 * d * cfg.d_ff
+    moe_total = 3 * d * cfg.d_ff_expert * cfg.n_experts if cfg.is_moe else 0
+    moe_active = 3 * d * cfg.d_ff_expert * cfg.top_k if cfg.is_moe else 0
+    shared = 3 * d * cfg.d_ff_expert * cfg.n_shared_experts if cfg.is_moe else 0
+    head = 2 * d * cfg.vocab_padded  # embed + lm_head
+    total = cfg.n_dense * (per + dense_ffn) + cfg.n_moe * (per + moe_total + shared) + head
+    active = cfg.n_dense * (per + dense_ffn) + cfg.n_moe * (per + moe_active + shared) + head
+    if cfg.mtp:
+        total += per + dense_ffn + 2 * d * d
+        active += per + dense_ffn + 2 * d * d
+    return float(total), float(active)
+
+
+def _lm_attn_flops_fwd(cfg, batch: int, s_q: int, s_kv: int) -> float:
+    """Score + PV products; the flash loop computes the full rectangle (the
+    causal mask is applied, not skipped), so no / 2."""
+    dh_qk = cfg.d_nope + cfg.d_rope if cfg.attn_type == "mla" else cfg.head_dim
+    dh_v = cfg.d_v if cfg.attn_type == "mla" else cfg.head_dim
+    return 2.0 * batch * cfg.n_heads * s_q * s_kv * (dh_qk + dh_v) * cfg.n_layers
+
+
+def lm_prefill_terms(cfg, batch: int, seq: int, chips: int):
+    """(flops, hbm_bytes, coll_bytes, model_flops) of a prefill of
+    ``batch`` x ``seq`` tokens, the reference's terms (its collective
+    assumes a 16-way model axis)."""
+    tokens = batch * seq
+    total_p, active_p = _lm_matmul_params(cfg)
+    flops = 2.0 * active_p * tokens + _lm_attn_flops_fwd(cfg, batch, seq, seq)
+    model_flops = 2.0 * active_p * tokens
+    hbm = total_p * 2.0 + 8.0 * cfg.n_layers * tokens * cfg.d_model * 2.0
+    t_local = tokens / max(chips / 16, 1)
+    coll = 4.0 * t_local * cfg.d_model * 2.0 * cfg.n_layers
+    return flops, hbm, coll, model_flops
+
+
+def lm_decode_terms(cfg, batch: int, s_cache: int, chips: int):
+    """(flops, hbm_bytes, coll_bytes, model_flops) of one decode step over an
+    ``s_cache``-token cache, the reference's terms: the weights and the
+    whole cache read once."""
+    total_p, active_p = _lm_matmul_params(cfg)
+    flops = 2.0 * active_p * batch
+    if cfg.attn_type == "mla":
+        kv_row = cfg.kv_lora_rank + cfg.d_rope  # latent cache, no head dim
+        attn = 2.0 * batch * cfg.n_heads * s_cache * (kv_row + cfg.kv_lora_rank)
+        cache_bytes = batch * s_cache * kv_row * 2.0 * cfg.n_layers
+    else:
+        attn = 2.0 * batch * cfg.n_heads * s_cache * 2 * cfg.head_dim
+        cache_bytes = 2.0 * batch * s_cache * cfg.n_kv_heads * cfg.head_dim * 2.0 * cfg.n_layers
+    attn *= cfg.n_layers
+    flops += attn
+    model_flops = 2.0 * active_p * batch + attn
+    hbm = total_p * 2.0 + cache_bytes
+    coll = 4.0 * batch * cfg.d_model * 2.0 * cfg.n_layers / max(chips / 16, 1)
+    return flops, hbm, coll, model_flops
+
+
+def lm_serve_bound(cfg, kind: str, batch: int, seq: int) -> dict:
+    """The least time one card could take for a prefill (``kind``
+    "prefill": ``batch`` x ``seq`` tokens) or one decode step ("decode":
+    ``batch`` tokens over a ``seq``-token cache), from the reference's
+    terms on one chip: the attention products (float32 in the port, TF32
+    off) over ``FP32_FLOPS``, the projections over ``BF16_FLOPS`` where
+    the weights are bf16 (else ``FP32_FLOPS``), the bytes over
+    ``HBM_BW``. -> {"flops_attn", "flops_proj", "hbm_bytes", "t_compute",
+    "t_memory", "bound_s", "bound_by"}."""
+    _, active_p = _lm_matmul_params(cfg)
+    if kind == "prefill":
+        flops, hbm, _, _ = lm_prefill_terms(cfg, batch, seq, 1)
+        flops_proj = 2.0 * active_p * batch * seq
+    elif kind == "decode":
+        flops, hbm, _, _ = lm_decode_terms(cfg, batch, seq, 1)
+        flops_proj = 2.0 * active_p * batch
+    else:
+        raise ValueError(f"unknown kind {kind!r}")
+    flops_attn = flops - flops_proj
+    proj_rate = BF16_FLOPS if cfg.param_dtype == torch.bfloat16 else FP32_FLOPS
+    t_compute = flops_attn / FP32_FLOPS + flops_proj / proj_rate
+    t_memory = hbm / HBM_BW
+    return dict(flops_attn=flops_attn, flops_proj=flops_proj, hbm_bytes=hbm, t_compute=t_compute,
+                t_memory=t_memory, bound_s=max(t_compute, t_memory),
+                bound_by="operations" if t_compute > t_memory else "bytes")
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,11 @@
 """The port stands alone: no file under src/repro_torch/ nor chip_smoke.py
 imports jax, jaxlib or the reference package, importing the port leaves
 jax out of sys.modules, tensor-creating entry points without ``device=``
-(``TwoTower``, ``DLRM``, ``DeepFM``, ``MLP``, the recsys batches, inits,
-interop and cells too) raise where there is no CUDA device instead of
-dropping to the CPU, and no module says a path waits for ROADMAP item 11b
-or 12 (both are ported)."""
+(``TwoTower``, ``DLRM``, ``DeepFM``, ``SASRec``, ``Transformer``, ``MLP``,
+the recsys and LM batches, inits, caches, interop and cells too) raise
+where there is no CUDA device instead of dropping to the CPU, and no
+module says a path waits for ROADMAP item 11b, 12 or 14b (all are
+ported)."""
 import ast
 import pathlib
 import subprocess
@@ -20,22 +21,47 @@ from repro_torch.data import make_labeled_corpus
 from repro_torch.graph import build_index, build_partitioned_index, nn_descent
 from repro_torch.archs import get_arch
 from repro_torch.archs.recsys import shape_batch
-from repro_torch.configs import smoke_deepfm, smoke_dlrm, smoke_two_tower
-from repro_torch.data import deepfm_batch, dlrm_batch, two_tower_batch
+from repro_torch.configs import smoke_deepfm, smoke_dlrm, smoke_sasrec, smoke_two_tower
+from repro_torch.data import (
+    deepfm_batch,
+    dlrm_batch,
+    lm_batch,
+    sasrec_batch,
+    sasrec_serve_batch,
+    two_tower_batch,
+)
 from repro_torch.interop import (
     adamw_state_from_reference,
     from_reference_arrays,
+    lm_params_from_reference,
     pq_index_from_reference,
     recsys_params_from_reference,
+    sasrec_params_from_reference,
     streaming_index_from_reference,
     two_tower_params_from_reference,
 )
 from repro_torch.distributed import single_device_meshinfo
 from repro_torch.launch import serve
 from repro_torch.launch.mesh import make_test_mesh
-from repro_torch.models.common.modules import MLP, Dense, Embedding, LayerNorm, RMSNorm
-from repro_torch.models.recsys import DLRM, DeepFM, deepfm_init, dlrm_init, two_tower_init
+from repro_torch.models.common.modules import (
+    MLP,
+    Dense,
+    Embedding,
+    LayerNorm,
+    RMSNorm,
+    rope_frequencies,
+)
+from repro_torch.models.recsys import (
+    DLRM,
+    DeepFM,
+    SASRec,
+    deepfm_init,
+    dlrm_init,
+    sasrec_init,
+    two_tower_init,
+)
 from repro_torch.models.recsys.models import TwoTower
+from repro_torch.models.transformer import Transformer, init_cache, init_params
 from repro_torch.train import reference_layout
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -77,7 +103,10 @@ def test_no_reference_imports():
             "train/__init__.py", "train/optimizer.py", "train/train_step.py",
             "archs/base.py", "archs/recsys.py", "configs/__init__.py",
             "models/common/modules.py", "models/recsys/models.py", "data/pipeline.py",
-            "common/distances.py", "kernels/embedding_bag.py", "interop.py"} <= walked
+            "common/distances.py", "kernels/embedding_bag.py", "interop.py",
+            "models/common/flash.py", "models/transformer/__init__.py",
+            "models/transformer/attention.py", "models/transformer/model.py", "archs/lm.py",
+            "configs/lm_configs.py"} <= walked
     bad = {str(p.relative_to(ROOT)): sorted(_imported_roots(p) & set(FORBIDDEN))
            for p in files if _imported_roots(p) & set(FORBIDDEN)}
     assert not bad, bad
@@ -185,14 +214,33 @@ def test_tensor_creators_default_to_cuda_and_raise_without_it():
     # the serve launcher's default device is the card, too
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--n", "64", "--requests", "1"])
+    # SASRec and the LM
+    sas = smoke_sasrec()
+    lm_cfg = get_arch("smoke-gqa").cfg
+    for make in (lambda: SASRec(sas), lambda: sasrec_init(g, sas),
+                 lambda: sasrec_batch(0, 0, 2, 4, 10), lambda: lm_batch(0, 0, 2, 4, 10),
+                 lambda: sasrec_serve_batch(0, 0, 2, 4, 10, 3),
+                 lambda: shape_batch(sas, "serve_p99"),
+                 lambda: get_arch("smoke-sasrec").make_cell("serve_p99").make_inputs(0),
+                 lambda: Transformer(lm_cfg), lambda: init_params(g, lm_cfg),
+                 lambda: init_cache(lm_cfg, 1, 8), lambda: rope_frequencies(8),
+                 lambda: get_arch("smoke-gqa").make_cell("decode_32k").make_inputs(0)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    assert all(p.device.type == "cpu" for p in SASRec(sas, device="cpu").parameters())
+    assert Transformer(lm_cfg, device="cpu").lm_head.weight.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sasrec_params_from_reference(sasrec_init(g, sas, device="cpu").state_dict(), sas)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm_params_from_reference({}, lm_cfg)
 
 
 def test_no_module_waits_for_items_11b_or_12():
-    """The launcher's flags, the package docstrings and the two-tower model
-    no longer name ROADMAP item 11b or 12 as missing; the launcher takes
+    """The launcher's flags, the package docstrings and the models no longer
+    name ROADMAP item 11b, 12 or 14b as missing; the launcher takes
     --serve-http, --replicas, --router and --distributed."""
     bad = {str(p.relative_to(ROOT)) for p in _port_files()
-           if "item 11b" in p.read_text() or "item 12" in p.read_text()}
+           if any(f"item {i}" in p.read_text() for i in ("11b", "12", "14b"))}
     assert not bad, bad
     args = serve.parse_args(["--serve-http", "0", "--replicas", "2", "--router",
                              "least-loaded", "--distributed"])

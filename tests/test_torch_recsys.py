@@ -41,7 +41,7 @@ from repro.data.pipeline import two_tower_batch as ref_batch
 from repro.distributed.meshinfo import single_device_meshinfo
 from repro.graph.index import build_index as ref_build_index
 from repro.models.recsys import models as rs
-from repro_torch.archs.recsys import RECSYS_SHAPES, serve_fn, shape_batch
+from repro_torch.archs.recsys import RECSYS_SHAPES, serve_fn, serve_sasrec, shape_batch
 from repro_torch.configs import SMOKE_RECSYS_SHAPES, smoke_two_tower, two_tower_retrieval
 from repro_torch.data import two_tower_batch
 from repro_torch.interop import from_reference_arrays, two_tower_params_from_reference
@@ -86,12 +86,15 @@ def test_configs_match_reference():
     assert RECSYS_SHAPES == REF_SHAPES
     assert SMOKE_RECSYS_SHAPES == smoke_recsys("two_tower").shapes
     # train_batch is a cell of its own (RecsysArch.make_cell), not a serve
-    # function; SASRec waits for ROADMAP item 14b.
+    # function; SASRec serves through its own function; a model the recsys
+    # family does not have is refused.
     with pytest.raises(ValueError, match="train shape"):
         serve_fn(two_tower_retrieval(), "train_batch")
     sasrec = dataclasses.replace(two_tower_retrieval(), model="sasrec")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14b"):
-        serve_fn(sasrec, "serve_p99")
+    assert serve_fn(sasrec, "serve_p99") is serve_sasrec
+    gnn = dataclasses.replace(two_tower_retrieval(), model="gnn")
+    with pytest.raises(ValueError, match="no recsys model"):
+        serve_fn(gnn, "serve_p99")
 
 
 @pytest.mark.parametrize("seed,step,batch,hist", [(0, 0, 8, 5), (3, 17, 64, 50), (1, 2, 1, 1)])

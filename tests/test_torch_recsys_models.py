@@ -155,26 +155,32 @@ def test_configs_and_registry_match_reference():
     assert configs.DEEPFM_VOCABS == ref_oc.DEEPFM_VOCABS
     pairs = {"dlrm-mlperf": ref_oc.dlrm_mlperf(), "deepfm": ref_oc.deepfm(),
              "two-tower-retrieval": ref_oc.two_tower_retrieval(),
+             "sasrec": ref_oc.sasrec(),
              "smoke-dlrm": ref_oc.smoke_recsys("dlrm"),
              "smoke-deepfm": ref_oc.smoke_recsys("deepfm"),
+             "smoke-sasrec": ref_oc.smoke_recsys("sasrec"),
              "smoke-two-tower": ref_oc.smoke_recsys("two_tower")}
-    assert list_archs() == sorted(pairs)
+    # the dense GQA LM archs, compared field for field in test_torch_lm.py
+    lm_names = {"granite-3-2b", "command-r-35b", "command-r-plus-104b", "smoke-gqa"}
+    assert list_archs() == sorted(set(pairs) | lm_names)
     for name, ref_arch in pairs.items():
         arch = get_arch(name)
         assert arch.cfg == port_cfg(ref_arch.cfg) and arch.shapes == ref_arch.shapes, name
         assert arch.shape_names() == ref_arch.shape_names()
-    for name in set(ASSIGNED) | {"smoke-sasrec", "smoke-gqa", "smoke-mace", "airship-sift1m"}:
-        if name in pairs:
+    for name in set(ASSIGNED) | {"smoke-mla-moe", "smoke-mace", "airship-sift1m"}:
+        if name in pairs or name in lm_names:
             continue
-        with pytest.raises(NotImplementedError, match="ROADMAP item 14[b-e]"):
+        with pytest.raises(NotImplementedError, match="ROADMAP item 14[c-e]"):
             get_arch(name)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14b"):
-        get_arch("sasrec")
+    with pytest.raises(NotImplementedError, match="ROADMAP item 14c"):
+        get_arch("deepseek-v3-671b")
+    with pytest.raises(NotImplementedError, match="ROADMAP item 14d"):
+        get_arch("mace")
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
-    sasrec = RecsysConfig(name="s", model="sasrec", embed_dim=4)
-    with pytest.raises(NotImplementedError, match="14b"):
-        RecsysArch(sasrec).make_cell("train_batch")
+    gnn = RecsysConfig(name="g", model="gnn", embed_dim=4)
+    with pytest.raises(ValueError, match="no recsys model"):
+        RecsysArch(gnn).make_cell("train_batch")
 
 
 def test_distances_match_reference():
