@@ -131,7 +131,21 @@ Phases, any failure exits non-zero:
      at a time; every logit finite, the cache's data_ptr unchanged across
      each step; one `lm {...}` line each (wall, tokens/s, peak memory,
      kernel launches a step, the bound from lm_serve_bound) and `profile
-     decode_32k` / `profile long_500k`.
+     decode_32k` / `profile long_500k`. 9d, after 9c's model and caches are
+     freed: deepseek-v2-236b (MLA with q_lora 1536 and kv_lora 512, 160
+     experts top-6 + 2 shared, expert d_ff 1536, vocab 102,400) at full
+     width, bf16 weights from --seed, depth cut from 1 dense + 59 MoE
+     layers to 1 + 4 (17.28e9 parameters); decode == teacher forcing at 2
+     MLA layers of its width with no experts, float32 (2e-3) and bf16 (0.1);
+     prefill_32k at batch 1 (cut from 32), decode_32k at batch 128 (a 24.2
+     GB latent cache) and long_500k (3.0 GB), 8 decode steps each from a
+     random bf16 cache at its last 8 positions, long_500k again on a (1, 4)
+     mesh of the card (four sequence shards, the MoE expert-parallel over
+     4) with every step's logits within DS_MESH_TOL of the one-device
+     run's; one `lm {...}` line a cell (as 9c's, plus the share of routed
+     (token, expert) pairs each MoE layer's capacity drops) and `profile
+     decode_32k_v2` / `profile long_500k_v2`; deepseek-v3-671b's
+     param_count on the meta device.
 
 Between 6 and 7, phase 6b, streaming and hybrid, over phase 6's corpus,
 exact index, queries and search parameters (attrs (n, 2) uniform from a
@@ -3554,19 +3568,9 @@ def lm_phase(args, dev) -> None:
             ptrs = (cache["k"].data_ptr(), cache["v"].data_ptr())
             tokens = lm_batch(args.seed, 1, b, LM_DECODE_STEPS, cfg.vocab_size,
                               device=dev)["tokens"]
-            walls = []
-            for t in range(LM_DECODE_STEPS):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                logits, cache = fn(model, cache, tokens[:, t])
-                torch.cuda.synchronize()
-                walls.append(time.perf_counter() - t0)
-                check(bool(torch.isfinite(logits).all())
-                      and tuple(logits.shape) == (b, cfg.vocab_padded),
-                      f"lm {shape}: step {t}'s logits are not finite or of shape "
-                      f"{tuple(logits.shape)}")
-                check((cache["k"].data_ptr(), cache["v"].data_ptr()) == ptrs,
-                      f"lm {shape}: the cache moved in step {t}")
+            cache, walls, logits = timed_decode(
+                model, cache, tokens, fn,
+                lambda: (cache["k"].data_ptr(), cache["v"].data_ptr()) == ptrs, shape)
             check(int(cache["pos"]) == n, f"lm {shape}: pos {int(cache['pos'])} after the steps")
             warm = sorted(walls[1:])[len(walls[1:]) // 2]
             row = dict(cell=shape, batch=b, cache_len=n, cache_gb=2 * cache["k"].numel() * 2 / 1e9,
@@ -3587,17 +3591,283 @@ def lm_phase(args, dev) -> None:
 
 
 def lm_cache(cfg, b: int, n: int, seed: int, dev) -> dict:
-    """A decode cache of (L, b, n, Hkv, dh) bf16 k and v filled with normal
-    draws from ``seed``, at position n - LM_DECODE_STEPS."""
+    """A decode cache (GQA's (L, b, n, Hkv, dh) bf16 k and v, or MLA's (L,
+    b, n, r + dr) latent c) filled with normal draws from ``seed``, at
+    position n - LM_DECODE_STEPS."""
     from repro_torch.models.transformer import init_cache
 
     cache = init_cache(cfg, b, n, device=dev)
     gen = torch.Generator(device=dev).manual_seed(seed + 3)
-    for key in ("k", "v"):
+    for key in ("c",) if cfg.attn_type == "mla" else ("k", "v"):
         for layer in cache[key]:
             layer.normal_(generator=gen)
     cache["pos"].fill_(n - LM_DECODE_STEPS)
     return cache
+
+
+# 9d: deepseek-v2-236b (MLA + MoE) at full width. Depth cut from 1 dense + 59
+# MoE layers to 1 + 4 (17.28e9 parameters, 34.55 GB of bf16 weights);
+# prefill_32k at batch 1 (at 32 the MoE dispatch alone holds 80.5 GB),
+# decode_32k at batch 128 as published (24.2 GB of latent cache), long_500k
+# as published (3.0 GB), then again on a (1, 4) mesh of the card (four
+# sequence shards, the MoE expert-parallel over 4), the logits of each step
+# whose tokens route as the one-device run's held to that run's within
+# DS_MESH_TOL: only the order of the shards' sums differs (the LSE combine,
+# the gate sums and the outputs, each rounded to bf16), a few bf16
+# roundings of the residual stream, as LM_TF_TOL's bf16 case allows for.
+# deepseek-v3-671b is counted on the meta device.
+DS_NAME = "deepseek-v2-236b"
+DS_LAYERS = 5
+DS_BATCH = {"prefill_32k": 1, "decode_32k": 128, "long_500k": 1}
+DS_MESH_TOL = 0.1  # abs on logits up to ~3
+
+
+def ds_arch():
+    """deepseek-v2-236b's LMArch with phase 9d's depth and batches."""
+    import dataclasses
+
+    from repro_torch.archs import get_arch
+    from repro_torch.archs.lm import LMArch
+
+    arch = get_arch(DS_NAME)
+    shapes = {k: dict(v, global_batch=DS_BATCH.get(k, v["global_batch"]))
+              for k, v in arch.shapes.items()}
+    return LMArch(dataclasses.replace(arch.cfg, n_layers=DS_LAYERS), arch.optimizer_name, shapes,
+                  arch.grad_accum)
+
+
+def ds_teacher_forcing(args, dev) -> None:
+    """Decode (absorbed MLA over the latent cache) equals teacher forcing
+    (the expanded MLA) at 2 layers of deepseek-v2-236b's width with no
+    experts (the capacity drop makes an MoE's decode and prefill differ by
+    design), in float32 and in bf16."""
+    import dataclasses
+
+    from repro_torch.models.transformer import decode_step, forward_hidden, init_cache, init_params
+
+    base = dataclasses.replace(ds_arch().cfg, n_layers=2, n_experts=0)
+    toks = torch.randint(0, base.vocab_size, (2, LM_TF_TOKENS), dtype=torch.int32, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(args.seed + 8))
+    for dt in (torch.float32, torch.bfloat16):
+        cfg = dataclasses.replace(base, param_dtype=dt, compute_dtype=dt)
+        model = init_params(torch.Generator(device=dev).manual_seed(args.seed), cfg, device=dev)
+        with torch.inference_mode():
+            ref = model.lm_head(forward_hidden(model, toks)).float()
+            cache = init_cache(cfg, 2, LM_TF_TOKENS, device=dev)
+            outs = []
+            for t in range(LM_TF_TOKENS):
+                lg, cache = decode_step(model, cache, toks[:, t])
+                outs.append(lg)
+            err = float((torch.stack(outs, 1) - ref).abs().max())
+        tol = LM_TF_TOL[str(dt).split(".")[1]]
+        log(f"lm: decode == teacher forcing at 2 MLA layers of {DS_NAME}'s width, no experts, "
+            f"{dt}: max abs diff {err:.3e} on logits up to {float(ref.abs().max()):.3f} "
+            f"(tolerance {tol})")
+        check(err <= tol, f"lm: MLA decode differs from teacher forcing by {err} ({dt})")
+        del model, cache, ref, outs
+
+
+def drop_hooks(model, sink: list):
+    """Pre-hooks on each MoE layer appending (routed pairs, pairs dropped by
+    capacity) of its call to ``sink``; returns the handles."""
+    from repro_torch.models.transformer.moe import capacity_drops
+
+    return [lp.ffn.register_forward_pre_hook(
+        lambda mod, a: sink.append(capacity_drops(mod, mod.cfg, a[0])))
+        for lp in model.moe_layers]
+
+
+def drop_shares(sink) -> list:
+    return [dropped / max(routed, 1) for routed, dropped in sink]
+
+
+def route_hooks(model, sink: list):
+    """Pre-hooks on each MoE layer appending (the layer, a copy of its input)
+    to ``sink``: one copy a layer in the timed step, routed afterwards by
+    ``routes_of``."""
+    return [lp.ffn.register_forward_pre_hook(lambda mod, a: sink.append((mod, a[0].clone())))
+            for lp in model.moe_layers]
+
+
+def routes_of(steps) -> list:
+    """Each step's (layer, input) pairs -> its layers' (T, E) masks of the
+    experts the tokens select."""
+    from repro_torch.models.transformer.moe import routed_experts
+
+    return [[routed_experts(mod, mod.cfg, x) for mod, x in step] for step in steps]
+
+
+def timed_decode(model, cache, tokens, fn, same_cache, what,
+                 routes=None) -> tuple[dict, list, list]:
+    """LM_DECODE_STEPS timed steps, each ending in a sync, its logits checked
+    finite and ``same_cache()`` true (the cache written in place) -> (the
+    cache after them, each step's wall, each step's logits); with
+    ``routes``, each step's list of its MoE layers' (layer, input) pairs is
+    appended to it (``route_hooks``)."""
+    walls, logits = [], []
+    for t in range(LM_DECODE_STEPS):
+        hooks = []
+        if routes is not None:
+            routes.append([])
+            hooks = route_hooks(model, routes[-1])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = fn(model, cache, tokens[:, t])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        for h in hooks:
+            h.remove()
+        check(bool(torch.isfinite(lg).all()) and tuple(lg.shape) == (
+            tokens.shape[0], model.cfg.vocab_padded),
+              f"lm {what}: step {t}'s logits are not finite or of shape {tuple(lg.shape)}")
+        check(same_cache(), f"lm {what}: the cache moved in step {t}")
+        logits.append(lg)
+    return cache, walls, logits
+
+
+def ds_phase(args, dev) -> None:
+    """9d: deepseek-v2-236b at full width, depth cut to DS_LAYERS (one dense,
+    four MoE), bf16 weights from --seed: prefill_32k (batch 1), decode_32k
+    (batch 128) and long_500k (batch 1), 8 decode steps each from a random
+    bf16 latent cache at its last 8 positions, long_500k again on a (1, 4)
+    mesh of the card; one `lm {...}` line a cell and `profile
+    decode_32k_v2`. deepseek-v3-671b's counts on the meta device."""
+    from repro_torch.archs import get_arch
+    from repro_torch.data import lm_batch
+    from repro_torch.distributed import MeshInfo
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.transformer import init_params, shard_cache
+    from repro_torch.models.transformer.moe import capacity
+    from repro_torch.roofline.model import lm_serve_bound
+
+    v3 = get_arch("deepseek-v3-671b").cfg
+    log(f"lm: deepseek-v3-671b param_count {v3.param_count()} active_param_count "
+        f"{v3.active_param_count()} (meta device)")
+    ds_teacher_forcing(args, dev)
+    arch = ds_arch()
+    cfg = arch.cfg
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = init_params(torch.Generator(device=dev).manual_seed(args.seed), cfg, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"lm: {DS_NAME} cut to {DS_LAYERS} layers ({cfg.n_dense} dense, {cfg.n_moe} MoE): "
+        f"{n_params} parameters ({cfg.param_dtype}, "
+        f"{sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9:.3f} GB) drawn in "
+        f"{time.perf_counter() - t0:.2f} s; param_count() {cfg.param_count()}")
+    check(n_params == cfg.param_count(), "lm: the model's parameters differ from param_count()")
+
+    for shape in ("prefill_32k", "decode_32k", "long_500k"):
+        sh = arch.shapes[shape]
+        b, n = sh["global_batch"], sh["seq_len"]
+        fn = arch.make_cell(shape).fn
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        sink: list = []
+        if shape == "prefill_32k":
+            bound = lm_serve_bound(cfg, "prefill", b, n)
+            tokens = lm_batch(args.seed, 0, b, n, cfg.vocab_size, device=dev)["tokens"]
+            hooks = drop_hooks(model, sink)  # 4 router products and sorts beside a ~40 s prefill
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = fn(model, tokens)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            for h in hooks:
+                h.remove()
+            check(tuple(logits.shape) == (b, cfg.vocab_padded)
+                  and logits.dtype == torch.float32 and bool(torch.isfinite(logits).all()),
+                  f"lm {shape}: logits of shape {tuple(logits.shape)} {logits.dtype}, or not "
+                  f"finite")
+            row = dict(cell=f"{shape}_v2", model=DS_NAME, batch=b, seq=n, layers=cfg.n_layers,
+                       wall_s=wall, tokens_per_s=b * n / wall, launches_per_step="not measured")
+            del tokens, logits
+        else:
+            bound = lm_serve_bound(cfg, "decode", b, n)
+            cache = lm_cache(cfg, b, n, args.seed, dev)
+            mesh = None
+            if shape == "long_500k":
+                mi = MeshInfo(mesh=make_test_mesh(4, model=4, device="cuda:0"))
+                mesh = (mi, shard_cache(cache, mi))
+            ptr = cache["c"].data_ptr()
+            tokens = lm_batch(args.seed, 1, b, LM_DECODE_STEPS, cfg.vocab_size,
+                              device=dev)["tokens"]
+            routes = [] if mesh is not None else None
+            cache, walls, logits = timed_decode(model, cache, tokens, fn,
+                                             lambda: cache["c"].data_ptr() == ptr, shape, routes)
+            check(int(cache["pos"]) == n, f"lm {shape}: pos {int(cache['pos'])} after the steps")
+            warm = sorted(walls[1:])[len(walls[1:]) // 2]
+            row = dict(cell=f"{shape}_v2", model=DS_NAME, batch=b, cache_len=n,
+                       cache_gb=cache["c"].numel() * 2 / 1e9, layers=cfg.n_layers,
+                       steps=LM_DECODE_STEPS, first_step_s=walls[0], step_s_median=warm,
+                       step_s=walls, tokens_per_s=b / warm)
+            cache["pos"] = torch.tensor(n - 1, dtype=torch.int32, device=dev)
+            hooks = drop_hooks(model, sink)
+            fn(model, cache, tokens[:, 0])
+            for h in hooks:
+                h.remove()
+            prof = profile_batch(f"{shape}_v2", lambda: fn(model, cache, tokens[:, 0]))
+            row["launches_per_step"] = prof["kernels"] if prof else "not measured"
+            del cache
+        row.update(capacity=capacity(cfg, b * (n if shape == "prefill_32k" else 1),
+                                     cfg.n_experts),
+                   drop_share=drop_shares(sink), routed_pairs=[r for r, _ in sink])
+        row.update(peak_gb=torch.cuda.max_memory_allocated() / 1e9, bound_s=bound["bound_s"],
+                   bound_by=bound["bound_by"], bound_share=bound["bound_s"] / (
+                       row.get("wall_s") or row["step_s_median"]),
+                   flops_attn=bound["flops_attn"], flops_proj=bound["flops_proj"],
+                   hbm_bytes=bound["hbm_bytes"])
+        log(f"lm {json.dumps(row)}")
+        if shape != "prefill_32k":
+            if mesh is not None:
+                ds_mesh_long(mesh, model, tokens, (logits, routes), walls, bound, arch)
+            del logits, tokens, mesh
+        log_memory(f"after lm {shape}_v2")
+    del model
+
+
+def ds_mesh_long(mesh, model, tokens, one, walls_one, bound, arch) -> None:
+    """long_500k on the (1, 4) mesh of the card from the same starting cache;
+    one `lm {...}` line (cell long_500k_v2_p4). A step whose MoE layers
+    route its token to the same experts as the one-device run's step holds
+    its logits within DS_MESH_TOL of that run's. The shards' sums round in
+    another order, so a token near a tie at the bf16 threshold may route
+    elsewhere (a flip), and a flipped step's logits part by the experts'
+    difference: flipped steps are counted, and at least one step must be
+    held."""
+    want, routes_one = one
+    mi, cache = mesh
+    fn = arch.make_cell("long_500k", mi).fn
+    blocks = cache["c"][0]
+    ptrs = [blk.data_ptr() for blk in blocks]
+    routes = []
+    cache, walls, logits = timed_decode(model, cache, tokens, fn,
+                                     lambda: [blk.data_ptr() for blk in blocks] == ptrs,
+                                     "long_500k_v2_p4", routes)
+    check(all(a is b for a, b in zip(cache["c"][0], blocks))
+          and int(cache["pos"]) == blocks[0].shape[2] * len(blocks),
+          f"lm long_500k_v2_p4: the cache's blocks were replaced, or pos {int(cache['pos'])}")
+    errs = [float((a - b).abs().max()) for a, b in zip(logits, want)]
+    routes, routes_one = routes_of(routes), routes_of(routes_one)
+    flipped = [any(not torch.equal(a, b) for a, b in zip(r_mesh, r_one))
+               for r_mesh, r_one in zip(routes, routes_one)]
+    held = [e for e, f in zip(errs, flipped) if not f]
+    check(bool(held) and max(held) <= DS_MESH_TOL,
+          f"lm long_500k_v2_p4: {len(held)} steps route as the one-device run's, their logits "
+          f"{held} apart (tolerance {DS_MESH_TOL})")
+    warm = sorted(walls[1:])[len(walls[1:]) // 2]
+    log("lm " + json.dumps(dict(
+        cell="long_500k_v2_p4", model=DS_NAME, mesh=[1, 4], shards=len(blocks),
+        shard_rows=blocks[0].shape[2], steps=LM_DECODE_STEPS, first_step_s=walls[0],
+        step_s_median=warm, step_s=walls, tokens_per_s=1 / warm,
+        one_device_step_s_median=sorted(walls_one[1:])[len(walls_one[1:]) // 2],
+        max_abs_diff_vs_one_device=errs, routes_flipped=flipped,
+        expert_sets_differing=[sum(int((a != b).any(-1).sum()) for a, b in zip(rm, ro))
+                               for rm, ro in zip(routes, routes_one)], tolerance=DS_MESH_TOL,
+        logit_max=float(max(lg.abs().max() for lg in want)),
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9, bound_s=bound["bound_s"],
+        bound_by=bound["bound_by"], bound_share=bound["bound_s"] / warm)))
+    del cache, blocks
 
 
 def main() -> int:
@@ -3664,12 +3934,17 @@ def main() -> int:
     bwd_err, bwd_timing = bag_backward_phase(args, dev)
     train_phase(args, dev, launch)
     log_memory("after phase 8")
-    # 9. attention, SASRec and granite-3-2b serving (no ported kernel on
-    # this path: launch counts stay as phases 3-8 left them)
+    # 9. attention, SASRec, granite-3-2b and deepseek-v2-236b serving (no
+    # ported kernel on this path: launch counts stay as phases 3-8 left them)
     t9 = time.perf_counter()
     attention_phase(args, dev)
     sasrec_phase(args, dev)
     lm_phase(args, dev)
+    log_memory("after phase 9c")
+    # 9d. deepseek-v2-236b (MLA + MoE), after 9c's model and caches are freed
+    t9d = time.perf_counter()
+    ds_phase(args, dev)
+    log(f"phase 9d: wall {time.perf_counter() - t9d:.1f} s (host clock)")
     log(f"phase 9: wall {time.perf_counter() - t9:.1f} s (host clock)")
 
     max_err.update(pq_err, l2_matmul=l2_err, embedding_bag=bag_err,

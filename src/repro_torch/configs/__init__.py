@@ -1,6 +1,6 @@
 """Recsys configurations of the port (port of the recsys entries of
-``repro.configs.other_configs``), as ``RecsysConfig`` values, the dense
-GQA LM configurations (``lm_configs.py``), and the registry of archs under
+``repro.configs.other_configs``), as ``RecsysConfig`` values, the LM
+configurations (``lm_configs.py``), and the registry of archs under
 the reference's names (``repro/configs/__init__.py``). ``NOT_PORTED``
 names the archs the port lacks and the ROADMAP item that ports each."""
 from __future__ import annotations
@@ -117,8 +117,6 @@ def smoke_two_tower() -> RecsysConfig:
 # The reference's registered names the port does not have, and the ROADMAP
 # item of each.
 NOT_PORTED = {
-    # MLA, MoE and MTP
-    **dict.fromkeys(("deepseek-v2-236b", "deepseek-v3-671b", "smoke-mla-moe"), "14c"),
     **dict.fromkeys(("mace", "smoke-mace"), "14d"),
     # the dry run's AIRSHIP cells; the serve path itself is archs/airship.py
     **dict.fromkeys(("airship-sift1m", "smoke-airship"), "14e"),
@@ -132,10 +130,13 @@ register("smoke-deepfm", lambda: RecsysArch(smoke_deepfm(), SMOKE_RECSYS_SHAPES)
 register("smoke-two-tower", lambda: RecsysArch(smoke_two_tower(), SMOKE_RECSYS_SHAPES))
 register("sasrec", lambda: RecsysArch(sasrec()))
 register("smoke-sasrec", lambda: RecsysArch(smoke_sasrec(), SMOKE_RECSYS_SHAPES))
+register("deepseek-v2-236b", lm.deepseek_v2_236b)
+register("deepseek-v3-671b", lm.deepseek_v3_671b)
 register("command-r-plus-104b", lm.command_r_plus_104b)
 register("command-r-35b", lm.command_r_35b)
 register("granite-3-2b", lm.granite_3_2b)
 register("smoke-gqa", lm.smoke_gqa)
+register("smoke-mla-moe", lm.smoke_mla_moe)
 
 __all__ = ["CRITEO_VOCABS", "DEEPFM_VOCABS", "NOT_PORTED", "SMOKE_RECSYS_SHAPES", "deepfm",
            "dlrm_mlperf", "sasrec", "smoke_deepfm", "smoke_dlrm", "smoke_sasrec",

@@ -6,7 +6,7 @@ reinterpreted as int32 with ``.view(np.int32)``: the same bits, no change
 of value. A bf16 array (``np.asarray`` of a JAX bf16 array, whose dtype
 is named "bfloat16") crosses as its uint16 bits viewed as
 ``torch.bfloat16``. The reference stacks a model's layers on a leading
-axis (SASRec's ``blocks``, the LM's ``dense_layers``); where the port
+axis (SASRec's ``blocks``, the LM's ``dense_layers`` and ``moe_layers``); where the port
 holds them as an ``nn.ModuleList`` they are unstacked in order. Nothing
 of the JAX package is imported.
 """
@@ -234,10 +234,12 @@ def sasrec_params_from_reference(params, cfg: RecsysConfig, *, device="cuda") ->
 
 def lm_params_from_reference(params, cfg: TransformerConfig, *, device="cuda") -> Transformer:
     """The reference's transformer param tree as numpy arrays
-    (``init_params``': ``embed``, ``final_norm``, ``lm_head`` and the
-    stacked ``dense_layers``; bf16 leaves as ml_dtypes bfloat16 arrays) ->
-    the port's ``Transformer`` for ``cfg`` on ``device``, layer l of the
-    stack in ``dense_layers[l]``."""
+    (``init_params``': ``embed``, ``final_norm``, ``lm_head``, the stacked
+    ``dense_layers`` and ``moe_layers``, and ``mtp``; bf16 leaves as
+    ml_dtypes bfloat16 arrays) -> the port's ``Transformer`` for ``cfg`` on
+    ``device``, layer l of each stack in ``dense_layers[l]`` /
+    ``moe_layers[l]``. The experts' (E, D, Fe) / (E, Fe, D) stacks load as
+    they are, the float32 router as every ``w``, transposed."""
     dev = resolve_device(device)
     return _load(Transformer(cfg, device=dev), params, cfg.name, dev)
 

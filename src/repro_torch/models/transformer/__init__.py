@@ -1,16 +1,19 @@
 """The decoder-only transformer of the port (port of
-``repro.models.transformer``): dense GQA layers, prefill and the KV-cache
-decode."""
+``repro.models.transformer``): GQA and MLA attention, dense and MoE
+feed-forwards, prefill and the KV-cache decode on one device or over a
+mesh."""
 from repro_torch.models.transformer.model import (
     Transformer,
     TransformerConfig,
     cache_shape,
     decode_step,
     forward_hidden,
+    gather_cache,
     init_cache,
     init_params,
     prefill_logits,
+    shard_cache,
 )
 
 __all__ = ["Transformer", "TransformerConfig", "cache_shape", "decode_step", "forward_hidden",
-           "init_cache", "init_params", "prefill_logits"]
+           "gather_cache", "init_cache", "init_params", "prefill_logits", "shard_cache"]

@@ -106,7 +106,7 @@ def test_no_reference_imports():
             "common/distances.py", "kernels/embedding_bag.py", "interop.py",
             "models/common/flash.py", "models/transformer/__init__.py",
             "models/transformer/attention.py", "models/transformer/model.py", "archs/lm.py",
-            "configs/lm_configs.py"} <= walked
+            "configs/lm_configs.py", "models/transformer/moe.py"} <= walked
     bad = {str(p.relative_to(ROOT)): sorted(_imported_roots(p) & set(FORBIDDEN))
            for p in files if _imported_roots(p) & set(FORBIDDEN)}
     assert not bad, bad
@@ -224,7 +224,10 @@ def test_tensor_creators_default_to_cuda_and_raise_without_it():
                  lambda: get_arch("smoke-sasrec").make_cell("serve_p99").make_inputs(0),
                  lambda: Transformer(lm_cfg), lambda: init_params(g, lm_cfg),
                  lambda: init_cache(lm_cfg, 1, 8), lambda: rope_frequencies(8),
-                 lambda: get_arch("smoke-gqa").make_cell("decode_32k").make_inputs(0)):
+                 lambda: get_arch("smoke-gqa").make_cell("decode_32k").make_inputs(0),
+                 lambda: Transformer(get_arch("smoke-mla-moe").cfg),
+                 lambda: init_cache(get_arch("smoke-mla-moe").cfg, 1, 8),
+                 lambda: get_arch("smoke-mla-moe").make_cell("long_500k").make_inputs(0)):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
     assert all(p.device.type == "cpu" for p in SASRec(sas, device="cpu").parameters())

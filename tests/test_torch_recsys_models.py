@@ -160,8 +160,10 @@ def test_configs_and_registry_match_reference():
              "smoke-deepfm": ref_oc.smoke_recsys("deepfm"),
              "smoke-sasrec": ref_oc.smoke_recsys("sasrec"),
              "smoke-two-tower": ref_oc.smoke_recsys("two_tower")}
-    # the dense GQA LM archs, compared field for field in test_torch_lm.py
-    lm_names = {"granite-3-2b", "command-r-35b", "command-r-plus-104b", "smoke-gqa"}
+    # the LM archs, compared field for field in test_torch_lm.py and
+    # test_torch_lm_deepseek.py
+    lm_names = {"granite-3-2b", "command-r-35b", "command-r-plus-104b", "smoke-gqa",
+                "deepseek-v2-236b", "deepseek-v3-671b", "smoke-mla-moe"}
     assert list_archs() == sorted(set(pairs) | lm_names)
     for name, ref_arch in pairs.items():
         arch = get_arch(name)
@@ -170,10 +172,8 @@ def test_configs_and_registry_match_reference():
     for name in set(ASSIGNED) | {"smoke-mla-moe", "smoke-mace", "airship-sift1m"}:
         if name in pairs or name in lm_names:
             continue
-        with pytest.raises(NotImplementedError, match="ROADMAP item 14[c-e]"):
+        with pytest.raises(NotImplementedError, match="ROADMAP item 14[de]"):
             get_arch(name)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14c"):
-        get_arch("deepseek-v3-671b")
     with pytest.raises(NotImplementedError, match="ROADMAP item 14d"):
         get_arch("mace")
     with pytest.raises(KeyError):
