@@ -146,6 +146,29 @@ Phases, any failure exits non-zero:
      (token, expert) pairs each MoE layer's capacity drops) and `profile
      decode_32k_v2` / `profile long_500k_v2`; deepseek-v3-671b's
      param_count on the meta device.
+ 10. LM training (no ported kernel on this path), train_4k through
+     LMArch.make_cell (lm_loss: chunked CE, MTP, the router's aux loss;
+     Adafactor or AdamW, clip 1.0, the arch's grad_accum, remat "full"):
+     card == CPU (train.parity) for two steps of smoke-gqa (AdamW) and
+     smoke-mla-moe with router_aux_coef 0.01 (Adafactor, grad_accum 2),
+     each limit against its control, then granite-3-2b at
+     full width and depth, deepseek-v2-236b at full width (160 experts)
+     cut to 1 dense + 1 MoE layer, and deepseek-v3-671b's 3 dense layers
+     and MTP block at full width, batches cut (LM_TRAIN_CELLS); one
+     `lm_train {...}` line each (init, first and warm step wall ending in
+     a sync, tokens/s, peak memory, lm_train_bound and the share the wall
+     reaches, every metric, every leaf moved).
+ 11. MACE (no ported kernel on this path) through GNNArch.make_cell,
+     AdamW: card == CPU (train.parity) for two steps of each smoke-mace
+     cell; the dst-partitioned loss over 4 shards of the card == the simple loss
+     (float32, 1e-5); full_graph_sm and molecule as published,
+     minibatch_lg on subgraphs sampled on the card from a synthetic graph
+     of reddit's size (a fresh one a step), ogb_products in bf16 over a
+     (1, 16) mesh of the card at the largest cut of its published size
+     that a calibration run predicts to fit; one `mace {...}` line each
+     (as phase 10's, with nodes / edges / examples a second and the bound
+     from mace_bound). The launch counts read after phases 10-11 must be
+     0.
 
 Between 6 and 7, phase 6b, streaming and hybrid, over phase 6's corpus,
 exact index, queries and search parameters (attrs (n, 2) uniform from a
@@ -3870,6 +3893,327 @@ def ds_mesh_long(mesh, model, tokens, one, walls_one, bound, arch) -> None:
     del cache, blocks
 
 
+# --------------------------------------------------------------------------- phase 10
+# LM training: train_4k through LMArch.make_cell on the card (Adafactor or
+# AdamW as the arch names, clip 1.0, its grad_accum), bf16 weights from
+# --seed, seq 4096. No ported kernel is on this path. Cuts (PERF.md §4):
+# every batch from 256 sequences; deepseek-v2-236b's depth from 1 dense +
+# 59 MoE layers to 1 + 1 (5.4e9 parameters, all 160 experts); deepseek-
+# v3-671b's from 3 dense + 58 MoE layers to its 3 dense layers and the MTP
+# block (one V3 MoE layer, 11.3e9 parameters, does not train on one card
+# with its state). (name, layers or None for all, sequences, steps)
+LM_TRAIN_CELLS = (("granite-3-2b", None, 8, 2), ("deepseek-v2-236b", 2, 2, 3),
+                  ("deepseek-v3-671b", 3, 4, 2))
+# card == CPU: two train_4k steps of each at the smoke widths (float32),
+# from each of CARD_CPU_SEEDS seeds (--seed, --seed + 1, ...)
+CARD_CPU_SEEDS = 3
+LM_TRAIN_SMOKE = (("smoke-gqa", "adamw", 1), ("smoke-mla-moe", "adafactor", 2))
+LM_TRAIN_LR = {"adamw": 3e-4, "adafactor": 1e-3}
+
+
+def card_equals_cpu(name, cell, dev, lr, seed, dtype="float32") -> None:
+    """Two steps of ``cell`` from the same weights, state and batch on the
+    CPU and on the card, held to each other by ``train.parity``: the
+    metrics of both steps, and the parameters after the first, each limit
+    checked against its control."""
+    from repro_torch.train.parity import LEAF_FAR_SHARE, LOSS_RTOL, failures, step_readings
+
+    r = step_readings(cell, dev, seed, lr)
+    log(f"card == CPU {name}: metrics of two steps max rel diff {r['rel']:.3e} (limit "
+        f"{LOSS_RTOL[dtype]}; control, one update's change of the loss: {r['update_rel']:.3e}); "
+        f"parameters max abs diff {r['worst']:.3e} (limit {2 * lr + 1e-6:.3e}), {r['far']} of "
+        f"{r['elements']} elements beyond 1e-3 lr + 1e-6, at most {r['leaf_far']:.3e} of a leaf's "
+        f"({r['leaf_far_name']}; limit {LEAF_FAR_SHARE[dtype]}; control, a leaf's update dropped "
+        f"or sign-flipped, least of {r['controlled']} of {r['leaves']} leaves: "
+        f"{r['control']:.3e}, {r['control_name']})")
+    for msg in failures(r, lr, dtype):
+        check(False, f"card == CPU {name}: {msg}")
+
+
+def leaf_sums(views) -> dict:
+    return {k: float(v.detach().sum(dtype=torch.float64)) for k, v in views.items()}
+
+
+def train_cell_run(cell, dev, seed, steps, next_batch):
+    """Init, then ``steps`` steps of a train cell (``next_batch(step)`` after
+    the first), each ending in a sync -> (row, the leaves whose values did
+    not change, the leaves whose first moment is still zero). A bf16
+    leaf's update can round away (p + u in bf16, as the reference adds):
+    RMSNorm scales at 1.0 do not move under AdamW at lr 3e-4, whose update
+    is under half of bf16's ulp there; the first moment shows that the
+    leaf's gradient reached the optimizer."""
+    from repro_torch.train import reference_layout
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, state, batch = cell.make_inputs(seed, dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    views = reference_layout(model)
+    before = leaf_sums(views)
+    walls, metrics = [], []
+    for step in range(steps):
+        if step:
+            batch = next_batch(step)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, state, m = cell.fn(model, state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+    after = leaf_sums(views)
+    unmoved = [k for k in views if after[k] == before[k]]
+    silent = [k for k, v in state["m"].items() if not bool(v.any())]
+    warm = walls[1:] or walls  # the steps after the first
+    row = dict(init_s=t_init, first_step_s=walls[0], step_s_warm=sum(warm) / len(warm),
+               step_s=walls, metrics=metrics, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               params=sum(v.numel() for v in views.values()), leaves=len(views),
+               every_leaf_moved=not unmoved, every_leaf_updated=not silent,
+               unmoved_bf16=[k for k in unmoved if views[k].dtype == torch.bfloat16])
+    unmoved = [k for k in unmoved if views[k].dtype != torch.bfloat16]
+    del model, state, batch, views
+    return row, unmoved + silent
+
+
+def check_train_row(what, row, unmoved) -> None:
+    check(all(math.isfinite(v) for m in row["metrics"] for v in m.values()),
+          f"{what}: a loss is not finite")
+    check(not unmoved, f"{what}: parameters not updated, or float32 ones that did not "
+                       f"change: {unmoved[:5]}")
+
+
+def lm_train_phase(args, dev) -> None:
+    """Phase 10: card == CPU for two train_4k steps of the smoke LM configs,
+    then granite-3-2b, deepseek-v2-236b and deepseek-v3-671b's train_4k on
+    the card with phase 10's cuts; one `lm_train {...}` line each."""
+    import dataclasses
+
+    from repro_torch.archs import get_arch
+    from repro_torch.archs.lm import LMArch
+    from repro_torch.data import lm_batch
+    from repro_torch.roofline.model import lm_train_bound
+
+    t_phase = time.perf_counter()
+    for name, opt, accum in LM_TRAIN_SMOKE:
+        base = get_arch(name)
+        cfg = dataclasses.replace(base.cfg, router_aux_coef=0.01) if base.cfg.is_moe else base.cfg
+        cell = LMArch(cfg, opt, base.shapes, accum).make_cell("train_4k")
+        for seed in range(args.seed, args.seed + CARD_CPU_SEEDS):
+            card_equals_cpu(f"{name} train_4k ({opt}, grad_accum {accum}) seed {seed}", cell, dev,
+                            LM_TRAIN_LR[opt], seed)
+    for name, layers, b, steps in LM_TRAIN_CELLS:
+        base = get_arch(name)
+        cfg = base.cfg if layers is None else dataclasses.replace(base.cfg, n_layers=layers)
+        shapes = {"train_4k": dict(base.shapes["train_4k"], global_batch=b)}
+        arch = LMArch(cfg, base.optimizer_name, shapes, base.grad_accum)
+        s = shapes["train_4k"]["seq_len"]
+        row, unmoved = train_cell_run(
+            arch.make_cell("train_4k"), dev, args.seed, steps,
+            lambda step: lm_batch(args.seed, step, b, s, cfg.vocab_size, device=dev))
+        bound = lm_train_bound(cfg, b, s, arch.grad_accum)
+        row = dict(cell=f"train_4k_{name}", card=args.card, layers=cfg.n_layers, dense=cfg.n_dense,
+                   moe=cfg.n_moe, mtp=cfg.mtp, batch=b, seq=s, grad_accum=arch.grad_accum,
+                   optimizer=arch.optimizer_name, remat=cfg.remat, steps=steps,
+                   tokens_per_s=b * s / row["step_s_warm"], bound_s=bound["bound_s"],
+                   bound_by=bound["bound_by"], bound_share=bound["bound_s"] / row["step_s_warm"],
+                   **row)
+        log(f"lm_train {json.dumps(row)}")
+        check_train_row(f"lm_train {name}", row, unmoved)
+        log_memory(f"after lm_train {name}")
+    log(f"lm training: phase wall {time.perf_counter() - t_phase:.1f} s (host clock)")
+
+
+# --------------------------------------------------------------------------- phase 11
+# MACE (arXiv:2206.07697) through GNNArch.make_cell, AdamW: full_graph_sm
+# (cora, 2,708 x 10,556) and molecule (128 graphs of 30 x 64) as published;
+# minibatch_lg samples 1,024 seeds x fanouts (15, 10) on the card from a
+# synthetic graph of reddit's size (PyG Reddit: 232,965 nodes, 114,615,892
+# edges, 602 features), a fresh subgraph a step; ogb_products (2,449,029 x
+# 61,859,140, d_feat 100, bf16) in the dst-partitioned layout over a (1,
+# OGB_SHARDS) mesh of the card, cut by the largest factor of OGB_FACTORS
+# whose peak, predicted from a run at OGB_CALIBRATE, fits OGB_FIT of the
+# card (PERF.md §4).
+MACE_STEPS = 3
+REDDIT_NODES, REDDIT_EDGES = 232_965, 114_615_892
+OGB_SHARDS = 16
+OGB_FACTORS = (1, 2, 4, 8, 16, 32, 64)  # nodes and edges divided by this
+OGB_CALIBRATE = 256
+OGB_FIT = 0.8
+DST_SMALL = (4096, 65_536, 4)  # nodes, edges, shards: dst == simple on the card
+
+
+def mace_row(cell, sh, n, e, row, cfg, card) -> dict:
+    from repro_torch.roofline.model import mace_bound
+
+    bound = mace_bound(cfg, n, e, sh["mode"])
+    return dict(cell=cell, card=card, mode=sh["mode"], nodes=n, edges=e, d_feat=cfg.d_feat,
+                compute=str(cfg.compute_dtype).split(".")[1], steps=len(row["step_s"]),
+                nodes_per_s=n / row["step_s_warm"], edges_per_s=e / row["step_s_warm"],
+                examples_per_s=sh.get("batch", sh.get("batch_nodes", 1)) / row["step_s_warm"],
+                bound_s=bound["bound_s"], bound_by=bound["bound_by"],
+                bound_share=bound["bound_s"] / row["step_s_warm"], **row)
+
+
+def reddit_graph(seed, dev):
+    """A uniform random graph of reddit's size on the card, as CSR: (indptr
+    (N + 1,), indices (E,)) int32, node features (N, 602) normal, and the
+    generator that drew them."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    rows = torch.randint(0, REDDIT_NODES, (REDDIT_EDGES,), generator=gen, device=dev)
+    counts = torch.bincount(rows, minlength=REDDIT_NODES)
+    del rows
+    indptr = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), torch.cumsum(counts, 0)])
+    indices = torch.randint(0, REDDIT_NODES, (REDDIT_EDGES,), generator=gen, dtype=torch.int32,
+                            device=dev)
+    feats = torch.randn((REDDIT_NODES, 602), generator=gen, device=dev)
+    return indptr.to(torch.int32), indices, feats, gen
+
+
+def ogb_arch(factor: int, n_shards: int):
+    from repro_torch.archs import get_arch
+    from repro_torch.archs.gnn import GNNArch
+
+    base = get_arch("mace")
+    sh = base.shapes["ogb_products"]
+    cut = dict(sh, n_nodes=-(-sh["n_nodes"] // factor), n_edges=-(-sh["n_edges"] // factor))
+    return GNNArch(base.base_cfg, {"ogb_products": cut}), cut
+
+
+def dst_small_check(args, dev) -> None:
+    """The dst-partitioned loss over DST_SMALL's shards of the card equals
+    the simple loss on the same graph: float32 within 1e-5 relative, and
+    bf16 (the ogb_products cell's dtype) logged beside it."""
+    import dataclasses
+
+    from repro_torch.data import gnn_batch
+    from repro_torch.distributed import MeshInfo
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.gnn import mace as gm
+    from repro_torch.models.gnn.distributed import dst_partitioned_loss, partition_by_destination
+
+    n, e, shards = DST_SMALL
+    cfg = dataclasses.replace(gm.MACEConfig(), d_feat=100)
+    model = gm.init_params(torch.Generator(device=dev).manual_seed(args.seed), cfg, device=dev)
+    batch = gnn_batch(args.seed, 0, n, e, d_feat=100, device=dev)
+    mi = MeshInfo(make_test_mesh(shards, model=shards, device=dev))
+    part = partition_by_destination(batch, shards)
+    for dt in (torch.float32, torch.bfloat16):
+        c = dataclasses.replace(cfg, compute_dtype=dt)
+        with torch.no_grad():
+            simple = float(gm.loss(model, c, batch)[0])
+            dst = float(dst_partitioned_loss(model, c, mi, part)[0])
+        rel = abs(dst - simple) / abs(simple)
+        log(f"mace: dst-partitioned over {shards} shards of the card == simple at {n} x {e}, "
+            f"{dt}: {dst:.7g} vs {simple:.7g}, rel diff {rel:.3e}")
+        if dt == torch.float32:
+            check(rel <= 1e-5, f"mace: dst-partitioned differs from simple by {rel}")
+    del model, batch, part
+
+
+def mace_phase(args, dev) -> None:
+    """Phase 11: card == CPU for two steps of each smoke-mace cell, the dst
+    == simple check, then mace's four cells on the card; one `mace {...}`
+    line each."""
+    import dataclasses
+
+    from repro_torch.archs import get_arch
+    from repro_torch.archs.gnn import graph_size
+    from repro_torch.distributed import MeshInfo
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.gnn.sampler import sample_subgraph
+
+    t_phase = time.perf_counter()
+    smoke = get_arch("smoke-mace")
+    for shape in smoke.shape_names():
+        dt = str(smoke.cfg_for(shape).compute_dtype).split(".")[1]
+        for seed in range(args.seed, args.seed + CARD_CPU_SEEDS):
+            card_equals_cpu(f"smoke-mace {shape} ({dt}) seed {seed}", smoke.make_cell(shape),
+                            dev, 1e-3, seed, dt)
+    dst_small_check(args, dev)
+    arch = get_arch("mace")
+    for shape in ("full_graph_sm", "molecule"):
+        sh = arch.shapes[shape]
+        n, e = graph_size(sh)
+        row, unmoved = train_cell_run(arch.make_cell(shape), dev, args.seed, MACE_STEPS,
+                                      lambda step: arch.batch(shape, args.seed, step, dev))
+        log(f"mace {json.dumps(mace_row(shape, sh, n, e, row, arch.cfg_for(shape), args.card))}")
+        check_train_row(f"mace {shape}", row, unmoved)
+
+    # minibatch_lg: a fresh sampled subgraph of the reddit-size graph a step
+    sh = arch.shapes["minibatch_lg"]
+    t0 = time.perf_counter()
+    indptr, indices, feats, gen = reddit_graph(args.seed, dev)
+    torch.cuda.synchronize()
+    t_graph = time.perf_counter() - t0
+    sample_s = []
+
+    def sampled(step):
+        seeds = torch.randint(0, REDDIT_NODES, (sh["batch_nodes"],), generator=gen, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sub = sample_subgraph(indptr, indices, seeds, sh["fanouts"], generator=gen)
+        torch.cuda.synchronize()
+        sample_s.append(time.perf_counter() - t0)
+        nodes = sub["nodes"].long()
+        n = nodes.shape[0]
+        # positions synthesized a subgraph slot, as gnn_batch draws them: a
+        # node sampled twice at one position would put a zero edge vector,
+        # whose rhat = rvec / 1e-9 has slope 1e9, between two slots
+        return {"positions": torch.randn((n, 3), generator=gen, device=dev),
+                "node_feat": feats[nodes], "senders": sub["senders"],
+                "receivers": sub["receivers"],
+                "energy": torch.randn((1,), generator=gen, device=dev),
+                "forces": torch.randn((n, 3), generator=gen, device=dev) * 0.1}
+
+    cell = arch.make_cell("minibatch_lg")
+    inner = cell.make_inputs
+
+    def make_inputs(seed, device):
+        model, state, _ = inner(seed, device)
+        return model, state, sampled(0)
+
+    n, e = graph_size(sh)
+    row, unmoved = train_cell_run(dataclasses.replace(cell, make_inputs=make_inputs), dev,
+                                  args.seed, MACE_STEPS, sampled)
+    row = mace_row("minibatch_lg", sh, n, e, row, arch.cfg_for("minibatch_lg"), args.card)
+    row.update(graph_nodes=REDDIT_NODES, graph_edges=REDDIT_EDGES, graph_build_s=t_graph,
+               sample_s=sample_s)
+    log(f"mace {json.dumps(row)}")
+    check_train_row("mace minibatch_lg", row, unmoved)
+    del indptr, indices, feats
+    log_memory("after mace minibatch_lg")
+
+    # ogb_products: calibrate the peak, then the largest cut that fits
+    mi = MeshInfo(make_test_mesh(OGB_SHARDS, model=OGB_SHARDS, device=dev))
+    gc.collect()
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    base_alloc = torch.cuda.memory_allocated()
+    cal, sh_cal = ogb_arch(OGB_CALIBRATE, OGB_SHARDS)
+    row_cal, _ = train_cell_run(cal.make_cell("ogb_products", mi), dev, args.seed, 1, None)
+    per_edge = (row_cal["peak_gb"] * 1e9 - base_alloc) / sh_cal["n_edges"]
+    full_edges = arch.shapes["ogb_products"]["n_edges"]
+    factor = next((f for f in OGB_FACTORS if per_edge * full_edges / f <= OGB_FIT * free),
+                  OGB_FACTORS[-1])
+    log(f"mace: ogb_products calibration at 1/{OGB_CALIBRATE} ({sh_cal['n_nodes']} x "
+        f"{sh_cal['n_edges']}): peak {row_cal['peak_gb']:.3f} GB, {per_edge:.1f} B an edge; "
+        f"predicted peak at the published size {per_edge * full_edges / 1e9:.1f} GB against "
+        f"{OGB_FIT} x {free / 1e9:.1f} GB free: runs at 1/{factor}")
+    ogb, sh_cut = ogb_arch(factor, OGB_SHARDS)
+    n, e = graph_size(sh_cut, OGB_SHARDS)
+    row, unmoved = train_cell_run(
+        ogb.make_cell("ogb_products", mi), dev, args.seed, 2,
+        lambda step: ogb.batch("ogb_products", args.seed, step, dev, mi))
+    row = mace_row("ogb_products", sh_cut, n, e, row, ogb.cfg_for("ogb_products"), args.card)
+    row.update(cut_factor=factor, shards=OGB_SHARDS, predicted_peak_gb=per_edge * e / 1e9)
+    log(f"mace {json.dumps(row)}")
+    check_train_row("mace ogb_products", row, unmoved)
+    log_memory("after mace ogb_products")
+    log(f"mace: phase wall {time.perf_counter() - t_phase:.1f} s (host clock)")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1_000_000, help="corpus size (airship-sift1m: 1M)")
@@ -3882,7 +4226,8 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
-    log(smi.stdout.strip().splitlines()[0])
+    args.card = smi.stdout.strip().splitlines()[0]  # name, power limit: beside every row
+    log(args.card)
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3946,6 +4291,14 @@ def main() -> int:
     ds_phase(args, dev)
     log(f"phase 9d: wall {time.perf_counter() - t9d:.1f} s (host clock)")
     log(f"phase 9: wall {time.perf_counter() - t9:.1f} s (host clock)")
+    log_memory("after phase 9d")
+    # 10. LM training; 11. MACE (no ported kernel on either path: the counts
+    # read after them must stay 0)
+    launch.reset()
+    lm_train_phase(args, dev)
+    mace_phase(args, dev)
+    idle = launch.read()
+    check(not any(idle.values()), f"phases 10-11 launched ported kernels: {idle}")
 
     max_err.update(pq_err, l2_matmul=l2_err, embedding_bag=bag_err,
                    embedding_bag_backward=bwd_err)

@@ -1,14 +1,20 @@
-"""LM-family cells (port of ``repro.archs.lm``): prefill_32k, decode_32k and
-long_500k serve cells of a GQA or MLA / MoE transformer, on one device or
-over a mesh (``make_cell(shape, mi)``).
+"""LM-family cells (port of ``repro.archs.lm``): the train_4k cell, and the
+prefill_32k, decode_32k and long_500k serve cells of a GQA or MLA / MoE
+transformer, the serve cells on one device or over a mesh
+(``make_cell(shape, mi)``).
+
+train_4k is one step of ``lm_loss`` through ``make_train_step`` with the
+arch's optimizer (Adafactor lr 1e-3 with momentum 0.9, or AdamW lr 3e-4
+with weight decay 0.1), gradients clipped at global norm 1.0, and the
+arch's ``grad_accum`` microbatches; it runs on one device (training over
+a mesh is ROADMAP item 14e).
 
 prefill_32k runs the full sequence and returns the last position's
 logits. decode_32k and long_500k run one decode step: one new token a
 sequence against an S-token KV cache, written in place (the reference
 donates its cache). long_500k decodes over a 524,288-token cache; its
 quadratic prefill is skipped, as the reference skips it for these
-pure full-attention archs. train_4k (``lm_loss`` through
-``make_train_step``) is ROADMAP item 14c's LM training.
+pure full-attention archs.
 """
 from __future__ import annotations
 
@@ -21,8 +27,8 @@ from repro_torch.archs.base import Arch, CellSpec
 from repro_torch.common.device import resolve_device
 from repro_torch.data.pipeline import lm_batch
 from repro_torch.models.transformer import model as tm
-
-NEXT_ITEM = "ROADMAP item 14c (LM training)"
+from repro_torch.train.optimizer import adafactor, adamw
+from repro_torch.train.train_step import make_train_step, reference_layout
 
 LM_SHAPES: Dict[str, dict] = {
     "train_4k": dict(kind="train", seq_len=4096, global_batch=256),
@@ -53,27 +59,49 @@ class LMArch(Arch):
                  shapes: Optional[Dict[str, dict]] = None, grad_accum: int = 1):
         self.name = cfg.name
         self.cfg = cfg
-        self.optimizer_name = optimizer  # train_4k's (item 14c, LM training)
+        self.optimizer_name = optimizer  # train_4k's
         self.shapes = shapes or LM_SHAPES
         self.grad_accum = grad_accum
 
     def shape_names(self):
         return list(self.shapes)
 
+    def optimizer(self):
+        if self.optimizer_name == "adafactor":
+            return adafactor(lr=1e-3, momentum=0.9)
+        return adamw(lr=3e-4, weight_decay=0.1)
+
+    def loss(self, model, batch):
+        return tm.lm_loss(model, batch)
+
     def make_cell(self, shape: str, mi=None) -> CellSpec:
-        """prefill: ``fn(model, tokens)``; decode cells: ``fn(model, cache,
-        tokens) -> (logits, cache)``, over ``mi`` where given (the MoE's
-        expert-parallel branch, the sequence-sharded cache).
-        ``make_inputs(seed, device)`` draws the model from ``seed``
-        (``init_params``), the tokens from ``lm_batch`` at step 0 (decode:
-        its first column) and, for decode, a zero cache of the shape's
+        """train_4k: ``fn(model, opt_state, batch) -> (model, opt_state,
+        metrics)``, on one device (``mi`` is refused). prefill: ``fn(model,
+        tokens)``; decode cells: ``fn(model, cache, tokens) -> (logits,
+        cache)``, over ``mi`` where given (the MoE's expert-parallel branch,
+        the sequence-sharded cache). ``make_inputs(seed, device)`` draws the
+        model from ``seed`` (``init_params``), the tokens from ``lm_batch``
+        at step 0 (decode: its first column) and, for train_4k, the
+        optimizer's initial state, for decode a zero cache of the shape's
         length at position 0 laid out for ``mi`` (``init_cache``)."""
         cfg = self.cfg
         sh = self.shapes[shape]
         b, s = sh["global_batch"], sh["seq_len"]
         name = f"{self.name}:{shape}"
         if sh["kind"] == "train":
-            raise NotImplementedError(f"{name}: lm_loss and LM training are {NEXT_ITEM}")
+            if mi is not None and len(mi.mesh.devices) > 1:
+                raise NotImplementedError(f"{name}: training over a mesh is ROADMAP item 14e")
+            opt = self.optimizer()
+
+            def make_train_inputs(seed: int = 0, device="cuda"):
+                dev = resolve_device(device)
+                model = tm.init_params(torch.Generator(device=dev).manual_seed(seed), cfg,
+                                       device=dev)
+                batch = lm_batch(seed, 0, b, s, cfg.vocab_size, device=dev)
+                return model, opt.init(reference_layout(model)), batch
+
+            step = make_train_step(self.loss, opt, clip_norm=1.0, grad_accum=self.grad_accum)
+            return CellSpec(name=name, kind="train", fn=step, make_inputs=make_train_inputs)
         prefill = shape.startswith("prefill")
 
         def make_inputs(seed: int = 0, device="cuda"):

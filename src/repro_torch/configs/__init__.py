@@ -1,13 +1,15 @@
-"""Recsys configurations of the port (port of the recsys entries of
-``repro.configs.other_configs``), as ``RecsysConfig`` values, the LM
-configurations (``lm_configs.py``), and the registry of archs under
-the reference's names (``repro/configs/__init__.py``). ``NOT_PORTED``
-names the archs the port lacks and the ROADMAP item that ports each."""
+"""Recsys and MACE configurations of the port (port of
+``repro.configs.other_configs``'s recsys and MACE entries), the LM
+configurations (``lm_configs.py``), and the registry of archs under the
+reference's names (``repro/configs/__init__.py``). ``NOT_PORTED`` names
+the archs the port lacks and the ROADMAP item that ports each."""
 from __future__ import annotations
 
 from repro_torch.archs.base import register
+from repro_torch.archs.gnn import GNNArch
 from repro_torch.archs.recsys import RecsysArch
 from repro_torch.configs import lm_configs as lm
+from repro_torch.models.gnn.mace import MACEConfig
 from repro_torch.models.recsys.models import RecsysConfig
 
 # MLPerf DLRM (Criteo 1TB) categorical vocab sizes: 26 fields.
@@ -114,13 +116,32 @@ def smoke_two_tower() -> RecsysConfig:
     )
 
 
-# The reference's registered names the port does not have, and the ROADMAP
-# item of each.
-NOT_PORTED = {
-    **dict.fromkeys(("mace", "smoke-mace"), "14d"),
-    # the dry run's AIRSHIP cells; the serve path itself is archs/airship.py
-    **dict.fromkeys(("airship-sift1m", "smoke-airship"), "14e"),
+def mace() -> GNNArch:
+    """[arXiv:2206.07697]: 2 interaction layers, 128 channels, l_max 2,
+    correlation order 3, 8 Bessel RBFs, E(3)-equivariant."""
+    return GNNArch(MACEConfig(name="mace", n_layers=2, d_hidden=128, l_max=2,
+                              correlation_order=3, n_rbf=8))
+
+
+SMOKE_GNN_SHAPES = {
+    "full_graph_sm": dict(kind="train", n_nodes=64, n_edges=256, d_feat=16, mode="simple"),
+    "minibatch_lg": dict(kind="train", batch_nodes=8, fanouts=(3, 2), d_feat=16,
+                         mode="sampled"),
+    "ogb_products": dict(kind="train", n_nodes=128, n_edges=512, d_feat=8,
+                         mode="dst_partitioned"),
+    "molecule": dict(kind="train", n_nodes=6, n_edges=12, batch=4, mode="batched"),
 }
+
+
+def smoke_mace() -> GNNArch:
+    return GNNArch(MACEConfig(name="smoke-mace", n_layers=2, d_hidden=8, n_rbf=4),
+                   shapes=SMOKE_GNN_SHAPES)
+
+
+# The reference's registered names the port does not have, and the ROADMAP
+# item of each: the dry run's AIRSHIP cells (the serve path itself is
+# archs/airship.py).
+NOT_PORTED = dict.fromkeys(("airship-sift1m", "smoke-airship"), "14e")
 
 register("dlrm-mlperf", lambda: RecsysArch(dlrm_mlperf()))
 register("deepfm", lambda: RecsysArch(deepfm()))
@@ -137,7 +158,9 @@ register("command-r-35b", lm.command_r_35b)
 register("granite-3-2b", lm.granite_3_2b)
 register("smoke-gqa", lm.smoke_gqa)
 register("smoke-mla-moe", lm.smoke_mla_moe)
+register("mace", mace)
+register("smoke-mace", smoke_mace)
 
-__all__ = ["CRITEO_VOCABS", "DEEPFM_VOCABS", "NOT_PORTED", "SMOKE_RECSYS_SHAPES", "deepfm",
-           "dlrm_mlperf", "sasrec", "smoke_deepfm", "smoke_dlrm", "smoke_sasrec",
-           "smoke_two_tower", "two_tower_retrieval"]
+__all__ = ["CRITEO_VOCABS", "DEEPFM_VOCABS", "NOT_PORTED", "SMOKE_GNN_SHAPES",
+           "SMOKE_RECSYS_SHAPES", "deepfm", "dlrm_mlperf", "mace", "sasrec", "smoke_deepfm",
+           "smoke_dlrm", "smoke_mace", "smoke_sasrec", "smoke_two_tower", "two_tower_retrieval"]

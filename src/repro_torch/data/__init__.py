@@ -1,6 +1,7 @@
 from repro_torch.data.pipeline import (
     deepfm_batch,
     dlrm_batch,
+    gnn_batch,
     lm_batch,
     sasrec_batch,
     sasrec_serve_batch,
@@ -18,6 +19,7 @@ __all__ = [
     "clustered_vectors",
     "deepfm_batch",
     "dlrm_batch",
+    "gnn_batch",
     "kmeans_labels",
     "lm_batch",
     "make_labeled_corpus",

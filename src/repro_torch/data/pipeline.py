@@ -1,6 +1,7 @@
 """Deterministic synthetic batches (port of ``repro.data.pipeline``: the LM,
-DLRM, DeepFM, SASRec and two-tower generators; the GNN one is ROADMAP
-item 14d).
+DLRM, DeepFM, SASRec, two-tower and GNN generators; ``shard_batch``, the
+reference's device-put over a mesh, goes with training over a mesh,
+ROADMAP item 14e).
 
 Every batch is a pure function of (seed, step), drawn with numpy exactly
 as the reference draws it, so the port's batches equal the reference's
@@ -103,3 +104,29 @@ def two_tower_batch(seed: int, step: int, batch: int, user_vocab: int, item_voca
         "hist": _tensor(h, dev),
         "item_id": _tensor(r.integers(0, item_vocab, size=batch), dev),
     }
+
+
+def gnn_batch(seed: int, step: int, n_nodes: int, n_edges: int, n_species: int = 32,
+              d_feat: int = 0, n_graphs: int = 1, device="cuda") -> dict:
+    """A random graph on ``device``: ``positions`` (N, 3) normal,
+    ``senders`` / ``receivers`` (E,) uniform, ``energy`` (G,) normal,
+    ``forces`` (N, 3) normal * 0.1 (float32), then ``node_feat`` (N,
+    d_feat) normal or ``species`` (N,) uniform, and with n_graphs > 1
+    ``node_graph`` (N,) sorted graph ids and ``n_graphs``."""
+    dev = resolve_device(device)
+    r = _rng(seed, step)
+    out = {
+        "positions": _tensor(r.normal(size=(n_nodes, 3)), dev, np.float32),
+        "senders": _tensor(r.integers(0, n_nodes, size=n_edges), dev),
+        "receivers": _tensor(r.integers(0, n_nodes, size=n_edges), dev),
+        "energy": _tensor(r.normal(size=(n_graphs,)), dev, np.float32),
+        "forces": _tensor(r.normal(size=(n_nodes, 3)) * 0.1, dev, np.float32),
+    }
+    if d_feat:
+        out["node_feat"] = _tensor(r.normal(size=(n_nodes, d_feat)), dev, np.float32)
+    else:
+        out["species"] = _tensor(r.integers(0, n_species, size=n_nodes), dev)
+    if n_graphs > 1:
+        out["node_graph"] = _tensor(np.sort(r.integers(0, n_graphs, size=n_nodes)), dev)
+        out["n_graphs"] = n_graphs
+    return out

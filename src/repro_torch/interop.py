@@ -7,8 +7,9 @@ of value. A bf16 array (``np.asarray`` of a JAX bf16 array, whose dtype
 is named "bfloat16") crosses as its uint16 bits viewed as
 ``torch.bfloat16``. The reference stacks a model's layers on a leading
 axis (SASRec's ``blocks``, the LM's ``dense_layers`` and ``moe_layers``); where the port
-holds them as an ``nn.ModuleList`` they are unstacked in order. Nothing
-of the JAX package is imported.
+holds them as an ``nn.ModuleList`` they are unstacked in order, or, where
+the list's parameters are rows of stacked tensors (the LM's), copied into
+those whole. Nothing of the JAX package is imported.
 """
 from __future__ import annotations
 
@@ -22,6 +23,8 @@ from repro_torch.common.device import resolve_device
 from repro_torch.core.constraints import LabelSetConstraint, RangeConstraint
 from repro_torch.core.pq import PQIndex
 from repro_torch.core.types import Corpus, GraphIndex
+from repro_torch.models.common.modules import StackedLayers
+from repro_torch.models.gnn.mace import MACE, MACEConfig
 from repro_torch.models.recsys.models import DLRM, DeepFM, RecsysConfig, SASRec, TwoTower
 from repro_torch.models.transformer.model import Transformer, TransformerConfig
 from repro_torch.streaming.slots import SlotPool, StreamingIndex
@@ -144,14 +147,17 @@ def _param_tensor(a, dev: torch.device) -> torch.Tensor:
 
 def _unstacked(tree, model: nn.Module):
     """``tree`` with each top-level entry that ``model`` holds as an
-    ``nn.ModuleList`` split along its leading (layer) axis into a list."""
+    ``nn.ModuleList`` split along its leading (layer) axis into a list,
+    except a ``StackedLayers``, whose parameters are stacked as the
+    reference's."""
     def take(t, i):
         return {k: take(v, i) for k, v in t.items()} if isinstance(t, dict) else t[i]
 
     out = dict(tree)
     for k, v in tree.items():
         layers = getattr(model, k, None)
-        if isinstance(layers, nn.ModuleList) and isinstance(v, dict):
+        if (isinstance(layers, nn.ModuleList) and isinstance(v, dict)
+                and not isinstance(layers, StackedLayers)):
             out[k] = [take(v, i) for i in range(len(layers))]
     return out
 
@@ -242,6 +248,14 @@ def lm_params_from_reference(params, cfg: TransformerConfig, *, device="cuda") -
     they are, the float32 router as every ``w``, transposed."""
     dev = resolve_device(device)
     return _load(Transformer(cfg, device=dev), params, cfg.name, dev)
+
+
+def mace_params_from_reference(params, cfg: MACEConfig, *, device="cuda") -> MACE:
+    """The reference's MACE param tree as numpy arrays (``init_params``':
+    ``embed``, ``readout`` {"layers": [{"w", "b"}]}, and ``layers`` stacked
+    on a leading axis) -> the port's ``MACE`` for ``cfg`` on ``device``."""
+    dev = resolve_device(device)
+    return _load(MACE(cfg, device=dev), params, cfg.name, dev)
 
 
 def two_tower_params_from_reference(params, cfg: RecsysConfig, *, device="cuda") -> TwoTower:

@@ -11,6 +11,8 @@ Each reference ``*_init`` / ``*_apply`` pair is an ``nn.Module``:
   float32, the variance in two passes as the reference takes it (mean of
   the squares; mean of the centred squares), cast back to the input's type.
 - ``Embedding``: a (vocab, d) table drawn normal * 0.02.
+- ``StackedLayers``: a layer list whose parameters are rows of one
+  stacked tensor each, as the reference stacks the LM's and MACE's layers.
 
 ``init_`` draws the reference's law from an explicit generator. The
 numbers differ from the reference's threefry draws;
@@ -131,6 +133,49 @@ class Embedding(nn.Module):
 
     def forward(self, ids):
         return self.table[ids.long()]
+
+
+class StackedLayers(nn.ModuleList):
+    """A layer list stacked as the reference stacks its layers: each
+    parameter of ``self[i]`` is row i of one (L, ...) tensor,
+    ``stacked[name]``, which the train step presents to the optimizer as one
+    leaf. ``Module.to`` and the other conversions, ``copy.deepcopy`` and
+    unpickling keep it so: they copy the layers, then stack them again."""
+
+    def __init__(self, layers=()):
+        super().__init__(layers)
+        self._stack()
+
+    @torch.no_grad()
+    def _stack(self) -> None:
+        self.stacked = {}
+        for name, p0 in list(self[0].named_parameters()) if len(self) else ():
+            stack = torch.empty((len(self),) + tuple(p0.shape), dtype=p0.dtype, device=p0.device)
+            owner, _, attr = name.rpartition(".")
+            for i, layer in enumerate(self):
+                p = layer.get_parameter(name)
+                stack[i].copy_(p)
+                setattr(layer.get_submodule(owner), attr,
+                        nn.Parameter(stack[i], requires_grad=p.requires_grad))
+            self.stacked[name] = stack
+
+    def _apply(self, fn, recurse=True):
+        super()._apply(fn, recurse)
+        self._stack()
+        return self
+
+    def __setstate__(self, state):
+        super().__setstate__(state)
+        self._stack()
+
+    def stack(self, name: str) -> torch.Tensor:
+        """The (L, ...) tensor of parameter ``name``; raises where a row is no
+        longer a view of it (a parameter rebound by hand)."""
+        stack = self.stacked[name]
+        for i, layer in enumerate(self):
+            if layer.get_parameter(name).data_ptr() != stack[i].data_ptr():
+                raise ValueError(f"{i}.{name} is no longer row {i} of its stacked tensor")
+        return stack
 
 
 # ---------------------------------------------------------------------------

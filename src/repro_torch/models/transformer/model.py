@@ -1,13 +1,16 @@
-"""Decoder-only transformer LM (port of the serving half of
-``repro.models.transformer.model``): ``TransformerConfig``, the model's
-parameters (dense GQA or MLA layers, dense or MoE feed-forwards, the MTP
-block), ``forward_hidden`` / ``prefill_logits``, and the KV-cache decode
-step, on one device or over a ``DeviceMesh``.
+"""Decoder-only transformer LM (port of ``repro.models.transformer.model``):
+``TransformerConfig``, the model's parameters (dense GQA or MLA layers,
+dense or MoE feed-forwards, the MTP block), ``forward_hidden`` /
+``prefill_logits``, the training loss ``lm_loss`` (chunked cross-entropy,
+MTP, the router's aux loss), and the KV-cache decode step, on one device
+or over a ``DeviceMesh``.
 
 The reference stacks its layers on a leading axis and scans over them;
 the port keeps one module a layer in ``dense_layers`` and ``moe_layers``
-(``nn.ModuleList``s; the layers run dense first, then MoE), and
-``interop.lm_params_from_reference`` unstacks the reference's layers in
+(``StackedLayers``; the layers run dense first, then MoE), each
+parameter of a list a row of one stacked tensor, so
+the optimizer sees the reference's stacked leaves;
+``interop.lm_params_from_reference`` loads the reference's layers in
 order. The cache is one (L, B, S, Hkv, dh) tensor for k and one for v
 (GQA), or one (L, B, S, r + dr) latent tensor ``c`` (MLA);
 ``decode_step`` writes each layer's new row into it in place and returns
@@ -33,31 +36,41 @@ projections run on the model's device. The MoE runs its expert-parallel
 branch (``moe.py``). A mesh whose model axis is 1 runs the one-device
 path, as the reference's does.
 
-The MTP block's parameters are built and loaded so every DeepSeek config
-ports whole; its loss waits with ``lm_loss`` and training (ROADMAP item
-14c, LM training). ``cfg.remat``, ``sequence_parallel`` and ``ce_chunk``
-shape training and layouts and do nothing here.
+Training (``lm_loss``) runs on one device. ``cfg.remat`` rematerialises
+each layer and each cross-entropy chunk in the backward where autograd
+records (``"full"``: nothing saved; ``"dots"``: the products without
+batch dimensions saved; ``"none"``: everything saved), as the reference's
+``jax.checkpoint`` policies do; the serving paths run under
+``inference_mode`` and never checkpoint. ``sequence_parallel`` shapes the
+reference's layouts and does nothing here.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 from typing import Any, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.common.device import check_generator, resolve_device
 from repro_torch.models.common.modules import (
     Dense,
     Embedding,
     RMSNorm,
+    StackedLayers,
     rope_frequencies,
     rotate_halves,
 )
 from repro_torch.models.recsys.models import fill_normal_
 from repro_torch.models.transformer import attention as attn
-from repro_torch.models.transformer.moe import MoE, SwiGLU
+from repro_torch.models.transformer.moe import MoE, SwiGLU, router_aux_loss
 
 
 @dataclasses.dataclass(frozen=True)
@@ -181,8 +194,8 @@ class Transformer(nn.Module):
         self.embed = Embedding(cfg.vocab_padded, cfg.d_model, **kw)
         self.final_norm = RMSNorm(cfg.d_model, eps=cfg.norm_eps, **kw)
         self.lm_head = Dense(cfg.d_model, cfg.vocab_padded, **kw)
-        self.dense_layers = nn.ModuleList(Layer(cfg, device) for _ in range(cfg.n_dense))
-        self.moe_layers = nn.ModuleList(Layer(cfg, device, "moe") for _ in range(cfg.n_moe))
+        self.dense_layers = StackedLayers(Layer(cfg, device) for _ in range(cfg.n_dense))
+        self.moe_layers = StackedLayers(Layer(cfg, device, "moe") for _ in range(cfg.n_moe))
         if cfg.mtp:
             self.mtp = MTP(cfg, device)
 
@@ -219,6 +232,26 @@ def _layer_apply(cfg: TransformerConfig, lp: Layer, x, positions, mi):
     return x + lp.feed_forward(lp.ln2(x), mi)
 
 
+# The products a "dots" remat saves: jax's dots_with_no_batch_dims_saveable.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: TransformerConfig, fn, *args):
+    """fn(*args), under ``cfg.remat``'s checkpoint where autograd records."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+    elif cfg.remat != "full":
+        raise ValueError(f"unknown remat {cfg.remat!r}")
+    return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
 def forward_hidden(model: Transformer, tokens, mi=None):
     """tokens (B, S) int32 -> hidden states (B, S, D) in the compute dtype.
     ``mi`` (a ``MeshInfo``) decides the MoE's branch."""
@@ -226,8 +259,75 @@ def forward_hidden(model: Transformer, tokens, mi=None):
     x = model.embed.table[tokens.long()].to(cfg.compute_dtype)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     for lp in model.layers():
-        x = _layer_apply(cfg, lp, x, positions, mi)
+        x = _remat(cfg, functools.partial(_layer_apply, cfg, lp, positions=positions, mi=mi), x)
     return model.final_norm(x)
+
+
+def _ce_chunk(lm_head: nn.Module, hc, lc, wc):
+    """sum((logsumexp - label logit) * w) over one chunk, float32: the logits
+    ``hc @ lm_head`` in the compute dtype, then float32."""
+    logits = lm_head(hc).float()
+    ll = torch.gather(logits, -1, lc.long()[..., None])[..., 0]  # the masked max's value
+    return ((torch.logsumexp(logits, dim=-1) - ll) * wc).sum()
+
+
+def _chunked_ce(cfg: TransformerConfig, h, lm_head: nn.Module, labels, weights):
+    """Cross-entropy over ``cfg.ce_chunk`` positions at a time, never the
+    whole (B, S, V) logits: sum((lse - ll) * w) / max(sum(w), 1), the sums
+    float32 in chunk order; each chunk under ``cfg.remat``'s checkpoint, so
+    its float32 logits live one chunk at a time in the backward too."""
+    s = h.shape[1]
+    chunk = min(cfg.ce_chunk, s)
+    if s % chunk:
+        raise ValueError(f"a sequence of {s} does not split into chunks of {chunk}")
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    wsum = torch.zeros((), dtype=torch.float32, device=h.device)
+    for lo in range(0, s, chunk):
+        part = slice(lo, lo + chunk)
+        tot = tot + _remat(cfg, functools.partial(_ce_chunk, lm_head), h[:, part],
+                           labels[:, part], weights[:, part])
+        wsum = wsum + weights[:, part].sum()
+    return tot / torch.clamp_min(wsum, 1.0)
+
+
+def _shifted(tokens, k: int):
+    """(tokens shifted left by k, the first k wrapped to the end; float32
+    weights 1, 0 on the last k positions)."""
+    labels = torch.cat([tokens[:, k:], tokens[:, :k]], dim=1)
+    weights = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
+    weights[:, -k:] = 0.0
+    return labels, weights
+
+
+def lm_loss(model: Transformer, batch: dict, mi=None):
+    """batch {"tokens": (B, S) int32} -> (loss, metrics): next-token CE,
+    plus ``mtp_coef`` x the MTP block's CE of the token after next (with
+    ``cfg.mtp``), plus ``router_aux_coef`` x the last MoE layer's router
+    aux loss on the final normed hidden states (the reference's cheap
+    proxy). metrics: ``ce``, ``mtp_ce``, ``router_aux`` where they apply,
+    and ``loss``."""
+    cfg = model.cfg
+    tokens = batch["tokens"]
+    h = forward_hidden(model, tokens, mi)
+    labels, weights = _shifted(tokens, 1)
+    loss = _chunked_ce(cfg, h, model.lm_head, labels, weights)
+    metrics = {"ce": loss}
+    if cfg.mtp:
+        # Token t + 2 from [h_t ; emb(token_{t+1})] through one dense block.
+        emb_next = model.embed.table[labels.long()].to(cfg.compute_dtype)
+        h2 = model.mtp.proj(torch.cat([h.to(cfg.compute_dtype), emb_next], dim=-1))
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        h2 = model.mtp.norm(_layer_apply(cfg, model.mtp.layer, h2, positions, mi))
+        labels2, weights2 = _shifted(tokens, 2)
+        mtp_loss = _chunked_ce(cfg, h2, model.lm_head, labels2, weights2)
+        metrics["mtp_ce"] = mtp_loss
+        loss = loss + cfg.mtp_coef * mtp_loss
+    if cfg.is_moe and cfg.router_aux_coef > 0:
+        aux = router_aux_loss(model.moe_layers[-1].ffn, cfg, h)
+        metrics["router_aux"] = aux
+        loss = loss + cfg.router_aux_coef * aux
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 def prefill_logits(model: Transformer, tokens, mi=None):

@@ -1,11 +1,13 @@
 """Analytic roofline model for one NVIDIA H100 (port of the kernel, AIRSHIP,
-recsys and LM-serving parts of ``repro.roofline.model``).
+recsys, LM and MACE parts of ``repro.roofline.model``).
 
 Every bound is the larger of two times: the bytes the work must move over
 the card's memory rate, and its operations over the card's peak rate for
-their type. The port computes in float32 outside the tensor cores (TF32
-off), so ``PEAK_FLOPS`` is that rate; the LM's bf16 projections run on the
-tensor cores, and ``lm_serve_bound`` counts them at ``BF16_FLOPS``.
+their operands' type, whatever precision the port's code computes in:
+bf16 operands at ``BF16_FLOPS`` (the tensor cores' rate), float32 ones at
+``FP32_FLOPS`` (outside the tensor cores, TF32 off). The kernels' search
+arithmetic is float32, so ``PEAK_FLOPS`` is that rate; the LM and MACE
+bounds take the rate of their config's dtype.
 
 Hardware constants: one NVIDIA H100 SXM5 80GB (NVIDIA H100 Tensor Core GPU
 data sheet, SXM column; dense rates at the full 700 W power limit; the
@@ -82,7 +84,7 @@ class RooflineTerms:
 
 
 # ---------------------------------------------------------------------------
-# LM transformers (serving; lm_train_terms waits with LM training, item 14c)
+# LM transformers
 # ---------------------------------------------------------------------------
 def _lm_matmul_params(cfg) -> tuple[float, float]:
     """(total matmul params, active matmul params per token), the
@@ -117,6 +119,29 @@ def _lm_attn_flops_fwd(cfg, batch: int, s_q: int, s_kv: int) -> float:
     dh_qk = cfg.d_nope + cfg.d_rope if cfg.attn_type == "mla" else cfg.head_dim
     dh_v = cfg.d_v if cfg.attn_type == "mla" else cfg.head_dim
     return 2.0 * batch * cfg.n_heads * s_q * s_kv * (dh_qk + dh_v) * cfg.n_layers
+
+
+def lm_train_terms(cfg, batch: int, seq: int, chips: int, grad_accum: int = 1):
+    """(flops, hbm_bytes, coll_bytes, model_flops) of one train step of
+    ``batch`` x ``seq`` tokens, the reference's terms: the products 6
+    flops a parameter a token (8 under full remat, the forward again),
+    attention's forward, its recompute and the FA2 backward (2.5 x);
+    the parameters read and written 5 times in bf16, about 24 (T, D)
+    activation passes a layer; the collective assumes a 16-way model
+    axis."""
+    tokens = batch * seq
+    total_p, active_p = _lm_matmul_params(cfg)
+    remat_mult = 8.0 if cfg.remat == "full" else 6.0
+    mm_flops = remat_mult / 2.0 * 2.0 * active_p * tokens
+    attn_flops = _lm_attn_flops_fwd(cfg, batch, seq, seq) * (1.0 + 1.0 + 2.5)
+    flops = mm_flops + attn_flops
+    model_flops = 6.0 * active_p * tokens
+    p_bytes = total_p * 2.0
+    hbm = p_bytes * 5.0 + 12.0 * 2.0 * cfg.n_layers * tokens * cfg.d_model * 2.0
+    t_local = tokens / max(chips / 16, 1)
+    layer_ar = 4.0 * t_local * cfg.d_model * 2.0 * cfg.n_layers * grad_accum
+    coll = layer_ar + 3.0 * p_bytes / 16
+    return flops, hbm, coll, model_flops
 
 
 def lm_prefill_terms(cfg, batch: int, seq: int, chips: int):
@@ -154,15 +179,29 @@ def lm_decode_terms(cfg, batch: int, s_cache: int, chips: int):
     return flops, hbm, coll, model_flops
 
 
+def _rate(dtype) -> float:
+    """The card's peak rate for operands of ``dtype``."""
+    return BF16_FLOPS if dtype in (torch.bfloat16, torch.float16) else FP32_FLOPS
+
+
+def _lm_bound(cfg, flops_attn: float, flops_proj: float, hbm: float) -> dict:
+    """The attention products over the rate of the activations' dtype
+    (``cfg.compute_dtype``), the projections over that of the weights'
+    (``cfg.param_dtype``), the bytes over ``HBM_BW``."""
+    t_compute = flops_attn / _rate(cfg.compute_dtype) + flops_proj / _rate(cfg.param_dtype)
+    t_memory = hbm / HBM_BW
+    return dict(flops_attn=flops_attn, flops_proj=flops_proj, hbm_bytes=hbm, t_compute=t_compute,
+                t_memory=t_memory, bound_s=max(t_compute, t_memory),
+                bound_by="operations" if t_compute > t_memory else "bytes")
+
+
 def lm_serve_bound(cfg, kind: str, batch: int, seq: int) -> dict:
     """The least time one card could take for a prefill (``kind``
     "prefill": ``batch`` x ``seq`` tokens) or one decode step ("decode":
     ``batch`` tokens over a ``seq``-token cache), from the reference's
-    terms on one chip: the attention products (float32 in the port, TF32
-    off) over ``FP32_FLOPS``, the projections over ``BF16_FLOPS`` where
-    the weights are bf16 (else ``FP32_FLOPS``), the bytes over
-    ``HBM_BW``. -> {"flops_attn", "flops_proj", "hbm_bytes", "t_compute",
-    "t_memory", "bound_s", "bound_by"}."""
+    terms on one chip, counted as ``_lm_bound`` does. -> {"flops_attn",
+    "flops_proj", "hbm_bytes", "t_compute", "t_memory", "bound_s",
+    "bound_by"}."""
     _, active_p = _lm_matmul_params(cfg)
     if kind == "prefill":
         flops, hbm, _, _ = lm_prefill_terms(cfg, batch, seq, 1)
@@ -172,12 +211,59 @@ def lm_serve_bound(cfg, kind: str, batch: int, seq: int) -> dict:
         flops_proj = 2.0 * active_p * batch
     else:
         raise ValueError(f"unknown kind {kind!r}")
-    flops_attn = flops - flops_proj
-    proj_rate = BF16_FLOPS if cfg.param_dtype == torch.bfloat16 else FP32_FLOPS
-    t_compute = flops_attn / FP32_FLOPS + flops_proj / proj_rate
-    t_memory = hbm / HBM_BW
-    return dict(flops_attn=flops_attn, flops_proj=flops_proj, hbm_bytes=hbm, t_compute=t_compute,
-                t_memory=t_memory, bound_s=max(t_compute, t_memory),
+    return _lm_bound(cfg, flops - flops_proj, flops_proj, hbm)
+
+
+def lm_train_bound(cfg, batch: int, seq: int, grad_accum: int = 1) -> dict:
+    """The least time one card could take for one train step of ``batch`` x
+    ``seq`` tokens, from ``lm_train_terms`` on one chip, counted as
+    ``_lm_bound`` does (the projections ``remat`` x 2 flops a parameter a
+    token). -> the keys of ``lm_serve_bound``."""
+    flops, hbm, _, _ = lm_train_terms(cfg, batch, seq, 1, grad_accum)
+    flops_attn = _lm_attn_flops_fwd(cfg, batch, seq, seq) * (1.0 + 1.0 + 2.5)
+    return _lm_bound(cfg, flops_attn, flops - flops_attn, hbm)
+
+
+# ---------------------------------------------------------------------------
+# MACE GNN
+# ---------------------------------------------------------------------------
+def mace_terms(cfg, n_nodes: int, n_edges: int, chips: int, mode: str):
+    """(flops, hbm_bytes, coll_bytes, model_flops) of one MACE train step,
+    the reference's terms: per edge the radial MLP and 13 message
+    components, per node the 8K -> K update and ~40 K flops of invariants,
+    6 x the forward (its backward and the force's double backward); 16
+    float32 (E, K) and 13 + d_feat (N, K) passes a layer, 3 times; one
+    all-gather of h a layer in the dst-partitioned layout."""
+    k = cfg.d_hidden
+    edge_flops = n_edges * (
+        2 * (cfg.n_rbf * cfg.d_radial_mlp + cfg.d_radial_mlp * 3 * k) + 2 * 13 * k)
+    node_flops = n_nodes * (2 * 8 * k * k + 40 * k)
+    fwd = (edge_flops + node_flops) * cfg.n_layers
+    flops = fwd * 6.0
+    feat = cfg.d_feat if cfg.d_feat else cfg.n_species
+    hbm = (n_edges * (13 + 3) * k * 4.0 * cfg.n_layers * 3.0
+           + n_nodes * (13 * k + feat) * 4.0 * 3.0)
+    if mode == "dst_partitioned":
+        coll = cfg.n_layers * 3.0 * n_nodes * k * 2.0
+    elif mode == "simple":
+        coll = 0.0
+    else:
+        coll = n_nodes * k * 4.0
+    return flops, hbm, coll, flops
+
+
+def mace_bound(cfg, n_nodes: int, n_edges: int, mode: str) -> dict:
+    """The least time one card could take for one MACE train step, from
+    ``mace_terms`` on one chip (no collective: every shard is on the card):
+    the flops over the rate of ``cfg.compute_dtype``, the bytes (the
+    reference's terms count 4 B an element) at that dtype's width over
+    ``HBM_BW``. -> {"flops", "hbm_bytes", "t_compute", "t_memory",
+    "bound_s", "bound_by"}."""
+    flops, hbm, _, _ = mace_terms(cfg, n_nodes, n_edges, 1, mode)
+    hbm *= torch.empty((), dtype=cfg.compute_dtype).element_size() / 4.0
+    t_compute, t_memory = flops / _rate(cfg.compute_dtype), hbm / HBM_BW
+    return dict(flops=flops, hbm_bytes=hbm, t_compute=t_compute, t_memory=t_memory,
+                bound_s=max(t_compute, t_memory),
                 bound_by="operations" if t_compute > t_memory else "bytes")
 
 

@@ -4,6 +4,7 @@ from repro_torch.train.optimizer import Optimizer, adafactor, adamw, apply_updat
 from repro_torch.train.train_step import (
     clip_by_global_norm,
     global_norm,
+    gradients,
     make_train_step,
     reference_key,
     reference_layout,
@@ -16,6 +17,7 @@ __all__ = [
     "apply_updates",
     "clip_by_global_norm",
     "global_norm",
+    "gradients",
     "make_train_step",
     "reference_key",
     "reference_layout",

@@ -18,8 +18,11 @@ reciprocal of a host scalar). Unlike the reference's pure functions,
 that state, and AdamW writes each update into its gradient's buffer where
 that is a float32 tensor of its own (the gradients are consumed), so the
 step holds params, grads and two moments and no more than two more
-tensors of one leaf's size; ``apply_updates`` adds in place. The reference's ``state_specs`` (PartitionSpecs of the
-state for ZeRO-style sharding) has no counterpart on one controller.
+tensors of one leaf's size; Adafactor computes its step in vhat's buffer
+and squares it into g^2's, so it holds at most three float32 tensors of
+one leaf's size beside the state. ``apply_updates`` adds in place. The
+reference's ``state_specs`` (PartitionSpecs of the state for ZeRO-style
+sharding) has no counterpart on one controller.
 """
 from __future__ import annotations
 
@@ -127,24 +130,26 @@ def adafactor(lr: float = 1e-2, decay: float = 0.8, eps: float = 1e-30,
         for k, g in grads.items():
             p, vr, vc = params[k], state["vr"][k], state["vc"][k]
             g32 = g.float()
-            g2 = g32 * g32 + eps
+            g2 = torch.mul(g32, g32).add_(eps)
             if factored(p):
                 vr.copy_(beta2 * vr + one_minus * g2.mean(-1))
                 vc.copy_(beta2 * vc + one_minus * g2.mean(-2))
                 denom = torch.maximum(vr.mean(-1, keepdim=True), _f32(eps, vr))
-                vhat = (vr[..., None] / denom[..., None]) * vc[..., None, :]
-                step = g32 / torch.sqrt(vhat + eps)
+                step = (vr[..., None] / denom[..., None]) * vc[..., None, :]  # vhat
             else:
                 vr.copy_(beta2 * vr + one_minus * g2)
-                step = g32 / torch.sqrt(vr + eps)
-            # Update clipping (RMS-based), per Adafactor.
-            rms = torch.sqrt((step * step).mean() + 1e-30)
-            step = step / torch.maximum(_f32(1.0, rms), rms / _f32(clip_threshold, rms))
+                step = vr.clone()
+            step = torch.div(g32, step.add_(eps).sqrt_(), out=step)
+            # Update clipping (RMS-based), per Adafactor; the square into g2's
+            # buffer.
+            rms = torch.sqrt(torch.mul(step, step, out=g2).mean() + 1e-30)
+            del g2
+            step.div_(torch.maximum(_f32(1.0, rms), rms / _f32(clip_threshold, rms)))
             if momentum is not None:
                 m = state["m"][k]
-                step = momentum * m.float() + step
+                step.add_(m.float().mul_(momentum))  # momentum * m + step
                 m.copy_(step)  # rounds to momentum_dtype
-            updates[k] = (-lr * step).to(p.dtype)
+            updates[k] = step.mul_(-lr).to(p.dtype)
         return updates, dict(state, count=count)
 
     return Optimizer(init=init, update=update)

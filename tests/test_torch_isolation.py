@@ -61,8 +61,16 @@ from repro_torch.models.recsys import (
     two_tower_init,
 )
 from repro_torch.models.recsys.models import TwoTower
+from repro_torch.models.gnn import MACE, MACEConfig, sample_subgraph
+from repro_torch.models.gnn import init_params as mace_init
+from repro_torch.models.gnn.distributed import dst_partitioned_loss, partition_by_destination
 from repro_torch.models.transformer import Transformer, init_cache, init_params
+from repro_torch.models.transformer.model import lm_loss
+from repro_torch.archs.gnn import GNNArch
+from repro_torch.data import gnn_batch
+from repro_torch.interop import mace_params_from_reference
 from repro_torch.train import reference_layout
+from repro_torch.train.parity import step_readings
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro")
@@ -106,7 +114,9 @@ def test_no_reference_imports():
             "common/distances.py", "kernels/embedding_bag.py", "interop.py",
             "models/common/flash.py", "models/transformer/__init__.py",
             "models/transformer/attention.py", "models/transformer/model.py", "archs/lm.py",
-            "configs/lm_configs.py", "models/transformer/moe.py"} <= walked
+            "configs/lm_configs.py", "models/transformer/moe.py", "models/gnn/__init__.py",
+            "models/gnn/mace.py", "models/gnn/sampler.py", "models/gnn/distributed.py",
+            "archs/gnn.py", "train/parity.py"} <= walked
     bad = {str(p.relative_to(ROOT)): sorted(_imported_roots(p) & set(FORBIDDEN))
            for p in files if _imported_roots(p) & set(FORBIDDEN)}
     assert not bad, bad
@@ -236,14 +246,26 @@ def test_tensor_creators_default_to_cuda_and_raise_without_it():
         sasrec_params_from_reference(sasrec_init(g, sas, device="cpu").state_dict(), sas)
     with pytest.raises(RuntimeError, match="CUDA"):
         lm_params_from_reference({}, lm_cfg)
+    # LM training and MACE
+    mace_cfg = MACEConfig(d_hidden=4, n_rbf=2)
+    for make in (lambda: get_arch("smoke-gqa").make_cell("train_4k").make_inputs(0),
+                 lambda: MACE(mace_cfg), lambda: mace_init(g, mace_cfg),
+                 lambda: gnn_batch(0, 0, 4, 4), lambda: mace_params_from_reference({}, mace_cfg),
+                 lambda: get_arch("smoke-mace").make_cell("molecule").make_inputs(0)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    assert all(p.device.type == "cpu" for p in MACE(mace_cfg, device="cpu").parameters())
+    assert callable(lm_loss) and callable(dst_partitioned_loss)
+    assert callable(partition_by_destination) and callable(sample_subgraph)
+    assert isinstance(get_arch("mace"), GNNArch)
 
 
 def test_no_module_waits_for_items_11b_or_12():
     """The launcher's flags, the package docstrings and the models no longer
-    name ROADMAP item 11b, 12 or 14b as missing; the launcher takes
+    name ROADMAP item 11b, 12, 14b, 14c or 14d as missing; the launcher takes
     --serve-http, --replicas, --router and --distributed."""
     bad = {str(p.relative_to(ROOT)) for p in _port_files()
-           if any(f"item {i}" in p.read_text() for i in ("11b", "12", "14b"))}
+           if any(f"item {i}" in p.read_text() for i in ("11b", "12", "14b", "14c", "14d"))}
     assert not bad, bad
     args = serve.parse_args(["--serve-http", "0", "--replicas", "2", "--router",
                              "least-loaded", "--distributed"])

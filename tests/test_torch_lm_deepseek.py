@@ -25,7 +25,9 @@ cross through ``interop.lm_params_from_reference``. Checked:
   ``lm_decode_terms``) equal the reference's for both DeepSeek configs;
 - the cells: ``make_cell`` serves ``smoke-mla-moe`` on one device and over
   a (1, 4) mesh of the CPU (the cache laid out as four sequence shards);
-  train_4k raises, naming LM training.
+  train_4k builds its step on one device and refuses a mesh, naming
+  ROADMAP item 14e (the step is held to the reference's in
+  test_torch_lm_train.py).
 """
 import dataclasses
 
@@ -191,5 +193,6 @@ def test_cells_serve_on_one_device_and_a_mesh():
     close(mesh_logits.numpy(), logits.numpy(), rtol=1e-6)
     with pytest.raises(ValueError, match="layout"):
         decode_step(model, cache, tok, mi)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14c .LM training"):
-        arch.make_cell("train_4k")
+    assert arch.make_cell("train_4k").kind == "train"
+    with pytest.raises(NotImplementedError, match="ROADMAP item 14e"):
+        arch.make_cell("train_4k", mi)

@@ -164,18 +164,19 @@ def test_configs_and_registry_match_reference():
     # test_torch_lm_deepseek.py
     lm_names = {"granite-3-2b", "command-r-35b", "command-r-plus-104b", "smoke-gqa",
                 "deepseek-v2-236b", "deepseek-v3-671b", "smoke-mla-moe"}
-    assert list_archs() == sorted(set(pairs) | lm_names)
+    # the MACE archs, compared in test_torch_gnn_arch.py
+    gnn_names = {"mace", "smoke-mace"}
+    assert list_archs() == sorted(set(pairs) | lm_names | gnn_names)
     for name, ref_arch in pairs.items():
         arch = get_arch(name)
         assert arch.cfg == port_cfg(ref_arch.cfg) and arch.shapes == ref_arch.shapes, name
         assert arch.shape_names() == ref_arch.shape_names()
     for name in set(ASSIGNED) | {"smoke-mla-moe", "smoke-mace", "airship-sift1m"}:
-        if name in pairs or name in lm_names:
+        if name in pairs or name in lm_names or name in gnn_names:
             continue
-        with pytest.raises(NotImplementedError, match="ROADMAP item 14[de]"):
+        with pytest.raises(NotImplementedError, match="ROADMAP item 14e"):
             get_arch(name)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14d"):
-        get_arch("mace")
+    assert get_arch("mace").family == "gnn"
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
     gnn = RecsysConfig(name="g", model="gnn", embed_dim=4)

@@ -3,10 +3,13 @@ reference's (``repro.roofline.model``) on the CPU: kernel flops where the
 reference pads nothing, kernel bytes as the reference's plus the named
 terms it leaves out, ``prune_configs``' rule, ``RooflineTerms``'
 arithmetic, and ``airship_terms`` (at tp = 16) and ``recsys_terms`` equal
-to the reference's on the published configs."""
+to the reference's on the published configs; ``lm_train_terms`` and
+``mace_terms`` equal to the reference's, and the card's bounds built from
+them at the rate and width of their operands' type."""
 import dataclasses
 
 import pytest
+import torch
 
 from repro.archs.airship import AirshipServeConfig as RefAirshipConfig
 from repro.archs.recsys import RECSYS_SHAPES
@@ -171,3 +174,48 @@ def test_two_tower_serve_terms_are_the_reference_less_what_serving_skips(batch):
     assert hbm == r_hbm + batch * (2 + cfg.hist_len) * 4.0 + batch * 4.0
     fewer = model.two_tower_serve_terms(cfg, batch, hist_rows=batch)[1]
     assert hbm - fewer == batch * (cfg.hist_len - 1) * d * 4.0
+
+
+LM_NAMES = ("granite-3-2b", "command-r-35b", "command-r-plus-104b", "deepseek-v2-236b",
+            "deepseek-v3-671b")
+
+
+@pytest.mark.parametrize("name", LM_NAMES)
+def test_lm_train_terms_equal_the_reference_and_bound_the_card(name):
+    from repro.archs.base import get_arch as ref_get_arch
+    from repro_torch.archs import get_arch
+
+    ref_arch, arch = ref_get_arch(name), get_arch(name)
+    sh = arch.shapes["train_4k"]
+    b, s = sh["global_batch"], sh["seq_len"]
+    for chips in (1, 256):
+        assert model.lm_train_terms(arch.cfg, b, s, chips, arch.grad_accum) == pytest.approx(
+            ref_model.lm_train_terms(ref_arch.cfg, b, s, chips, ref_arch.grad_accum), rel=1e-12)
+    flops, hbm, _, _ = model.lm_train_terms(arch.cfg, b, s, 1, arch.grad_accum)
+    bd = model.lm_train_bound(arch.cfg, b, s, arch.grad_accum)
+    assert bd["flops_attn"] + bd["flops_proj"] == pytest.approx(flops)
+    # bf16 activations and weights: every product at the tensor cores' rate
+    assert bd["t_compute"] == pytest.approx(flops / model.BF16_FLOPS)
+    assert bd["t_memory"] == pytest.approx(hbm / model.HBM_BW)
+    assert bd["bound_s"] == max(bd["t_compute"], bd["t_memory"])
+
+
+def test_mace_terms_equal_the_reference_and_bound_the_card():
+    from repro.archs.base import get_arch as ref_get_arch
+    from repro_torch.archs import get_arch
+    from repro_torch.archs.gnn import graph_size
+
+    arch, ref_arch = get_arch("mace"), ref_get_arch("mace")
+    for shape, sh in arch.shapes.items():
+        n, e = graph_size(sh)
+        for chips in (1, 4):
+            got = model.mace_terms(arch.cfg_for(shape), n, e, chips, sh["mode"])
+            want = ref_model.mace_terms(ref_arch._cfg_for(sh), n, e, chips, sh["mode"])
+            assert got == pytest.approx(want, rel=1e-12), shape
+        bd = model.mace_bound(arch.cfg_for(shape), n, e, sh["mode"])
+        bf16 = sh["mode"] == "dst_partitioned"  # the one cell that computes in bf16
+        assert arch.cfg_for(shape).compute_dtype == (torch.bfloat16 if bf16 else torch.float32)
+        rate, width = (model.BF16_FLOPS, 2.0) if bf16 else (model.FP32_FLOPS, 4.0)
+        assert bd["t_compute"] == pytest.approx(got[0] / rate)
+        assert bd["t_memory"] == pytest.approx(got[1] * width / 4.0 / model.HBM_BW)
+        assert bd["bound_by"] == ("operations" if bd["t_compute"] > bd["t_memory"] else "bytes")

@@ -21,7 +21,10 @@ Inputs are numpy draws from a seed, handed to both. Tolerances:
   column means and the RMS are reductions whose summation order differs
   from XLA's, and ``0.9 m + step`` (contracted by XLA) can cancel.
 - ``global_norm``: the leaves' squares summed in the reference's leaf order,
-  within 1e-6 relative (each leaf's own sum has XLA's order).
+  within 1e-6 relative (each leaf's own sum has XLA's order). Clipping
+  scales a leaf in place, except one whose buffer another leaf shares
+  (autograd hands ``a + b``'s two parameters one gradient tensor): each
+  is scaled once, bit for bit.
 - ``make_train_step(grad_accum=2, clip_norm)``: the new parameters within
   1e-6 absolute (lr 1e-3 updates of unit-scale parameters) after two steps.
 """
@@ -172,6 +175,18 @@ def test_global_norm_and_clipping_in_reference_leaf_order():
                                        rtol=2e-6, atol=0)
         if max_norm > want:
             assert all(np.array_equal(clipped[k].numpy(), tree[k]) for k in tree)
+
+
+def test_clipping_scales_a_shared_gradient_once():
+    a, b = torch.zeros(4, requires_grad=True), torch.zeros(4, requires_grad=True)
+    ga, gb = torch.autograd.grad((3.0 * (a + b)).sum(), [a, b])
+    assert ga.data_ptr() == gb.data_ptr()
+    own = torch.full((4,), 3.0)
+    clipped, norm = clip_by_global_norm({"a": ga, "b": gb, "c": own}, 1.0)
+    scale = 1.0 / float(norm)
+    assert float(norm) == pytest.approx(108.0 ** 0.5) and clipped["c"] is own  # in place
+    for k in "abc":
+        assert torch.equal(clipped[k], torch.full((4,), 3.0) * torch.tensor(scale))
 
 
 def port_cfg(ref_cfg):
