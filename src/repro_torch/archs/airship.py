@@ -7,7 +7,7 @@ Corpus + per-shard subgraphs are split by rows over ``model``
 data axes. The serve step is the full constrained graph search
 (mode=prefer) + one gather-and-merge of every shard's top-k. Plain
 functions: no ``AirshipArch`` in the registry (``archs/base.py``) and no
-abstract shapes; the dry run's AIRSHIP cells are ROADMAP item 14e.
+abstract shapes; the dry run's AIRSHIP cells are ROADMAP item 14e, part 3.
 """
 from __future__ import annotations
 

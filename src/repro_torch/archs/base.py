@@ -4,14 +4,16 @@ plus a function that builds the step's inputs on a device.
 
 The reference's ``CellSpec`` also carries abstract input shapes and their
 PartitionSpecs, which its dry run lowers and compiles; the port runs
-eagerly on one controller, so ``make_inputs`` takes their place. Names the
+eagerly on one controller, so ``make_inputs`` takes the place of the
+shapes, and a train cell built over a mesh carries its parameters'
+layout in ``specs`` (``distributed/layout.py``). Names the
 port lacks (the AIRSHIP cells of the dry run) raise with the ROADMAP item
 that ports them.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 
 @dataclasses.dataclass
@@ -20,6 +22,7 @@ class CellSpec:
     kind: str  # train | serve
     fn: Callable  # positional args: make_inputs' tuple
     make_inputs: Callable[..., tuple]  # (seed=0, device="cuda") -> fn's positional args
+    specs: Optional[Dict[str, tuple]] = None  # parameter name -> its spec over the cell's mesh
 
 
 class Arch:

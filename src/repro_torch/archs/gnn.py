@@ -10,9 +10,11 @@ regimes, each one AdamW step (lr 1e-3, gradients clipped at global norm
   * molecule: batched small graphs (128 molecules), a per-graph energy.
 
 Non-molecular graphs carry no 3-D coordinates; positions are synthesized
-and ``d_feat`` enters through the feature projection. The cells run on
-one device; ``make_cell(shape, mi)`` takes ``mi`` for the dst-partitioned
-layout's shards (default: one shard), all on that device.
+and ``d_feat`` enters through the feature projection. ``make_cell(shape,
+mi)`` takes ``mi`` for the dst-partitioned layout's shards (default: one
+shard), each on its mesh position's device; the other modes run on the
+model's device, as the reference replicates them. A cell over a mesh
+carries the reference's parameter layout in ``specs`` (every leaf whole).
 """
 from __future__ import annotations
 
@@ -123,5 +125,7 @@ class GNNArch(Arch):
             return model, opt.init(reference_layout(model)), self.batch(shape, seed, 0, dev, mi)
 
         step = make_train_step(self.loss_fn(shape, mi), opt, clip_norm=1.0)
+        mesh = mi is not None and len(mi.mesh.devices) > 1
         return CellSpec(name=f"{self.name}:{shape}", kind="train", fn=step,
-                        make_inputs=make_inputs)
+                        make_inputs=make_inputs,
+                        specs=gm.param_specs(cfg, mi) if mesh else None)

@@ -6,8 +6,11 @@ transformer, the serve cells on one device or over a mesh
 train_4k is one step of ``lm_loss`` through ``make_train_step`` with the
 arch's optimizer (Adafactor lr 1e-3 with momentum 0.9, or AdamW lr 3e-4
 with weight decay 0.1), gradients clipped at global norm 1.0, and the
-arch's ``grad_accum`` microbatches; it runs on one device (training over
-a mesh is ROADMAP item 14e).
+arch's ``grad_accum`` microbatches, on one device or over a mesh: there
+the MoE runs its expert-parallel branch, forward and backward, each data
+group computing its own capacity as the reference's ``shard_map`` does,
+and the cell's ``specs`` give the reference's parameter layout
+(``model.param_specs``).
 
 prefill_32k runs the full sequence and returns the last position's
 logits. decode_32k and long_500k run one decode step: one new token a
@@ -71,12 +74,12 @@ class LMArch(Arch):
             return adafactor(lr=1e-3, momentum=0.9)
         return adamw(lr=3e-4, weight_decay=0.1)
 
-    def loss(self, model, batch):
-        return tm.lm_loss(model, batch)
+    def loss(self, model, batch, mi=None):
+        return tm.lm_loss(model, batch, mi)
 
     def make_cell(self, shape: str, mi=None) -> CellSpec:
         """train_4k: ``fn(model, opt_state, batch) -> (model, opt_state,
-        metrics)``, on one device (``mi`` is refused). prefill: ``fn(model,
+        metrics)``, over ``mi`` where given. prefill: ``fn(model,
         tokens)``; decode cells: ``fn(model, cache, tokens) -> (logits,
         cache)``, over ``mi`` where given (the MoE's expert-parallel branch,
         the sequence-sharded cache). ``make_inputs(seed, device)`` draws the
@@ -89,8 +92,7 @@ class LMArch(Arch):
         b, s = sh["global_batch"], sh["seq_len"]
         name = f"{self.name}:{shape}"
         if sh["kind"] == "train":
-            if mi is not None and len(mi.mesh.devices) > 1:
-                raise NotImplementedError(f"{name}: training over a mesh is ROADMAP item 14e")
+            mesh = mi if mi is not None and len(mi.mesh.devices) > 1 else None
             opt = self.optimizer()
 
             def make_train_inputs(seed: int = 0, device="cuda"):
@@ -100,8 +102,10 @@ class LMArch(Arch):
                 batch = lm_batch(seed, 0, b, s, cfg.vocab_size, device=dev)
                 return model, opt.init(reference_layout(model)), batch
 
-            step = make_train_step(self.loss, opt, clip_norm=1.0, grad_accum=self.grad_accum)
-            return CellSpec(name=name, kind="train", fn=step, make_inputs=make_train_inputs)
+            step = make_train_step(functools.partial(self.loss, mi=mesh), opt, clip_norm=1.0,
+                                   grad_accum=self.grad_accum)
+            return CellSpec(name=name, kind="train", fn=step, make_inputs=make_train_inputs,
+                            specs=None if mesh is None else tm.param_specs(cfg, mesh))
         prefill = shape.startswith("prefill")
 
         def make_inputs(seed: int = 0, device="cuda"):

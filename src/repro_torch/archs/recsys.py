@@ -152,13 +152,17 @@ class RecsysArch(Arch):
     def shape_names(self):
         return list(self.shapes)
 
-    def loss(self, model, batch):
-        """(loss, {"loss": loss}) of the model's objective."""
-        return _LOSS[self.cfg.model](model, batch)
+    def loss(self, model, batch, mi=None):
+        """(loss, {"loss": loss}) of the model's objective, its tables read
+        over ``mi``'s layout where given (``models.mesh_lookup``)."""
+        return _LOSS[self.cfg.model](model, batch, mi)
 
     def make_cell(self, shape: str, mi: Optional[MeshInfo] = None) -> CellSpec:
         """train_batch: ``fn(model, opt_state, batch) -> (model, opt_state,
-        metrics)``, one AdamW step (lr 1e-3) in place. Serve shapes:
+        metrics)``, one AdamW step (lr 1e-3) in place; over ``mi`` (a mesh of
+        more than one position) the tables are read in the reference's
+        layout, which ``specs`` gives (``models.param_specs``), the batch
+        split over the data groups. Serve shapes:
         ``fn(model, batch)`` (``serve_fn``). ``make_inputs(seed, device)``
         draws the model from ``seed`` and the batch of step 0 (retrieval_cand
         of the two-tower model: the item tower over items 0..C-1, modulo the
@@ -180,8 +184,11 @@ class RecsysArch(Arch):
                 batch = shape_batch(cfg, shape, seed, 0, shapes=self.shapes, device=dev)
                 return model, opt.init(reference_layout(model)), batch
 
-            return CellSpec(name=name, kind="train", fn=make_train_step(self.loss, opt),
-                            make_inputs=make_train_inputs)
+            mesh = mi if mi is not None and len(mi.mesh.devices) > 1 else None
+            return CellSpec(name=name, kind="train",
+                            fn=make_train_step(functools.partial(self.loss, mi=mesh), opt),
+                            make_inputs=make_train_inputs,
+                            specs=None if mesh is None else rs.param_specs(cfg, mesh))
 
         def make_serve_inputs(seed: int = 0, device="cuda"):
             model, dev = model_of(seed, device)

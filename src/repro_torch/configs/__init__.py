@@ -141,7 +141,7 @@ def smoke_mace() -> GNNArch:
 # The reference's registered names the port does not have, and the ROADMAP
 # item of each: the dry run's AIRSHIP cells (the serve path itself is
 # archs/airship.py).
-NOT_PORTED = dict.fromkeys(("airship-sift1m", "smoke-airship"), "14e")
+NOT_PORTED = dict.fromkeys(("airship-sift1m", "smoke-airship"), "14e, part 3")
 
 register("dlrm-mlperf", lambda: RecsysArch(dlrm_mlperf()))
 register("deepfm", lambda: RecsysArch(deepfm()))

@@ -5,6 +5,7 @@ from repro_torch.data.pipeline import (
     lm_batch,
     sasrec_batch,
     sasrec_serve_batch,
+    shard_batch,
     two_tower_batch,
 )
 from repro_torch.data.synthetic import (
@@ -27,5 +28,6 @@ __all__ = [
     "randomize_labels",
     "sasrec_batch",
     "sasrec_serve_batch",
+    "shard_batch",
     "two_tower_batch",
 ]

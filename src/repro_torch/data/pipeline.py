@@ -1,11 +1,12 @@
-"""Deterministic synthetic batches (port of ``repro.data.pipeline``: the LM,
-DLRM, DeepFM, SASRec, two-tower and GNN generators; ``shard_batch``, the
-reference's device-put over a mesh, goes with training over a mesh,
-ROADMAP item 14e).
+"""Deterministic synthetic batches (port of ``repro.data.pipeline``): the LM,
+DLRM, DeepFM, SASRec, two-tower and GNN generators, and ``shard_batch``,
+which splits a batch over a mesh's data groups.
 
 Every batch is a pure function of (seed, step), drawn with numpy exactly
 as the reference draws it, so the port's batches equal the reference's
-bit for bit; only the last step moves them to ``device``.
+bit for bit; only the last step moves them to ``device``. A restarted run
+that resumes at step N regenerates the batches it would have seen: no
+data state is checkpointed.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch.common.device import resolve_device
+from repro_torch.distributed.meshinfo import MeshInfo
 
 
 def _rng(seed: int, step: int) -> np.random.Generator:
@@ -130,3 +132,23 @@ def gnn_batch(seed: int, step: int, n_nodes: int, n_edges: int, n_species: int =
         out["node_graph"] = _tensor(np.sort(r.integers(0, n_graphs, size=n_nodes)), dev)
         out["n_graphs"] = n_graphs
     return out
+
+
+def shard_batch(batch: dict, mi: MeshInfo) -> list:
+    """``batch`` over ``mi``'s data groups: one dict a group, in group order
+    (the data axes flattened row-major, as ``DeviceMesh.groups`` orders
+    them), on the group's first device. A leaf whose leading axis the data
+    axes divide (``axes_if_divisible``) is split into equal blocks, block g
+    to group g; any other leaf (a scalar, a leading axis they do not
+    divide) goes whole to every group, as the reference replicates it. A
+    block is a view where its group's device is the leaf's."""
+    heads = mi.mesh.groups(mi.tp_axis)[:, 0]
+    groups = [dict() for _ in heads]
+    for k, x in batch.items():
+        split = (isinstance(x, torch.Tensor) and x.dim() > 0
+                 and mi.axes_if_divisible(x.shape[0], mi.dp_axes) is not None)
+        rows = x.shape[0] // len(heads) if split else 0
+        for g, dev in enumerate(heads):
+            blk = x[g * rows : (g + 1) * rows] if split else x
+            groups[g][k] = blk.to(dev) if isinstance(blk, torch.Tensor) else blk
+    return groups

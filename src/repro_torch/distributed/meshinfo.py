@@ -95,6 +95,12 @@ class MeshInfo:
     def tp_size(self) -> int:
         return self.mesh.shape["model"]
 
+    @property
+    def fsdp_axis(self):
+        """Parameter / optimizer-state split axes (ZeRO): every data axis, so
+        a multi-pod mesh splits state across pods too."""
+        return self.dp_axes if len(self.dp_axes) > 1 else self.dp_axes[0]
+
     def axes_if_divisible(self, dim: int, axes):
         """Return ``axes`` when they evenly divide ``dim``, else None.
 
@@ -116,6 +122,16 @@ class MeshInfo:
         for a in flat(axes):
             size *= self.mesh.shape[a]
         return axes if dim % size == 0 else None
+
+
+def sum_in_order(parts, dev):
+    """The reference's ``psum`` over a mesh axis on one controller: ``parts``
+    (one tensor a position, in shard order) moved to ``dev`` and added one
+    after another, each add rounded to their dtype."""
+    total = parts[0].to(dev)
+    for p in parts[1:]:
+        total = total + p.to(dev)
+    return total
 
 
 def single_device_meshinfo(device="cuda") -> MeshInfo:

@@ -23,6 +23,7 @@ from repro_torch.common.device import resolve_device
 from repro_torch.core.constraints import LabelSetConstraint, RangeConstraint
 from repro_torch.core.pq import PQIndex
 from repro_torch.core.types import Corpus, GraphIndex
+from repro_torch.distributed.layout import port_name as _port_name
 from repro_torch.models.common.modules import StackedLayers
 from repro_torch.models.gnn.mace import MACE, MACEConfig
 from repro_torch.models.recsys.models import DLRM, DeepFM, RecsysConfig, SASRec, TwoTower
@@ -172,18 +173,6 @@ def _leaves(tree, path=()):
             yield from _leaves(v, path + (i,))
     else:
         yield path, tree
-
-
-def _port_name(path) -> str:
-    """The port's parameter name of a reference tree path (the inverse of
-    ``train.reference_key``): ("bot", "layers", 0, "w") ->
-    ``bot.layers.0.weight``; a layer's "b" -> ``bias``."""
-    parts = [str(p) for p in path]
-    if parts[-1] == "w":
-        parts[-1] = "weight"
-    elif parts[-1] == "b" and len(path) > 1 and isinstance(path[-2], int):
-        parts[-1] = "bias"
-    return ".".join(parts)
 
 
 def _by_port_name(tree, name: str) -> dict:

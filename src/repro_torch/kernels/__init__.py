@@ -108,14 +108,21 @@ def kernel_entry(stem: str, name: str, argtypes) -> Callable[..., int]:
     return fn
 
 
-def check_launch(name: str, status: int) -> None:
-    """Raise if a C entry point reported a CUDA error (``cudaGetLastError``)."""
+def launch(name: str, device: torch.device, fn: Callable, *args) -> None:
+    """``fn(*args, stream)``, a C entry point, on ``device``'s current stream
+    with ``device`` the current device (a kernel launched into another
+    device's stream fails; a mesh puts its positions on several cards:
+    only then is the current device switched, as a switch costs the host
+    time on every launch of a walk); raises if it reported a CUDA error
+    (``cudaGetLastError``)."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if device.index is None or device.index == torch.cuda.current_device():
+        status = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            status = fn(*args, stream)
     if status != 0:
         raise RuntimeError(f"{name}: CUDA error {status} at launch")
-
-
-def current_stream_ptr(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
 
 
 def require(cond: bool, msg: str) -> None:
@@ -129,9 +136,8 @@ __all__ = [
     "CSRC",
     "KERNEL_STEMS",
     "build_all",
-    "check_launch",
-    "current_stream_ptr",
     "dispatch",
     "kernel_entry",
+    "launch",
     "require",
 ]

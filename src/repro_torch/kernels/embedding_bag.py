@@ -40,7 +40,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import check_launch, current_stream_ptr, dispatch, kernel_entry, require
+from repro_torch.kernels import dispatch, kernel_entry, launch, require
 
 MODES = ("sum", "mean")
 # table, ids, out; B, L, D; V; vec4, mean; stream
@@ -96,9 +96,8 @@ def embedding_bag_cuda(table, ids, mode: str = "sum"):
     b, length = ids.shape
     out = torch.empty((b, d), dtype=torch.float32, device=table.device)
     vec4 = int(d % 4 == 0 and table.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
-    status = fn(table.data_ptr(), ids.data_ptr(), out.data_ptr(), b, length, d, v, vec4,
-                int(mode == "mean"), current_stream_ptr(table.device))
-    check_launch("embedding_bag", status)
+    launch("embedding_bag", table.device, fn, table.data_ptr(), ids.data_ptr(), out.data_ptr(),
+           b, length, d, v, vec4, int(mode == "mean"))
     embedding_bag.launches += 1
     return out
 
@@ -202,9 +201,8 @@ def embedding_bag_backward_cuda(ids, g, v: int, mode: str = "sum"):
     d = g.shape[1]
     out = torch.zeros((v, d), dtype=torch.float32, device=g.device)
     vec4 = int(d % 4 == 0 and gs.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
-    status = fn(keys.data_ptr(), pos.data_ptr(), gs.data_ptr(), out.data_ptr(), keys.numel(),
-                ids.shape[1], d, v, vec4, current_stream_ptr(g.device))
-    check_launch("embedding_bag_backward", status)
+    launch("embedding_bag_backward", g.device, fn, keys.data_ptr(), pos.data_ptr(), gs.data_ptr(),
+           out.data_ptr(), keys.numel(), ids.shape[1], d, v, vec4)
     embedding_bag_backward.launches += 1
     return out
 

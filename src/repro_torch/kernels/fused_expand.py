@@ -38,7 +38,7 @@ import torch
 
 from repro_torch.common.bits import bit_of, n_words
 from repro_torch.common.distances import batched_rowwise_sqdist
-from repro_torch.kernels import check_launch, current_stream_ptr, dispatch, kernel_entry, require
+from repro_torch.kernels import dispatch, kernel_entry, launch, require
 from repro_torch.kernels.gather_distance import MAX_DIM
 from repro_torch.kernels.pq_adc import adc_lookup
 
@@ -128,12 +128,11 @@ def fused_expand_cuda(queries, corpus, ids, visited, meta, cons, tomb=None, *, f
     dists = torch.empty((b, m), dtype=torch.float32, device=dev)
     sat = torch.empty((b, m), dtype=torch.bool, device=dev)
     fresh = torch.empty((b, m), dtype=torch.bool, device=dev)
-    status = fn(queries.data_ptr(), corpus.data_ptr(), ids.data_ptr(), visited.data_ptr(),
-                meta.data_ptr(), cons.data_ptr(), 0 if tomb is None else tomb.data_ptr(),
-                dists.data_ptr(), sat.data_ptr(), fresh.data_ptr(),
-                b, m, d, visited.shape[1], cons.shape[-1], FAMILIES.index(family),
-                int(tomb is not None), current_stream_ptr(dev))
-    check_launch("fused_expand", status)
+    launch("fused_expand", dev, fn, queries.data_ptr(), corpus.data_ptr(), ids.data_ptr(),
+           visited.data_ptr(), meta.data_ptr(), cons.data_ptr(),
+           0 if tomb is None else tomb.data_ptr(), dists.data_ptr(), sat.data_ptr(),
+           fresh.data_ptr(), b, m, d, visited.shape[1], cons.shape[-1], FAMILIES.index(family),
+           int(tomb is not None))
     fused_expand.launches += 1
     return dists, sat, fresh
 
@@ -186,12 +185,11 @@ def fused_expand_adc_cuda(lut, codes, ids, visited, meta, cons, tomb=None, *, fa
     dists = torch.empty((b, m), dtype=torch.float32, device=dev)
     sat = torch.empty((b, m), dtype=torch.bool, device=dev)
     fresh = torch.empty((b, m), dtype=torch.bool, device=dev)
-    status = fn(lut.data_ptr(), codes.data_ptr(), ids.data_ptr(), visited.data_ptr(),
-                meta.data_ptr(), cons.data_ptr(), 0 if tomb is None else tomb.data_ptr(),
-                dists.data_ptr(), sat.data_ptr(), fresh.data_ptr(),
-                b, m, m_sub, n_cent, visited.shape[1], cons.shape[-1], FAMILIES.index(family),
-                int(tomb is not None), current_stream_ptr(dev))
-    check_launch("fused_expand_adc", status)
+    launch("fused_expand_adc", dev, fn, lut.data_ptr(), codes.data_ptr(), ids.data_ptr(),
+           visited.data_ptr(), meta.data_ptr(), cons.data_ptr(),
+           0 if tomb is None else tomb.data_ptr(), dists.data_ptr(), sat.data_ptr(),
+           fresh.data_ptr(), b, m, m_sub, n_cent, visited.shape[1], cons.shape[-1],
+           FAMILIES.index(family), int(tomb is not None))
     fused_expand_adc.launches += 1
     return dists, sat, fresh
 

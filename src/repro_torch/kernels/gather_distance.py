@@ -30,7 +30,7 @@ from typing import Optional
 import torch
 
 from repro_torch.common.distances import batched_rowwise_sqdist
-from repro_torch.kernels import check_launch, current_stream_ptr, dispatch, kernel_entry, require
+from repro_torch.kernels import dispatch, kernel_entry, launch, require
 from repro_torch.tune.config import DEFAULT_CONFIGS, KernelConfig
 
 MAX_DIM = 12288  # the query row must fit the 48 KB of static shared memory
@@ -68,9 +68,8 @@ def gather_distance_cuda(queries, corpus, ids, config: Optional[KernelConfig] = 
     b, d = queries.shape
     m = ids.shape[1]
     out = torch.empty((b, m), dtype=torch.float32, device=queries.device)
-    status = fn(queries.data_ptr(), corpus.data_ptr(), ids.data_ptr(), out.data_ptr(),
-                b, m, d, cfg.tile_warps, cfg.rows_in_flight, current_stream_ptr(queries.device))
-    check_launch("gather_distance", status)
+    launch("gather_distance", queries.device, fn, queries.data_ptr(), corpus.data_ptr(),
+           ids.data_ptr(), out.data_ptr(), b, m, d, cfg.tile_warps, cfg.rows_in_flight)
     gather_distance.launches += 1
     return out
 

@@ -25,7 +25,7 @@ import ctypes
 import torch
 
 from repro_torch.common.distances import squared_l2
-from repro_torch.kernels import check_launch, current_stream_ptr, dispatch, kernel_entry, require
+from repro_torch.kernels import dispatch, kernel_entry, launch, require
 
 TILE = 128  # output tile edge (csrc/l2_matmul.cu kBM, kBN)
 # q, x, out; M, N, d, vec4, vec_out; stream
@@ -57,9 +57,8 @@ def l2_matmul_cuda(q, x):
     out = torch.empty((m, n), dtype=torch.float32, device=q.device)
     vec4 = int(d % 4 == 0 and q.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0)
     vec_out = int(n % 4 == 0 and out.data_ptr() % 16 == 0)
-    status = fn(q.data_ptr(), x.data_ptr(), out.data_ptr(), m, n, d, vec4, vec_out,
-                current_stream_ptr(q.device))
-    check_launch("l2_matmul", status)
+    launch("l2_matmul", q.device, fn, q.data_ptr(), x.data_ptr(), out.data_ptr(), m, n, d, vec4,
+           vec_out)
     pairwise_sqdist.launches += 1
     return out
 

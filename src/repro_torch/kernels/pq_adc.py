@@ -26,7 +26,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import check_launch, current_stream_ptr, dispatch, kernel_entry, require
+from repro_torch.kernels import dispatch, kernel_entry, launch, require
 
 SMEM_LIMIT = 232_448  # bytes of shared memory one block may use (sm_90)
 # Elements of one (B, rows, m_sub) gather in the plain scan.
@@ -95,9 +95,8 @@ def pq_adc_cuda(lut, codes):
     n = codes.shape[0]
     out = torch.empty((b, n), dtype=torch.float32, device=lut.device)
     vec4 = int(m_sub % 4 == 0 and codes.data_ptr() % 16 == 0)
-    status = fn(lut.data_ptr(), codes.data_ptr(), out.data_ptr(), b, n, m_sub, n_cent, vec4,
-                current_stream_ptr(lut.device))
-    check_launch("pq_adc", status)
+    launch("pq_adc", lut.device, fn, lut.data_ptr(), codes.data_ptr(), out.data_ptr(), b, n,
+           m_sub, n_cent, vec4)
     pq_adc.launches += 1
     return out
 

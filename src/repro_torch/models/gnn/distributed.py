@@ -13,27 +13,36 @@ blocks concatenated in shard order on each shard's device; the A-basis
 accumulates strictly locally. The shards' partial energies are summed in
 shard order on the first shard's device (the reference's ``psum``).
 
+Each shard's work runs on its mesh position's device with the parameters
+moved there (``on_device``: a move to the device a parameter is on is
+the parameter itself, so a mesh of one card copies nothing); its block of
+nodes and edges and the gathered h are moved there too, and the forces
+come by autograd back through every move. The shards run one after
+another from one controller.
+
 Memory: each (layer, shard) runs under its own checkpoint where autograd
 records, so the forward holds one shard's edge tensors at a time and
-keeps only the (N / shards, K) block states between them. The shards run
-one after another on the parameters' device: every position of the mesh
-must be that device (a mesh of one card).
+keeps only the (N / shards, K) block states between them.
 """
 from __future__ import annotations
 
+import copy
 import functools
 
 import torch
+from torch import nn
+
+from repro_torch.distributed.meshinfo import sum_in_order
 
 from repro_torch.models.gnn.mace import (
     MACE,
     MACEConfig,
     edge_geometry,
+    embed_inputs,
     forces_of,
     interaction,
     maybe_remat,
     mlp_apply,
-    node_features,
     objective,
 )
 
@@ -75,8 +84,27 @@ def partition_by_destination(batch: dict, n_shards: int) -> dict:
     return out
 
 
-def _shard_layer(lp, cfg: MACEConfig, h_local, h_global, positions, senders, receivers_local,
-                 lo: int):
+def _moved(module: nn.Module, dev) -> nn.Module:
+    """A shallow copy of ``module`` (and of its submodules) whose parameters
+    are the originals moved to ``dev``; the original is left untouched."""
+    clone = copy.copy(module)
+    clone._parameters = {k: None if p is None else p.to(dev)
+                         for k, p in module._parameters.items()}
+    clone._modules = {k: _moved(m, dev) for k, m in module._modules.items()}
+    return clone
+
+
+def on_device(module: nn.Module, dev, fn, *args):
+    """fn(module, *args) with ``module``'s parameters moved to ``dev``: the
+    work of a mesh position reads its own copy of the weights, and their
+    gradients flow back through the moves. The copy shares nothing that
+    changes with ``module``: autograd recomputes the shards' checkpoints on
+    one thread a device, at once, and each moves its weights again."""
+    return fn(_moved(module, dev), *args)
+
+
+def _shard_layer(lp, h_local, h_global, positions, senders, receivers_local, *,
+                 cfg: MACEConfig, lo: int):
     """One layer on one shard: its edges (global senders, local receivers)
     from the gathered h -> its block's new state."""
     n_local = h_local.shape[0]
@@ -89,32 +117,32 @@ def _shard_layer(lp, cfg: MACEConfig, h_local, h_global, positions, senders, rec
 
 
 def dst_partitioned_energy(model: MACE, cfg: MACEConfig, mi, batch: dict):
-    """Total energy (a 0-d tensor) with the dst-partitioned layout over
-    ``mi``'s shards. Every position of the mesh must be the parameters'
-    device (one card holds every shard; spreading them over cards is
-    training over a mesh, ROADMAP item 14e)."""
-    dev = model.embed.weight.device
-    n_shards = len(shard_devices(mi))
-    if any(d != dev for d in shard_devices(mi)):
-        raise ValueError(f"every shard must be on the parameters' device {dev}: "
-                         f"{shard_devices(mi)}")
+    """Total energy (a 0-d tensor on the first shard's device) with the
+    dst-partitioned layout over ``mi``'s shards, each on its position's
+    device."""
+    devs = shard_devices(mi)
+    n_shards = len(devs)
     feat = batch["node_feat"] if cfg.d_feat else batch["species"]
     positions = batch["positions"].to(cfg.compute_dtype)
     n_local = positions.shape[0] // n_shards
     e_local = batch["senders"].shape[0] // n_shards
-    h = [node_features(model, cfg, feat[i * n_local : (i + 1) * n_local])
-         for i in range(n_shards)]
+    at = {dev: positions.to(dev) for dev in dict.fromkeys(devs)}
+    edges = [(batch["senders"][i * e_local : (i + 1) * e_local].to(dev),
+              batch["receivers_local"][i * e_local : (i + 1) * e_local].to(dev))
+             for i, dev in enumerate(devs)]
+    h = [on_device(model.embed, dev, lambda emb, f: emb(embed_inputs(cfg, f)),
+                   feat[i * n_local : (i + 1) * n_local].to(dev))
+         for i, dev in enumerate(devs)]
     for lp in model.layers:
-        h_global = torch.cat(h)  # the all-gather, in shard order
-        h = [maybe_remat(cfg.remat_layers, functools.partial(_shard_layer, lp, cfg), h[i],
-                         h_global, positions, batch["senders"][i * e_local : (i + 1) * e_local],
-                         batch["receivers_local"][i * e_local : (i + 1) * e_local], i * n_local)
-             for i in range(n_shards)]
-    total = None
-    for x in h:  # the psum, in shard order
-        part = mlp_apply(model.readout, x)[..., 0].sum()
-        total = part if total is None else total + part
-    return total
+        # the all-gather, in shard order, once a device
+        h_global = {dev: torch.cat([x.to(dev) for x in h]) for dev in at}
+        h = [maybe_remat(cfg.remat_layers, functools.partial(
+                 on_device, lp, dev, functools.partial(_shard_layer, cfg=cfg, lo=i * n_local)),
+                 h[i], h_global[dev], at[dev], *edges[i])
+             for i, dev in enumerate(devs)]
+    parts = [on_device(model.readout, dev, lambda r, x: mlp_apply(r, x)[..., 0].sum(), h[i])
+             for i, dev in enumerate(devs)]
+    return sum_in_order(parts, devs[0])  # the psum, in shard order
 
 
 def dst_partitioned_loss(model: MACE, cfg: MACEConfig, mi, batch: dict):

@@ -42,6 +42,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.device import check_generator, resolve_device
+from repro_torch.distributed.layout import flat_specs, stacked
 from repro_torch.models.common.modules import MLP, Dense, StackedLayers
 
 
@@ -136,14 +137,27 @@ def init_params(generator: torch.Generator, cfg: MACEConfig, device="cuda") -> M
     return model
 
 
+def param_specs(cfg: MACEConfig, mi) -> dict:
+    """The reference's layout of MACE's parameters over ``mi``: every leaf
+    whole on every position (the dst-partitioned layout splits the graph,
+    not the weights), keyed by the port's names."""
+    mlp = {"layers": [{"w": (None, None), "b": (None,)} for _ in range(2)]}
+    layer = {"radial": mlp, "mix_a": {"w": (None, None)}, "update": {"w": (None, None)}}
+    return flat_specs({"embed": {"w": (None, None)}, "readout": mlp, "layers": stacked(layer)})
+
+
+def embed_inputs(cfg: MACEConfig, feat):
+    """The embedding's input: (N, d_feat) features, or the one-hot of (N,)
+    species ids, in the compute dtype."""
+    if cfg.d_feat:
+        return feat.to(cfg.compute_dtype)
+    return F.one_hot(feat.long(), cfg.n_species).to(cfg.compute_dtype)
+
+
 def node_features(model: MACE, cfg: MACEConfig, feat):
     """(N, d_feat) features or (N,) species ids -> h (N, K) in the compute
     dtype."""
-    if cfg.d_feat:
-        x = feat.to(cfg.compute_dtype)
-    else:
-        x = F.one_hot(feat.long(), cfg.n_species).to(cfg.compute_dtype)
-    return model.embed(x)
+    return model.embed(embed_inputs(cfg, feat))
 
 
 def edge_geometry(cfg: MACEConfig, pos_recv, pos_send, self_loop, dtype):

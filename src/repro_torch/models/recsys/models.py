@@ -34,10 +34,27 @@ Every model is trainable: its parameters require gradients. Serving
 calls (``archs/recsys.py``) run under ``torch.inference_mode``. Products
 are plain float32 products (``nn.Linear``, ``torch.bmm``,
 ``torch.matmul``), as the reference leaves them to XLA: they must run
-with TF32 off on the card. The reference's ``mi`` (mesh) argument
-survives only where it changes the computation: ``score_candidates``'s
-two-phase top-k over a device mesh (``distributed/meshinfo.py``);
-elsewhere its layout constraints do nothing on one controller.
+with TF32 off on the card.
+
+Over a mesh (``mi``, a ``MeshInfo`` of more than one position) the
+tables are laid out as the reference's specs lay them (``table_spec``:
+rows over the model axis, columns over the data axes where those divide
+the width), and each table read (``mesh_lookup``) gives every position
+the block its spec names (``distributed.layout.place``) and no more. The
+read splits the ids over the data groups where the data axes divide the
+batch (``shard_batch``); for group g and row block m, every position
+holding a column block of row block m looks up group g's ids in it (ids
+outside the block read zero, a bag's ids outside it count as padding),
+and position (g, m) joins those columns in order (the all-gather of the
+split columns); the row blocks' results are summed in shard order on the
+group's first device, and the groups joined in group order on the
+table's device: the reference's masked gather and ``psum``. The MLPs,
+towers and blocks run on the model's device, and the loss is the
+reference's over the whole batch (the two-tower model's in-batch
+negatives span every group). Gradients flow back through the moves and
+the blocks onto the whole tables, which the optimizer updates there, so
+the blocks are placed anew on each read. ``score_candidates``'s two-phase
+top-k is the serving path over a mesh.
 """
 from __future__ import annotations
 
@@ -50,6 +67,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.device import check_generator, resolve_device
+from repro_torch.data.pipeline import shard_batch
+from repro_torch.distributed.layout import flat_specs, grouped, place
+from repro_torch.distributed.meshinfo import sum_in_order
 from repro_torch.kernels.embedding_bag import embedding_bag
 from repro_torch.models.common.modules import MLP, Dense, LayerNorm, chunked_attention
 
@@ -107,10 +127,103 @@ def _fill_tables_(tables: nn.ParameterDict, generator: torch.Generator, dim: int
         fill_normal_(tables[f"t{i}"], generator, 1.0 / math.sqrt(dim))
 
 
-def _lookup(tables: nn.ParameterDict, ids):
+def _rows(table, ids):
+    """table's rows of ``ids`` (any shape) -> ids.shape + (D,)."""
+    rows = table.index_select(0, ids.reshape(-1).long())
+    return rows.reshape(tuple(ids.shape) + tuple(table.shape[1:]))
+
+
+def _masked_rows(table, ids):
+    """``_rows`` with a zero row where an id is -1."""
+    rows = _rows(table, ids.clamp_min(0))
+    return torch.where((ids >= 0)[..., None], rows, 0.0)
+
+
+def table_spec(width: int, mi) -> tuple:
+    """A table's layout over ``mi``: rows over the model axis (the big
+    dimension), the ``width`` columns over the data axes where they divide
+    it (fully split tables keep the optimizer's state in budget)."""
+    return (mi.tp_axis, mi.axes_if_divisible(width, mi.fsdp_axis))
+
+
+def mesh_lookup(table, ids, mi=None, bag: bool = False):
+    """The rows of ``ids`` (``bag``: the sum of each -1-padded row of ids,
+    ``embedding_bag_sum``) over ``mi``'s layout of ``table``
+    (``table_spec``; the module docstring); without ``mi``, or on one
+    position, one read of the whole table. The result lands on the
+    table's device."""
+    if mi is None or len(mi.mesh.devices) == 1:
+        return embedding_bag_sum(table, ids) if bag else _rows(table, ids)
+    spec = table_spec(table.shape[1], mi)
+    devs = mi.mesh.groups(mi.tp_axis)  # (data groups, row blocks)
+    blocks = grouped(place(table, spec, mi), mi, mi.tp_axis)
+    if bag:  # the kernel reads a dense table
+        read = lambda blk, local: embedding_bag_sum(blk.contiguous(), local)
+    else:
+        read = _masked_rows
+    if mi.axes_if_divisible(ids.shape[0], mi.dp_axes) is None:
+        id_blocks = [ids]  # one group reads for all, as the reference replicates
+    else:
+        id_blocks = [g["ids"] for g in shard_batch({"ids": ids}, mi)]
+    n = table.shape[0] // devs.shape[1]
+    out = []
+    for g, blk_ids in enumerate(id_blocks):
+        parts = []
+        for m, dev in enumerate(devs[g]):
+            local = blk_ids.to(dev) - m * n
+            local = torch.where((local >= 0) & (local < n), local, -1)
+            if spec[1] is None:
+                parts.append(read(blocks[g, m], local))
+            else:  # column block c on position (c, m), joined in order on (g, m)
+                parts.append(torch.cat([read(blocks[c, m], local.to(devs[c, m])).to(dev)
+                                        for c in range(devs.shape[0])], dim=-1))
+        out.append(sum_in_order(parts, devs[g, 0]).to(table.device))
+    return torch.cat(out)
+
+
+def _lookup(tables: nn.ParameterDict, ids, mi=None):
     """ids (B, F) -> (B, F, D): one gather per field table."""
-    return torch.stack([tables[f"t{i}"].index_select(0, ids[:, i].long())
+    return torch.stack([mesh_lookup(tables[f"t{i}"], ids[:, i], mi)
                         for i in range(ids.shape[1])], dim=1)
+
+
+def _tables_specs(n_tables: int, mi, dim: int) -> dict:
+    """``table_spec`` for each of ``n_tables`` tables of width ``dim``. The
+    reference takes the column split from ``embed_dim`` for every table,
+    which its DeepFM linear tables (width 1) cannot take wherever the data
+    axes divide ``embed_dim``; the port takes it from each table's own
+    width."""
+    return {f"t{i}": table_spec(dim, mi) for i in range(n_tables)}
+
+
+def _mlp_specs(n_layers: int) -> dict:
+    return {"layers": [{"w": (None, None), "b": (None,)} for _ in range(n_layers)]}
+
+
+def param_specs(cfg: RecsysConfig, mi) -> dict:
+    """The reference's layout (``dlrm_specs``, ``deepfm_specs``,
+    ``sasrec_specs``, ``two_tower_specs``) of every parameter over ``mi``,
+    keyed by the port's names; SASRec's blocks, one module a block here,
+    each take the reference's stacked spec without its layer axis."""
+    d = cfg.embed_dim
+    if cfg.model == "dlrm":
+        tree = {"tables": _tables_specs(len(cfg.vocab_sizes), mi, d),
+                "bot": _mlp_specs(len(cfg.bot_mlp)), "top": _mlp_specs(len(cfg.top_mlp))}
+    elif cfg.model == "deepfm":
+        tree = {"tables": _tables_specs(len(cfg.vocab_sizes), mi, d),
+                "linear": _tables_specs(len(cfg.vocab_sizes), mi, 1),
+                "deep": _mlp_specs(len(cfg.mlp) + 1), "bias": ()}
+    elif cfg.model == "sasrec":
+        norm = {"scale": (None,), "bias": (None,)}
+        blk = {"ln1": norm, "ln2": norm,
+               **{k: {"w": (None, None)} for k in ("wq", "wk", "wv", "wo", "ff1", "ff2")}}
+        tree = {"items": table_spec(d, mi), "pos": (None, None),
+                "blocks": [blk] * cfg.n_blocks, "final_ln": norm}
+    else:
+        tree = {"user_emb": table_spec(d, mi), "item_emb": table_spec(d, mi),
+                "user_tower": _mlp_specs(len(cfg.tower_mlp)),
+                "item_tower": _mlp_specs(len(cfg.tower_mlp)), "log_tau": ()}
+    return flat_specs(tree)
 
 
 def _bce(logit, label):
@@ -143,11 +256,11 @@ class DLRM(nn.Module):
         self.bot = MLP((cfg.n_dense,) + tuple(cfg.bot_mlp), final_act=True, device=device)
         self.top = MLP((n_inter + cfg.bot_mlp[-1],) + tuple(cfg.top_mlp), device=device)
 
-    def forward(self, batch):
+    def forward(self, batch, mi=None):
         """{"dense": (B, n_dense) float32, "sparse": (B, F) int32} -> (B,) logits."""
         cd = self.cfg.compute_dtype
         x0 = self.bot(batch["dense"].to(cd))  # (B, D)
-        emb = _lookup(self.tables, batch["sparse"]).to(cd)  # (B, F, D)
+        emb = _lookup(self.tables, batch["sparse"], mi).to(cd)  # (B, F, D)
         z = torch.cat([x0[:, None], emb], dim=1)  # (B, F + 1, D)
         inter = torch.bmm(z, z.transpose(1, 2))  # (B, F + 1, F + 1) dot interaction
         n_f = z.shape[1]
@@ -156,10 +269,10 @@ class DLRM(nn.Module):
         return self.top(top_in)[..., 0]
 
 
-def dlrm_loss(model: DLRM, batch):
+def dlrm_loss(model: DLRM, batch, mi=None):
     """(mean binary cross-entropy of the logits against ``batch["label"]``,
     {"loss": it})."""
-    return _mean_bce(model(batch), batch["label"])
+    return _mean_bce(model(batch, mi), batch["label"])
 
 
 class DeepFM(nn.Module):
@@ -179,12 +292,12 @@ class DeepFM(nn.Module):
         self.deep = MLP((n_f * cfg.embed_dim,) + tuple(cfg.mlp) + (1,), device=device)
         self.bias = nn.Parameter(torch.zeros((), dtype=cfg.param_dtype, device=device))
 
-    def forward(self, batch):
+    def forward(self, batch, mi=None):
         """{"sparse": (B, F) int32} -> (B,) logits."""
         cd = self.cfg.compute_dtype
         sparse = batch["sparse"]
-        emb = _lookup(self.tables, sparse).to(cd)  # (B, F, D)
-        lin = _lookup(self.linear, sparse)[..., 0].to(cd)  # (B, F)
+        emb = _lookup(self.tables, sparse, mi).to(cd)  # (B, F, D)
+        lin = _lookup(self.linear, sparse, mi)[..., 0].to(cd)  # (B, F)
         # FM second order: 0.5 * ((sum v)^2 - sum v^2)
         s = emb.sum(1)
         s2 = (emb * emb).sum(1)
@@ -193,8 +306,8 @@ class DeepFM(nn.Module):
         return fm + lin.sum(-1) + deep + self.bias.float()
 
 
-def deepfm_loss(model: DeepFM, batch):
-    return _mean_bce(model(batch), batch["label"])
+def deepfm_loss(model: DeepFM, batch, mi=None):
+    return _mean_bce(model(batch, mi), batch["label"])
 
 
 def _normalise(x):
@@ -232,17 +345,17 @@ class TwoTower(nn.Module):
         self.item_tower = MLP((d,) + tuple(cfg.tower_mlp), device=device)
         self.log_tau = nn.Parameter(torch.zeros((), dtype=torch.float32, device=device))
 
-    def user(self, batch):
+    def user(self, batch, mi=None):
         """{"user_id": (B,), "hist": (B, hist_len)} int32 -> (B, tower_mlp[-1])
         unit rows (``two_tower_user``)."""
         cd = self.cfg.compute_dtype
-        ue = self.user_emb.index_select(0, batch["user_id"].long()).to(cd)
-        hist = embedding_bag_sum(self.item_emb, batch["hist"]).to(cd)
+        ue = mesh_lookup(self.user_emb, batch["user_id"], mi).to(cd)
+        hist = mesh_lookup(self.item_emb, batch["hist"], mi, bag=True).to(cd)
         return _normalise(self.user_tower(torch.cat([ue, hist], dim=-1)))
 
-    def item(self, item_ids):
+    def item(self, item_ids, mi=None):
         """(N,) int32 -> (N, tower_mlp[-1]) unit rows (``two_tower_item``)."""
-        ie = self.item_emb.index_select(0, item_ids.long()).to(self.cfg.compute_dtype)
+        ie = mesh_lookup(self.item_emb, item_ids, mi).to(self.cfg.compute_dtype)
         return _normalise(self.item_tower(ie))
 
     @torch.inference_mode()
@@ -274,7 +387,7 @@ def _lse_chunk(m, lsum, u32, vc, tau):
     return m_new, lsum
 
 
-def two_tower_loss(model: TwoTower, batch, *, neg_chunk: int = NEG_CHUNK):
+def two_tower_loss(model: TwoTower, batch, mi=None, *, neg_chunk: int = NEG_CHUNK):
     """In-batch sampled softmax (RecSys'19 two-tower retrieval objective):
     mean over users of logsumexp_j(u_b . v_j / tau) - u_b . v_b / tau.
 
@@ -284,8 +397,8 @@ def two_tower_loss(model: TwoTower, batch, *, neg_chunk: int = NEG_CHUNK):
     ``torch.utils.checkpoint``: the backward recomputes its (B, neg_chunk)
     logits instead of keeping all of them (17 GB in float32 at B = 65,536).
     """
-    u = model.user(batch)  # (B, D)
-    v = model.item(batch["item_id"])  # (B, D)
+    u = model.user(batch, mi)  # (B, D)
+    v = model.item(batch["item_id"], mi)  # (B, D)
     tau = torch.maximum(torch.exp(model.log_tau), model.log_tau.new_tensor(1e-3))
     b = u.shape[0]
     diag = (u * v).sum(-1).float() / tau
@@ -381,13 +494,13 @@ class SASRec(nn.Module):
                                     for _ in range(cfg.n_blocks))
         self.final_ln = LayerNorm(d, dtype=cfg.param_dtype, device=device)
 
-    def hidden(self, seq):
+    def hidden(self, seq, mi=None):
         """seq (B, S) int32 item ids (0 = padding) -> (B, S, D)
         (``sasrec_hidden``)."""
         cfg = self.cfg
         b, s = seq.shape
         cd = cfg.compute_dtype
-        h = self.items[seq.long()].to(cd) + self.pos[None, :s].to(cd)
+        h = mesh_lookup(self.items, seq, mi).to(cd) + self.pos[None, :s].to(cd)
         nh, d = cfg.n_heads, cfg.embed_dim
         for bp in self.blocks:
             x = bp.ln1(h)
@@ -398,16 +511,16 @@ class SASRec(nn.Module):
             h = h + bp.ff2(torch.relu(bp.ff1(x)))
         return self.final_ln(h)
 
-    def forward(self, seq):
-        return self.hidden(seq)
+    def forward(self, seq, mi=None):
+        return self.hidden(seq, mi)
 
 
-def sasrec_loss(model: SASRec, batch):
+def sasrec_loss(model: SASRec, batch, mi=None):
     """BCE over (positive next item, sampled negative) pairs, SASRec §3:
     the sum over positions with ``pos > 0`` over max(their count, 1)."""
-    h = model.hidden(batch["seq"])  # (B, S, D)
-    pos_e = model.items[batch["pos"].long()].to(h.dtype)
-    neg_e = model.items[batch["neg"].long()].to(h.dtype)
+    h = model.hidden(batch["seq"], mi)  # (B, S, D)
+    pos_e = mesh_lookup(model.items, batch["pos"], mi).to(h.dtype)
+    neg_e = mesh_lookup(model.items, batch["neg"], mi).to(h.dtype)
     pos_s = (h * pos_e).sum(-1).float()
     neg_s = (h * neg_e).sum(-1).float()
     mask = (batch["pos"] > 0).float()

@@ -66,6 +66,14 @@ class GQAttention(nn.Module):
         return self
 
 
+def gqa_specs(cfg, mi) -> dict:
+    """The reference's layout of a GQA block over ``mi``: q / k / v (in, out)
+    split (data, model), o (model, data)."""
+    fs, tp = mi.fsdp_axis, mi.tp_axis
+    return {"wq": {"w": (fs, tp)}, "wk": {"w": (fs, tp)}, "wv": {"w": (fs, tp)},
+            "wo": {"w": (tp, fs)}}
+
+
 def gqa_qkv(ap: GQAttention, cfg, x, positions):
     """x (B, S, D) -> q (B, S, H, dh), k / v (B, S, Hkv, dh), RoPE applied to
     q and k."""
@@ -233,6 +241,18 @@ class MLAttention(nn.Module):
         for w in (self.wkv_a, self.wkv_b, self.wo) + qs:
             w.init_(generator)
         return self
+
+
+def mla_specs(cfg, mi) -> dict:
+    """The reference's layout of an MLA block over ``mi``."""
+    fs, tp = mi.fsdp_axis, mi.tp_axis
+    p = {"wkv_a": {"w": (fs, tp)}, "kv_norm": {"scale": (None,)}, "wkv_b": {"w": (fs, tp)},
+         "wo": {"w": (tp, fs)}}
+    if cfg.q_lora_rank:
+        p.update(wq_a={"w": (fs, tp)}, q_norm={"scale": (None,)}, wq_b={"w": (fs, tp)})
+    else:
+        p["wq"] = {"w": (fs, tp)}
+    return p
 
 
 def _mla_q(ap: MLAttention, cfg, x):

@@ -70,7 +70,8 @@ from repro_torch.models.common.modules import (
 )
 from repro_torch.models.recsys.models import fill_normal_
 from repro_torch.models.transformer import attention as attn
-from repro_torch.models.transformer.moe import MoE, SwiGLU, router_aux_loss
+from repro_torch.distributed.layout import flat_specs, stacked
+from repro_torch.models.transformer.moe import MoE, SwiGLU, moe_specs, router_aux_loss
 
 
 @dataclasses.dataclass(frozen=True)
@@ -221,6 +222,36 @@ def init_params(generator: torch.Generator, cfg: TransformerConfig, device="cuda
         model.mtp.proj.init_(generator)
         model.mtp.layer.init_(generator)
     return model
+
+
+def _dense_ffn_specs(cfg: TransformerConfig, mi) -> dict:
+    fs, tp = mi.fsdp_axis, mi.tp_axis
+    return {"w1": {"w": (fs, tp)}, "w3": {"w": (fs, tp)}, "w2": {"w": (tp, fs)}}
+
+
+def _layer_specs(cfg: TransformerConfig, mi, kind: str) -> dict:
+    return {"ln1": {"scale": (None,)}, "ln2": {"scale": (None,)},
+            "attn": attn.mla_specs(cfg, mi) if cfg.attn_type == "mla" else attn.gqa_specs(cfg, mi),
+            "ffn": moe_specs(cfg, mi) if kind == "moe" else _dense_ffn_specs(cfg, mi)}
+
+
+def param_specs(cfg: TransformerConfig, mi) -> dict:
+    """The reference's layout (``param_specs``) of every parameter over
+    ``mi``: {the port's name, as ``train.reference_layout`` gives it: a
+    spec, one entry a dimension of that (reference-layout) leaf}. The
+    embedding (model, data), ``lm_head`` (data, model), the stacked layer
+    lists with a leading whole layer axis."""
+    fs, tp = mi.fsdp_axis, mi.tp_axis
+    p = {"embed": {"table": (tp, fs)}, "final_norm": {"scale": (None,)},
+         "lm_head": {"w": (fs, tp)}}
+    if cfg.n_dense:
+        p["dense_layers"] = stacked(_layer_specs(cfg, mi, "dense"))
+    if cfg.n_moe:
+        p["moe_layers"] = stacked(_layer_specs(cfg, mi, "moe"))
+    if cfg.mtp:
+        p["mtp"] = {"proj": {"w": (fs, tp)}, "layer": _layer_specs(cfg, mi, "dense"),
+                    "norm": {"scale": (None,)}}
+    return flat_specs(p)
 
 
 def _layer_apply(cfg: TransformerConfig, lp: Layer, x, positions, mi):

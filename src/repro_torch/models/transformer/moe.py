@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed.meshinfo import sum_in_order
 from repro_torch.models.common.modules import Dense
 from repro_torch.models.recsys.models import stable_topk
 
@@ -110,6 +111,18 @@ class MoE(nn.Module):
         return moe_ffn(self, self.cfg, x, mi)
 
 
+def moe_specs(cfg, mi) -> dict:
+    """The reference's layout of an MoE block over ``mi``: the experts split
+    over the model axis (expert parallelism) and their d_model dimension
+    over the data axes; the router whole."""
+    fs, tp = mi.fsdp_axis, mi.tp_axis
+    p = {"router": {"w": (None, None)},
+         "experts": {"w1": (tp, fs, None), "w3": (tp, fs, None), "w2": (tp, None, fs)}}
+    if cfg.n_shared_experts:
+        p["shared"] = {"w1": {"w": (fs, tp)}, "w3": {"w": (fs, tp)}, "w2": {"w": (tp, fs)}}
+    return p
+
+
 def capacity(cfg, t: int, e: int) -> int:
     """Tokens an expert keeps of ``t``: the reference's Python arithmetic."""
     return max(1, int(cfg.capacity_factor * t * cfg.top_k / e))
@@ -155,14 +168,6 @@ def _scatter_add(top_idx, y, t: int):
     return out
 
 
-def _sum_in_order(parts, dev):
-    """parts summed in order on ``dev``, each add rounded to their dtype."""
-    total = parts[0].to(dev)
-    for p in parts[1:]:
-        total = total + p.to(dev)
-    return total
-
-
 def _moe_local(x, probs, shards, *, cfg):
     """x (Bl, S, D): one data group's tokens; probs (Bl, S, E) in x's dtype;
     ``shards``: (w1, w3, w2) of each model shard's experts, in shard order,
@@ -179,13 +184,13 @@ def _moe_local(x, probs, shards, *, cfg):
         gates.append(gate)
         sums.append(local_sum)
     dev0 = shards[0][0].device
-    denom = _sum_in_order(sums, dev0)
+    denom = sum_in_order(sums, dev0)
     outs = []
     for gate, (w1, w3, w2) in zip(gates, shards):
         dev = w1.device
         gate = gate / denom.to(dev).clamp_min(1e-9)[:, None]
         outs.append(_dispatch(xf.to(dev), gate, w1, w3, w2, c))
-    return _sum_in_order(outs, dev0).reshape(bl, s, d)
+    return sum_in_order(outs, dev0).reshape(bl, s, d)
 
 
 def _expert_parallel(mp: MoE, cfg, mi, x, probs):

@@ -20,9 +20,11 @@ that is a float32 tensor of its own (the gradients are consumed), so the
 step holds params, grads and two moments and no more than two more
 tensors of one leaf's size; Adafactor computes its step in vhat's buffer
 and squares it into g^2's, so it holds at most three float32 tensors of
-one leaf's size beside the state. ``apply_updates`` adds in place. The
-reference's ``state_specs`` (PartitionSpecs of the state for ZeRO-style
-sharding) has no counterpart on one controller.
+one leaf's size beside the state. ``apply_updates`` adds in place.
+``state_specs`` derives the state's layout over a mesh from the
+parameters' specs (``distributed/layout.py``), as the reference's ZeRO
+layout does: a moment as its parameter, Adafactor's row and column
+statistics from the parameter's leading and last entries.
 """
 from __future__ import annotations
 
@@ -38,6 +40,7 @@ Tree = Dict[str, torch.Tensor]
 class Optimizer:
     init: Callable[[Tree], dict]
     update: Callable[[Tree, dict, Tree], tuple]  # (grads, state, params) -> (updates, state)
+    state_specs: Callable[[dict, Tree], dict]  # (param specs, params) -> the state's specs
 
 
 def _device(params: Tree) -> torch.device:
@@ -90,7 +93,10 @@ def adamw(lr: float = 1e-3, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-
             updates[k] = step.mul_(-lr).to(p.dtype)
         return updates, dict(state, count=count)
 
-    return Optimizer(init=init, update=update)
+    def state_specs(specs, params):
+        return {"m": dict(specs), "v": dict(specs), "count": ()}
+
+    return Optimizer(init=init, update=update, state_specs=state_specs)
 
 
 # ---------------------------------------------------------------------------
@@ -152,7 +158,19 @@ def adafactor(lr: float = 1e-2, decay: float = 0.8, eps: float = 1e-30,
             updates[k] = step.mul_(-lr).to(p.dtype)
         return updates, dict(state, count=count)
 
-    return Optimizer(init=init, update=update)
+    def state_specs(specs, params):
+        def full(k):
+            return tuple(specs[k]) + (None,) * (params[k].dim() - len(specs[k]))
+
+        out = {"vr": {k: full(k)[:-1] if factored(p) else full(k) for k, p in params.items()},
+               "vc": {k: full(k)[:-2] + full(k)[-1:] if factored(p) else (None,)
+                      for k, p in params.items()},
+               "count": ()}
+        if momentum is not None:
+            out["m"] = dict(specs)
+        return out
+
+    return Optimizer(init=init, update=update, state_specs=state_specs)
 
 
 @torch.no_grad()

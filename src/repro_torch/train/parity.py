@@ -1,13 +1,22 @@
-"""One train cell on two devices from the same start: two steps from the
-same weights, optimizer state and batch on each, and the readings and
-limits that hold one device to the other (``chip_smoke.py`` phases 10-11
-and ``tests/test_torch_cuda_train_lm_gnn.py`` hold the card to the CPU).
+"""One train cell on two devices, or two runs of a step, from the same
+start: two steps from the same weights, optimizer state and batch on
+each, and the readings and limits that hold one to the other
+(``chip_smoke.py`` phases 10-12 and ``tests/test_torch_cuda_train_lm_gnn.py``
+hold the card to the CPU, phase 12 a mesh's step to the one-device step,
+``tests/test_torch_train_mesh*.py`` the port's mesh steps to the
+reference's; ``readings`` takes the two runs' snapshots).
 
-- Metrics: each metric of both steps within ``LOSS_RTOL`` relative. The
-  second step's loss is taken at the parameters the first step wrote, so
-  it sees a wrong update. The control: the relative change of the loss
-  that one whole update makes on the reference device, which the limit
-  must stay below.
+- The card's steps run under PyTorch's deterministic algorithms
+  (``deterministic``): the card's segment sums (``index_add_``) otherwise
+  add in no fixed order, and a bf16 cell's total energy (smoke-mace's
+  ogb_products) then lands one ulp from the CPU's in some runs, which
+  moves its energy term by 1e-2 of itself (``tools/mace_bf16_flips.py``).
+- Metrics: each metric of both steps within ``LOSS_RTOL`` relative, or
+  within a tenth of the control where that is tighter (``metric_limit``).
+  The second step's loss is taken at the parameters the first step
+  wrote, so it sees a wrong update. The control: the relative change of
+  the loss that one whole update makes on the reference run, which the
+  limit must stay below.
 - Parameters after the first step: the first update of AdamW and
   Adafactor is about -lr g / |g| an element, so an element whose gradient
   is at rounding level may move the other way on one device; every element
@@ -20,8 +29,10 @@ and ``tests/test_torch_cuda_train_lm_gnn.py`` hold the card to the CPU).
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import math
+import os
 
 import torch
 
@@ -33,6 +44,22 @@ LOSS_RTOL = {"float32": 1e-4, "bfloat16": 2e-3}
 LEAF_FAR_SHARE = {"float32": 1e-2, "bfloat16": 0.3}
 
 
+@contextlib.contextmanager
+def deterministic():
+    """PyTorch's deterministic algorithms for the block (``warn_only``: an op
+    without a deterministic version warns), then the setting as it was.
+    cuBLAS's fixed workspace is requested where the process has not named
+    one (``:4096:8``, an H100's default size)."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+
+
 def tree_to(tree, dev):
     """A copy of a nested dict of tensors on ``dev``."""
     if isinstance(tree, dict):
@@ -40,29 +67,41 @@ def tree_to(tree, dev):
     return tree.to(dev, copy=True) if isinstance(tree, torch.Tensor) else tree
 
 
-def _snapshot(model) -> dict:
+def snapshot(model) -> dict:
+    """Every leaf of ``reference_layout(model)`` as a float32 CPU copy."""
     return {k: v.detach().to("cpu", torch.float32, copy=True)
             for k, v in reference_layout(model).items()}
 
 
 def step_readings(cell, dev, seed: int, lr: float) -> dict:
     """Two steps of ``cell`` (its ``make_inputs`` on the CPU, the
-    reference, then a copy on ``dev``) -> {"rel": the largest relative metric difference,
-    "update_rel": the loss's relative change over the reference's first
-    update, "worst": the largest parameter difference, "leaf_far" and
-    "leaf_far_name": the largest far share of a leaf and its leaf,
-    "far", "elements", "control", "control_name", "controlled",
-    "leaves"}."""
+    reference, then a copy on ``dev``) -> ``readings``."""
     ref = cell.make_inputs(seed, "cpu")
     model, state, batch = copy.deepcopy(ref[0]).to(dev), tree_to(ref[1], dev), tree_to(ref[2], dev)
-    start = _snapshot(ref[0])
+    start = snapshot(ref[0])
     ref_model, ref_state, want1 = cell.fn(*ref)
-    model, state, got1 = cell.fn(model, state, batch)
-    want_p, got_p = _snapshot(ref_model), _snapshot(model)
+    with deterministic():
+        model, state, got1 = cell.fn(model, state, batch)
+    want_p, got_p = snapshot(ref_model), snapshot(model)
     _, _, want2 = cell.fn(ref_model, ref_state, ref[2])
-    _, _, got2 = cell.fn(model, state, batch)
+    with deterministic():
+        _, _, got2 = cell.fn(model, state, batch)
     if torch.device(dev).type == "cuda":
         torch.cuda.synchronize()
+    return readings(start, want_p, got_p, (want1, want2), (got1, got2), lr)
+
+
+def readings(start: dict, want_p: dict, got_p: dict, want_ms, got_ms, lr: float) -> dict:
+    """The readings of two runs of two steps each from the same ``start``
+    (float32 CPU snapshots by leaf): ``want_p`` / ``got_p`` the leaves after
+    the first step of the reference run and of the run under test,
+    ``want_ms`` / ``got_ms`` the metrics of both steps of each -> {"rel":
+    the largest relative metric difference, "update_rel": the loss's
+    relative change over the reference's first update, "worst": the
+    largest parameter difference, "leaf_far" and "leaf_far_name": the
+    largest far share of a leaf and its leaf, "far", "elements",
+    "control", "control_name", "controlled", "leaves", "finite"}."""
+    (want1, want2), (got1, got2) = want_ms, got_ms
     out = dict(rel=0.0, worst=0.0, leaf_far=0.0, leaf_far_name=None, far=0, elements=0,
                control=math.inf, control_name=None, controlled=0, leaves=len(start),
                finite=all(math.isfinite(float(v)) for v in (*got1.values(), *got2.values())))
@@ -91,15 +130,24 @@ def step_readings(cell, dev, seed: int, lr: float) -> dict:
     return out
 
 
+def metric_limit(r: dict, dtype: str) -> float:
+    """``LOSS_RTOL[dtype]``, or a tenth of the reference's first update's
+    change of the loss where that is smaller: a cell whose loss one update
+    barely moves (dlrm-mlperf at B 65,536: 1.1e-5 relative) is held that
+    much tighter, so its limit stays below its control."""
+    return min(LOSS_RTOL[dtype], r["update_rel"] / 10)
+
+
 def failures(r: dict, lr: float, dtype: str) -> list:
     """What of ``step_readings``' ``r`` breaks the limits for ``dtype``
     ("float32" or "bfloat16"), the limit against its control included."""
-    rtol, share = LOSS_RTOL[dtype], LEAF_FAR_SHARE[dtype]
+    share = LEAF_FAR_SHARE[dtype]
+    rtol = metric_limit(r, dtype)
     out = []
     if not r["finite"]:
         out.append("a metric is not finite")
     if not r["rel"] <= rtol < r["update_rel"]:
-        out.append(f"metrics differ by {r['rel']:.3e} relative, the limit {rtol} and one "
+        out.append(f"metrics differ by {r['rel']:.3e} relative, the limit {rtol:.3e} and one "
                    f"update's change {r['update_rel']:.3e}")
     if not r["worst"] <= 2 * lr + 1e-6:
         out.append(f"a parameter differs by {r['worst']:.3e} (> 2 lr + 1e-6)")

@@ -118,8 +118,19 @@ def clip_by_global_norm(tree: Tree, max_norm: float):
 
 def make_train_step(loss_fn: LossFn, optimizer: Optimizer, *, grad_accum: int = 1,
                     clip_norm: float = 0.0):
-    """Returns step(model, opt_state, batch) -> (model, opt_state, metrics):
-    the model's parameters and the state are updated in place.
+    """Returns step(model, opt_state, batch, skip_nonfinite=False) -> (model,
+    opt_state, metrics): the model's parameters and the state are updated
+    in place. With ``skip_nonfinite`` (the training driver's NaN guard) the
+    step reads the loss on the host once the gradients are taken and, where
+    it is not finite, returns before the first write: parameters and state
+    stay as they were, bit for bit (the reference drops its functional
+    result instead). Without it the step never waits on the device.
+
+    The step takes no mesh: over one, the loss runs each position's share
+    where the reference's layout puts it (the tables' blocks, the
+    experts, the graph's shards) and combines the shares in shard order,
+    and autograd carries each share's gradient back through the moves onto
+    the whole parameters, as GSPMD's reductions carry the reference's.
 
     With grad_accum > 1 the batch's leading axis is split into
     ``grad_accum`` microbatches run one after another; their gradients are
@@ -134,7 +145,7 @@ def make_train_step(loss_fn: LossFn, optimizer: Optimizer, *, grad_accum: int = 
             grads = gradients(model, loss)
         return {k: v.detach() for k, v in metrics.items()}, grads
 
-    def step(model, opt_state, batch):
+    def step(model, opt_state, batch, skip_nonfinite: bool = False):
         params = reference_layout(model)
         if grad_accum > 1:
             size = next(iter(batch.values())).shape[0] // grad_accum
@@ -154,6 +165,8 @@ def make_train_step(loss_fn: LossFn, optimizer: Optimizer, *, grad_accum: int = 
             metrics = {k: m / n for k, m in msum.items()}
         else:
             metrics, grads = grads_of(model, batch)
+        if skip_nonfinite and not bool(torch.isfinite(metrics["loss"])):
+            return model, opt_state, metrics  # the NaN guard: nothing written
         if clip_norm > 0:
             grads, gnorm = clip_by_global_norm(grads, clip_norm)
             metrics = dict(metrics, grad_norm=gnorm)

@@ -7,7 +7,8 @@ imports no JAX, so it also runs where only the port is installed:
 
 Two train steps from the same weights, optimizer state and batch on the
 card and on the CPU (smoke configs, float32 unless the cell computes in
-bf16, PyTorch's default of no TF32): smoke-gqa's train_4k (AdamW),
+bf16, PyTorch's default of no TF32; the card's steps under deterministic
+algorithms, ``train.parity.deterministic``): smoke-gqa's train_4k (AdamW),
 smoke-mla-moe's with the router's aux loss (Adafactor, grad_accum 2), and
 every smoke-mace cell. The readings and limits are ``train.parity``'s:
 every metric of both steps within ``LOSS_RTOL`` relative (1e-4 float32,

@@ -154,3 +154,23 @@ def test_parity_check_passes_a_sound_copy_and_fails_a_broken_update(how):
     else:
         assert r["leaf_far_name"] == leaf and r["leaf_far"] == 1.0
         assert any(leaf in msg for msg in got) and any("metrics differ" in msg for msg in got)
+
+
+def test_parity_runs_the_copy_under_deterministic_algorithms():
+    """``step_readings`` takes the reference's steps as they are and the
+    copy's under PyTorch's deterministic algorithms (on the card, segment
+    sums in a fixed order), and leaves the setting as it found it."""
+    cell = get_arch("smoke-mace").make_cell("full_graph_sm")
+    seen = []
+
+    class Recording:
+        make_inputs = staticmethod(cell.make_inputs)
+
+        def fn(self, model, state, batch):
+            seen.append(torch.are_deterministic_algorithms_enabled())
+            return cell.fn(model, state, batch)
+
+    assert not torch.are_deterministic_algorithms_enabled()
+    assert failures(step_readings(Recording(), "cpu", 0, LR), LR, "float32") == []
+    assert seen == [False, True, False, True]
+    assert not torch.are_deterministic_algorithms_enabled()

@@ -1,9 +1,11 @@
 """The port stands alone: no file under src/repro_torch/ nor chip_smoke.py
-imports jax, jaxlib or the reference package, importing the port leaves
-jax out of sys.modules, tensor-creating entry points without ``device=``
-(``TwoTower``, ``DLRM``, ``DeepFM``, ``SASRec``, ``Transformer``, ``MLP``,
-the recsys and LM batches, inits, caches, interop and cells too) raise
-where there is no CUDA device instead of dropping to the CPU, and no
+imports jax, jaxlib or the reference package (the checkpoints, the
+training driver and the compression and layout modules among them),
+importing the port leaves jax out of sys.modules, tensor-creating entry
+points without ``device=`` (``TwoTower``, ``DLRM``, ``DeepFM``,
+``SASRec``, ``Transformer``, ``MLP``, the recsys and LM batches, inits,
+caches, interop, cells and the training driver too) raise where there is
+no CUDA device instead of dropping to the CPU, and no
 module says a path waits for ROADMAP item 11b, 12 or 14b (all are
 ported)."""
 import ast
@@ -41,7 +43,7 @@ from repro_torch.interop import (
     two_tower_params_from_reference,
 )
 from repro_torch.distributed import single_device_meshinfo
-from repro_torch.launch import serve
+from repro_torch.launch import serve, train
 from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.models.common.modules import (
     MLP,
@@ -116,7 +118,8 @@ def test_no_reference_imports():
             "models/transformer/attention.py", "models/transformer/model.py", "archs/lm.py",
             "configs/lm_configs.py", "models/transformer/moe.py", "models/gnn/__init__.py",
             "models/gnn/mace.py", "models/gnn/sampler.py", "models/gnn/distributed.py",
-            "archs/gnn.py", "train/parity.py"} <= walked
+            "archs/gnn.py", "train/parity.py", "ckpt/__init__.py", "ckpt/checkpoint.py",
+            "launch/train.py", "train/compression.py", "distributed/layout.py"} <= walked
     bad = {str(p.relative_to(ROOT)): sorted(_imported_roots(p) & set(FORBIDDEN))
            for p in files if _imported_roots(p) & set(FORBIDDEN)}
     assert not bad, bad
@@ -221,9 +224,12 @@ def test_tensor_creators_default_to_cuda_and_raise_without_it():
             sample_ids=cpu_index.sample_ids, entry_point=cpu_index.entry_point,
             free=pool.free, pending=pool.pending, n_live=pool.n_live, epoch=0, ef_insert=32,
             consolidations=0, rng_state=cpu_index.rng.get_state())
-    # the serve launcher's default device is the card, too
+    # the serve launcher's and the training driver's default device is the card, too
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--n", "64", "--requests", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--arch", "smoke-dlrm", "--steps", "1"])
+    assert train.parse_args(["--arch", "smoke-dlrm"]).device == "cuda"
     # SASRec and the LM
     sas = smoke_sasrec()
     lm_cfg = get_arch("smoke-gqa").cfg

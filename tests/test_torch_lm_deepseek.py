@@ -25,9 +25,10 @@ cross through ``interop.lm_params_from_reference``. Checked:
   ``lm_decode_terms``) equal the reference's for both DeepSeek configs;
 - the cells: ``make_cell`` serves ``smoke-mla-moe`` on one device and over
   a (1, 4) mesh of the CPU (the cache laid out as four sequence shards);
-  train_4k builds its step on one device and refuses a mesh, naming
-  ROADMAP item 14e (the step is held to the reference's in
-  test_torch_lm_train.py).
+  train_4k builds its step on one device and over the mesh, where the
+  cell carries a layout for every parameter (the steps are held to the
+  reference's in test_torch_lm_train.py and, over meshes,
+  test_torch_train_mesh_lm.py).
 """
 import dataclasses
 
@@ -49,6 +50,7 @@ from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.models.transformer import decode_step, init_cache, prefill_logits
 from repro_torch.models.transformer.moe import _router_probs
 from repro_torch.roofline import model as roof
+from repro_torch.train import reference_layout
 from test_torch_lm import close, port_cfg, tokens
 from test_torch_parity_world import torch_threads  # noqa: F401 (autouse fixture)
 
@@ -194,5 +196,5 @@ def test_cells_serve_on_one_device_and_a_mesh():
     with pytest.raises(ValueError, match="layout"):
         decode_step(model, cache, tok, mi)
     assert arch.make_cell("train_4k").kind == "train"
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14e"):
-        arch.make_cell("train_4k", mi)
+    assert arch.make_cell("train_4k").specs is None
+    assert set(arch.make_cell("train_4k", mi).specs) == set(reference_layout(model))

@@ -179,11 +179,16 @@ def test_train_cells_change_params():
     after = ts.reference_layout(model)
     assert all(not torch.equal(after[k], v) for k, v in before.items())
     assert np.isfinite(float(metrics["loss"]))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14e"):
-        from repro_torch.distributed import MeshInfo
-        from repro_torch.launch.mesh import make_test_mesh
+    # over a (2, 1) mesh (no MoE to split) the same step from the same start
+    from repro_torch.distributed import MeshInfo
+    from repro_torch.launch.mesh import make_test_mesh
 
-        get_arch("smoke-gqa").make_cell("train_4k", MeshInfo(make_test_mesh(2, device="cpu")))
+    mesh_cell = get_arch("smoke-gqa").make_cell("train_4k",
+                                                MeshInfo(make_test_mesh(2, device="cpu")))
+    model2, state2, batch2 = mesh_cell.make_inputs(0, "cpu")
+    _, _, metrics2 = mesh_cell.fn(model2, state2, batch2)
+    assert float(metrics2["loss"]) == float(metrics["loss"])
+    assert all(torch.equal(ts.reference_layout(model2)[k], v) for k, v in after.items())
 
 
 def test_stacked_layers_survive_to_and_deepcopy():
