@@ -78,8 +78,8 @@ Phases, any failure exits non-zero:
      random weights from --seed: serve_p99 (512 users), serve_bulk
      (262,144) and retrieval_cand (1 user against the item tower's
      embeddings of items 0..n-1, top-100), each one embedding_bag launch;
-     then AIRSHIP constrained retrieval over those n embeddings (10 random
-     categories, exact index, degree 32, sample 128; 256 user-tower
+     then AIRSHIP constrained retrieval over the first TT_WALK_N = 250,000
+     of those embeddings (10 random categories, exact index, degree 32, sample 128; 256 user-tower
      queries, one wanted category each; prefer, use_kernel, ef_result and
      max_iters TT_EF_RESULT / TT_MAX_ITERS) with recall@10 >= 0.5 against
      the exact oracle and every returned item in its category; the device
@@ -122,12 +122,13 @@ Phases, any failure exits non-zero:
      moves), serve_p99 (512 x 100 candidates), serve_bulk (262,144 x 100)
      and retrieval_cand (1 x 1,000,000); one `sasrec {...}` line each (wall
      ending in a sync, users/s or examples/s, peak memory). 9c:
-     granite-3-2b at full width and depth (40 layers, bf16 weights from
-     --seed, 2.64e9 parameters): decode == teacher forcing at 2 layers of
-     its width in float32 (2e-3) and bf16 (0.1); prefill_32k at batch 1
-     (cut from 32), decode_32k at batch 16 (cut from 128; a 42.9 GB cache)
-     and long_500k as published (a 524,288-token cache, 42.9 GB), 8 decode
-     steps from random bf16 caches at the last 8 positions, one cache alive
+     granite-3-2b at full width, depth cut from 40 layers to LM_LAYERS = 8
+     (bf16 weights from --seed, 0.69e9 parameters): decode == teacher
+     forcing at 2 layers of its width in float32 (2e-3) and bf16 (0.1);
+     prefill_32k at batch 1 (cut from 32), decode_32k at batch 16 (cut from
+     128; an 8.6 GB cache) and long_500k as published (a 524,288-token
+     cache, 8.6 GB), LM_DECODE_STEPS = 4 decode steps from random bf16
+     caches at the last 4 positions, one cache alive
      at a time; every logit finite, the cache's data_ptr unchanged across
      each step; one `lm {...}` line each (wall, tokens/s, peak memory,
      kernel launches a step, the bound from lm_serve_bound) and `profile
@@ -135,11 +136,11 @@ Phases, any failure exits non-zero:
      freed: deepseek-v2-236b (MLA with q_lora 1536 and kv_lora 512, 160
      experts top-6 + 2 shared, expert d_ff 1536, vocab 102,400) at full
      width, bf16 weights from --seed, depth cut from 1 dense + 59 MoE
-     layers to 1 + 4 (17.28e9 parameters); decode == teacher forcing at 2
+     layers to 1 + 2 (9.33e9 parameters); decode == teacher forcing at 2
      MLA layers of its width with no experts, float32 (2e-3) and bf16 (0.1);
-     prefill_32k at batch 1 (cut from 32), decode_32k at batch 128 (a 24.2
-     GB latent cache) and long_500k (3.0 GB), 8 decode steps each from a
-     random bf16 cache at its last 8 positions, long_500k again on a (1, 4)
+     prefill_32k at batch 1 (cut from 32), decode_32k at batch 128 (a 14.5
+     GB latent cache) and long_500k (1.8 GB), 4 decode steps each from a
+     random bf16 cache at its last 4 positions, long_500k again on a (1, 4)
      mesh of the card (four sequence shards, the MoE expert-parallel over
      4) with every step's logits within DS_MESH_TOL of the one-device
      run's; one `lm {...}` line a cell (as 9c's, plus the share of routed
@@ -152,7 +153,7 @@ Phases, any failure exits non-zero:
      card == CPU (train.parity) for two steps of smoke-gqa (AdamW) and
      smoke-mla-moe with router_aux_coef 0.01 (Adafactor, grad_accum 2),
      each limit against its control, then granite-3-2b at
-     full width and depth, deepseek-v2-236b at full width (160 experts)
+     full width cut to 8 layers, deepseek-v2-236b at full width (160 experts)
      cut to 1 dense + 1 MoE layer, and deepseek-v3-671b's 3 dense layers
      and MTP block at full width, batches cut (LM_TRAIN_CELLS); one
      `lm_train {...}` line each (init, first and warm step wall ending in
@@ -195,13 +196,13 @@ ef_insert 32, seed --seed); 10,000 deletes, every query's true top-1
 among them; serve_256 and serve_256_fused over the published snapshot
 (no tombstoned id returned, fused == unfused in ids, dists and every
 stat, recall@10 >= 0.5 against the exact oracle on the tombstoned
-corpus); 64 inserts of live rows plus 0.01 noise (per-insert wall p50 /
+corpus); 32 inserts of live rows plus 0.01 noise (per-insert wall p50 /
 p99, the publish time, one gather_distance launch an insert, each new
 row's invariants, the share a walk finds at distance 0 held to
 REACH_FLOOR); consolidate() of every pending slot (its wall and
 gather_distance launches, slot accounting, histograms and postings
 exact, the invariants of every rewritten row, no edge into a freed
-slot, a live entry vertex); 64 more inserts, which must take the
+slot, a live entry vertex); 32 more inserts, which must take the
 reclaimed slots in LIFO order; serve_256 again (recall floor, no dead
 id); the strategy router over the index's histograms, postings and
 range postings (10 labels, three range windows of ~0.05%, ~2% and ~30%
@@ -225,16 +226,17 @@ executor, so each distance goes through gather_distance. serve_mixed_1m
 (over phase 6's index, with a JSON log; warmup must build exactly the
 12-closure trace budget and no request may miss the closure cache after
 it; one 128-row flush profiled), serve_mixed_1m_fused (the same stream,
-fuse_expand="on"), deterministic drains of the stream's first 64
+fuse_expand="on"), deterministic drains of the stream's first 16
 requests under both tier sets (every response equal: ids, dists, filled,
-tier, escalations), serve_hybrid_1m (the stream's first 256 requests with
-the strategy router; an overlay route must build through l2_matmul),
-serve_churn_1m (a fresh StreamingIndex.from_static, capacity 1.5M,
-ef_insert 32, under StreamingLocalExecutor(consolidate_after=64);
-churn_workload(7, corpus, 512, 10, mutation_frac=0.3) through
-replay_churn; at least one consolidation under serving, no served id
-tombstoned at its response's epoch, slot accounting and stats exact after
-it) and serve_mixed_1m_pq (the first 128 requests, approx="pq",
+tier, escalations), serve_hybrid_1m (the stream's first 256 requests
+with the strategy router; an overlay route, where one is taken, must
+build through l2_matmul), serve_churn_1m (a fresh StreamingIndex.from_static,
+capacity 1.5M, ef_insert 32, under
+StreamingLocalExecutor(consolidate_after=32); churn_workload(7, corpus,
+256, 10, mutation_frac=0.3) through replay_churn; at least one
+consolidation under serving, no served id tombstoned at its response's
+epoch, slot accounting and stats exact after it) and serve_mixed_1m_pq
+(the first 32 requests, approx="pq",
 fuse_expand="on" over phase 5's codebooks); hybrid and pq are cut to
 bound the phase's time. Every replay accounts for every request
 (served + shed + mutations + rejected == submitted), every served id
@@ -243,7 +245,7 @@ latency, and the closures stay within the trace budget; recall@k of the
 three exact replays against the exact oracle on the same constraints is
 >= 0.5 per family. Then the launcher runs end to end at its own default
 shape (n = 20,000, d = 32: corpus, exact index through l2_matmul, warmup,
-64 requests, --log-json into build/). It prints one `serving {...}` line
+16 requests, --log-json into build/). It prints one `serving {...}` line
 per replay and `profile serve_mixed_1m`; its launches join the kernels
 line's totals. In phase 4, one 64-request mixed stream drained through
 the runtime on the card and on the CPU (default tiers, unfused and
@@ -267,7 +269,7 @@ shape (batch wall, QPS, iters = the max over shards, recall, each shard's
 walk wall) and `profile dist_256_p4 shard 0` (one shard's walk). Replicas
 over HTTP: ServingFrontend on 127.0.0.1:0 over a 2-replica ReplicaSet
 sharing phase 6's static index
-(wall clock, phase 6c's tiers and ladder), 64 mixed label and range
+(wall clock, phase 6c's tiers and ladder), 8 mixed label and range
 requests from 8 client threads, /metrics parsed with parse_exposition and
 held to each replica's telemetry, /healthz, /varz, close() losing no
 request (`http {...}` line: req/s on the wall clock, client p50 / p99,
@@ -277,9 +279,21 @@ HTTP, equal epochs, equal answers on both replicas, the dead slot never
 served. The launcher: `python -m repro_torch.launch.serve --n 20000
 --serve-http 0 --replicas 2` in a subprocess (its address read from its
 output, 4 requests, SIGTERM, its shutdown report checked), and main()
-with --distributed (a 1x1 mesh on the card). Phase 7 adds retrieval_cand
+with --distributed (a 1x1 mesh on the card, 16 requests). Phase 7 adds retrieval_cand
 with two_phase_topk on a (1, 4) mesh, equal to the single-device top-100
 up to ties. Request counts are cut for time (PERF.md §4), never widths.
+
+Phase 6e, the registry cells, follows 6d over phase 6's world: each of
+airship-sift1m's six shapes through get_arch("airship-sift1m").make_cell(
+shape, mi) on a (1, 1) mesh of cuda:0, its fn called with the world's
+arrays (serve_bulk_8k with 8,192 queries of their own), each result's ids
+and dists equal bit for bit to constrained_search with the shape's params
+over the same arrays (`registry {...}` lines: wall, QPS, iters, launches);
+then the dry run (src/repro_torch/launch/dryrun.py) of
+airship-sift1m:serve_256 and granite-3-2b:train_4k on the meta device at
+16x16 (`dryrun {...}` lines; the walk stops at its host read, so the first
+is analytic) and the roofline report's table from those records (`report`
+lines), and the phase's wall.
 
 Phases 6, 6d and 7 print a `roofline {...}` line for serve_256,
 dist_256_p4 (airship_terms, the measured iters as est_iters, tp 1 and 4,
@@ -305,6 +319,8 @@ import sys
 import time
 from pathlib import Path
 
+T_START = time.perf_counter()  # the script's wall, logged at the end
+
 # Phase 7's 51.2 GB item table needs one 47.7 GiB range after phases that
 # cycle tens of GB of temporaries through the caching allocator (phase 6d's
 # 8,192-query oracle and walks): expandable segments let it hand partly
@@ -328,6 +344,10 @@ NND_ITERS = 128
 TT_USER_VOCAB = 10_000_000
 TT_P99, TT_BULK = 512, 262_144  # serve_p99 and serve_bulk batches (RECSYS_SHAPES)
 TT_QUERIES = 256  # users of the constrained walk over the item tower
+# Rows of the item-tower corpus the walk searches, cut from 1M for the
+# script's time: its exact build is quadratic in them (23 s at 1M), and the
+# walk runs to its iteration cap whatever their number.
+TT_WALK_N = 250_000
 # The walk's result capacity and iteration cap. examples/constrained_serving.py
 # uses 128 and 800; over 1M item-tower rows with random weights, whose user
 # queries lie far from the items, that reaches recall@10 0.19, and 2048 and
@@ -335,6 +355,18 @@ TT_QUERIES = 256  # users of the constrained walk over the item tower
 # query runs to the cap: the floor holds by the iteration budget, not
 # because the graph steers the walk to its neighbours.
 TT_EF_RESULT, TT_MAX_ITERS = 2048, 8000
+
+
+PHASE_WALLS: dict = {}  # phase -> host-clock seconds, logged before the kernels line
+
+
+def timed(name: str, fn, *args):
+    """``fn(*args)``, its wall kept in PHASE_WALLS under ``name``."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_WALLS[name] = round(time.perf_counter() - t0, 1)
+    log(f"wall {name}: {PHASE_WALLS[name]} s (host clock)")
+    return out
 
 
 def log(msg: str) -> None:
@@ -1773,10 +1805,98 @@ def search_phase(args, dev, launch: LaunchCounts):
                 true_ids=true_ids)
 
 
+# --------------------------------------------------------------------------- registry cells
+
+# The cells the registry phase dry-runs on the meta device at 16x16: the
+# paper's serve cell and one LM train cell.
+REGISTRY_DRYRUN = (("airship-sift1m", "serve_256"), ("granite-3-2b", "train_4k"))
+
+
+def registry_phase(args, dev, launch: LaunchCounts, world) -> None:
+    """Phase 6e: airship-sift1m's registry cells over phase 6's world on a
+    (1, 1) mesh of the card, each equal to the direct search; the dry run
+    of ``REGISTRY_DRYRUN`` and the report's table."""
+    from repro_torch import (
+        Corpus,
+        constrained_search,
+        equal_constraint,
+        make_queries,
+        recall,
+        shard_corpus_for_mesh,
+    )
+    from repro_torch.archs import get_arch
+    from repro_torch.archs.airship import shape_params
+    from repro_torch.distributed import MeshInfo
+    from repro_torch.launch.dryrun import dryrun_cell
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.roofline.report import markdown_table
+
+    t_phase = time.perf_counter()
+    arch = get_arch("airship-sift1m")
+    mi = MeshInfo(make_test_mesh(1, model=1, device=dev))
+    corpus = Corpus(vectors=world["corpus"].vectors, labels=world["corpus"].labels)
+    index = world["index"]
+    index_s = shard_corpus_for_mesh(corpus, index, mi.mesh)
+    check(index_s.shards[0][dev][0].vectors.data_ptr() == corpus.vectors.data_ptr(),
+          "the (1, 1) mesh copied the corpus")
+    qgen = torch.Generator(device=dev).manual_seed(args.seed + 89)
+    batches = {B: (world["queries"], world["cons"], world["true_ids"])}
+    for shape in arch.shape_names():
+        b = arch.shapes[shape]["batch"]
+        if b not in batches:
+            q, qlab = make_queries(qgen, world["corpus"], b)
+            batches[b] = (q, equal_constraint(qlab, 10), None)
+        q, c, truth = batches[b]
+        cell = arch.make_cell(shape, mi)
+        params = shape_params(arch.cfg, shape, dev)
+        pq = world["pq"] if params.approx == "pq" else None
+        cell_args = (index_s, q, c) + ((pq,) if pq is not None else ())
+        launch.reset()
+        t0 = time.perf_counter()
+        res = cell.fn(*cell_args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch.read()
+        t0 = time.perf_counter()
+        want = constrained_search(corpus, index, q, c, params, pq_index=pq)
+        torch.cuda.synchronize()
+        direct_wall = time.perf_counter() - t0
+        same = torch.equal(res.ids, want.ids) and torch.equal(res.dists, want.dists)
+        log("registry " + json.dumps(dict(
+            cell=cell.name, card=args.card, mesh=[1, 1], batch=b, wall_s=wall, qps=b / wall,
+            direct_wall_s=direct_wall, iters=int(res.stats.iters),
+            recall_at_10=None if truth is None else float(recall(res.ids, truth)),
+            equal_direct=same, launches={k: v for k, v in counts.items() if v})))
+        check(same, f"{cell.name}: the registry cell differs from constrained_search (ids or "
+                    f"dists)")
+        # the unfused PQ walk scores its ADC tables in plain PyTorch (phase 6)
+        kernel = ("fused_expand_adc" if params.approx == "pq" and params.fuse_expand == "on"
+                  else None if params.approx == "pq"
+                  else "fused_expand" if params.fuse_expand == "on" else "gather_distance")
+        check(kernel is None or counts[kernel] > 0, f"{cell.name}: {kernel} never launched")
+    del batches, index_s
+    out_dir = Path(__file__).resolve().parent / "build" / "dryrun"
+    for f in out_dir.glob("*.json"):
+        f.unlink()
+    for name, shape in REGISTRY_DRYRUN:
+        t0 = time.perf_counter()
+        rec = dryrun_cell(name, shape, multi_pod=False, out_dir=str(out_dir), device="meta")
+        log("dryrun " + json.dumps(dict(
+            cell=rec["cell"], mesh=rec["mesh"], device=rec["device"], source=rec["source"],
+            stopped_at=rec["stopped_at"], wall_s=time.perf_counter() - t0,
+            memory=rec["memory"], cost=rec["cost"], collectives=rec["collectives"])))
+    table, rows = markdown_table(str(out_dir))
+    for line in table.splitlines():
+        log(f"report {line}")
+    check(len(rows) == len(REGISTRY_DRYRUN), f"report: {len(rows)} rows, expected "
+                                             f"{len(REGISTRY_DRYRUN)}")
+    log(f"phase 6e: wall {time.perf_counter() - t_phase:.1f} s (host clock)")
+
+
 # --------------------------------------------------------------------------- streaming and hybrid
 
 STREAM_DELETES = 10_000  # 1% of airship-sift1m's rows
-STREAM_INSERTS = 64  # before and again after the consolidation
+STREAM_INSERTS = 32  # before and again after the consolidation (cut from 64 for time)
 # Share of inserted vectors a walk for them must find: 0.34 and 0.42 at
 # ef_insert 32 on the card (PERF.md), ~0 with a broken insert path.
 REACH_FLOOR = 0.15
@@ -2095,10 +2215,12 @@ def streaming_phase(args, dev, launch: LaunchCounts, world) -> None:
 SERVE_REQUESTS = 512  # serve_mixed_1m and serve_mixed_1m_fused, cut from 1024 (PERF.md §4)
 # Cut to bound the phase's time (PERF.md §4): every flush, 8 rows or 128,
 # runs its slowest query's walk, ~1-2 s of host-bound iterations.
-SERVE_DRAIN = 64  # the deterministic drains that hold fused == unfused
+SERVE_DRAIN = 16  # the deterministic drains that hold fused == unfused
 SERVE_HYBRID = 256  # serve_hybrid_1m, cut from 1024
-SERVE_CHURN = 512  # serve_churn_1m's items (0.3 of them mutations)
-SERVE_PQ = 128  # serve_mixed_1m_pq, cut from 256
+SERVE_CHURN = 256  # serve_churn_1m's items (0.3 of them mutations)
+SERVE_CONSOLIDATE = 32  # serve_churn_1m's consolidate_after: pending slots that trigger one
+SERVE_PQ = 32  # serve_mixed_1m_pq, cut from 256
+SERVE_LAUNCHER = 16  # requests through the launcher's main()
 SERVE_RATE = 20_000.0  # Poisson arrivals a second of virtual time
 SERVE_K_CAP = 16
 
@@ -2336,7 +2458,7 @@ def serving_phase(args, dev, launch: LaunchCounts, world) -> None:
     t0 = time.perf_counter()
     sidx = StreamingIndex.from_static(corpus, index, capacity=n + n // 2, ef_insert=32,
                                       seed=args.seed, device=dev)
-    ex5 = StreamingLocalExecutor(sidx, consolidate_after=64)
+    ex5 = StreamingLocalExecutor(sidx, consolidate_after=SERVE_CONSOLIDATE)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     # every published epoch's tombstones, labels and attributes (device
@@ -2407,11 +2529,12 @@ def serving_phase(args, dev, launch: LaunchCounts, world) -> None:
     t0 = time.perf_counter()
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        serve.main(["--requests", "64", "--log-json", str(log_path)])
+        serve.main(["--requests", str(SERVE_LAUNCHER), "--log-json", str(log_path)])
     torch.cuda.synchronize()
     counts = launch.read()
     text = out.getvalue()
-    check("served 64/64 requests" in text, "launcher: not every request served")
+    check(f"served {SERVE_LAUNCHER}/{SERVE_LAUNCHER} requests" in text,
+          "launcher: not every request served")
     check(counts["l2_matmul"] > 0 and counts["gather_distance"] > 0,
           "launcher: its index build or walk ran without the kernels")
     records = log_path.read_text().splitlines()
@@ -2426,7 +2549,7 @@ DIST_SHARDS = 4  # the (1, 4) mesh: four shards of 250,000 rows, all on the one 
 DIST_SHAPES = ("serve_256", "serve_256_fused", "serve_256_pq_fused", "serve_bulk_8k")
 # Cut to bound the phase's time (PERF.md §4): every flush is a whole
 # host-bound walk (1-2 s), and the two replicas share one card and one GIL.
-HTTP_REQUESTS = 64  # mixed label and range requests through the 2-replica front end
+HTTP_REQUESTS = 8  # mixed label and range requests through the 2-replica front end
 HTTP_CLIENTS = 8  # client threads sending them
 LAUNCHER_REQUESTS = 4  # requests to the launcher's own front end
 LAUNCHER_N = 20_000  # the launcher's own default corpus size
@@ -2889,11 +3012,13 @@ def http_part(args, dev, launch: LaunchCounts, corpus, index) -> None:
     t0 = time.perf_counter()
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        serve.main(["--n", str(LAUNCHER_N), "--requests", "64", "--distributed", *on_cpu])
+        serve.main(["--n", str(LAUNCHER_N), "--requests", str(SERVE_LAUNCHER), "--distributed",
+                    *on_cpu])
     torch.cuda.synchronize()
     counts = launch.read()
     text = buf.getvalue()
-    check("served 64/64 requests" in text and "mesh: {'data': 1, 'model': 1}" in text,
+    check(f"served {SERVE_LAUNCHER}/{SERVE_LAUNCHER} requests" in text
+          and "mesh: {'data': 1, 'model': 1}" in text,
           f"launcher --distributed: {text[-2000:]}")
     check(counts["l2_matmul"] > 0 and counts["gather_distance"] > 0,
           "launcher --distributed: its build or walk ran without the kernels")
@@ -2917,12 +3042,14 @@ def profile_batch(name, run):
     device busy seconds and its kernel count). The batch runs twice: the first, a warm-up step of the
     profiler's schedule, is traced and discarded, so no kernel of the
     recorded batch falls before the trace is running (a trace started
-    right at the batch lost its first kernels)."""
+    right at the batch lost its first kernels). Only device activity is
+    traced: a walk's ~45,000 kernels come with several times as many host
+    ops, whose events took tens of seconds a trace to parse."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+    with profile(activities=[ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
         run()
         torch.cuda.synchronize()
@@ -3087,11 +3214,13 @@ def two_tower_phase(args, dev, launch: LaunchCounts):
     profile_batch("serve_bulk_tt", lambda: outs["serve_bulk"][1](model, outs["serve_bulk"][0]))
     del outs
 
-    # AIRSHIP over the item tower: 10 random categories, the exact index
-    # (airship-sift1m's degree and sample), 256 users of two_tower_batch as
-    # queries, one wanted category each.
+    # AIRSHIP over the item tower's first TT_WALK_N embeddings: 10 random
+    # categories, the exact index (airship-sift1m's degree and sample), 256
+    # users of two_tower_batch as queries, one wanted category each.
+    n = min(n, TT_WALK_N)
     cats = torch.randint(0, 10, (n,), generator=gen, dtype=torch.int32, device=dev)
-    corpus = Corpus(vectors=corpus_vec, labels=cats)
+    corpus = Corpus(vectors=corpus_vec[:n].contiguous(), labels=cats)
+    del corpus_vec
     launch.reset()
     spans = {}
     t0 = time.perf_counter()
@@ -3360,13 +3489,15 @@ ATTN_OUT_TOL = 1e-4  # absolute, on outputs of |v|-weighted means (values O(1))
 ATTN_GRAD_RTOL = 1e-4  # of each gradient's largest element
 SASREC_STEPS = 3
 SASREC_SERVE = ("serve_p99", "serve_bulk", "retrieval_cand")
-# 9c: granite-3-2b's serve cells. prefill_32k at batch 1 (at 32 one f32
-# score chunk is 68.7 GB), decode_32k at batch 16 (the cache 42.9 GB, 343.6
-# GB at 128), long_500k as published; 8 decode steps from random bf16
-# caches at the last 8 positions.
+# 9c: granite-3-2b's serve cells at LM_LAYERS of its 40 layers. prefill_32k
+# at batch 1 (at 32 one f32 score chunk is 68.7 GB), decode_32k at batch 16
+# (the cache 8.6 GB; 42.9 GB at 40 layers, 343.6 GB at 40 and batch 128),
+# long_500k as published; LM_DECODE_STEPS decode steps from random bf16
+# caches at the last LM_DECODE_STEPS positions.
 LM_NAME = "granite-3-2b"
+LM_LAYERS = 8  # 9c's depth, cut from 40 for time (PERF.md §4)
 LM_BATCH = {"prefill_32k": 1, "decode_32k": 16, "long_500k": 1}
-LM_DECODE_STEPS = 8
+LM_DECODE_STEPS = 4
 LM_TF_TOKENS = 32  # teacher-forcing check: (2, 32) tokens at 2 layers of full width
 LM_TF_TOL = {"float32": 2e-3, "bfloat16": 0.1}  # abs on logits; 2e-3 is tests/test_models.py's
 
@@ -3522,14 +3653,17 @@ def sasrec_phase(args, dev) -> None:
 
 
 def lm_arch(shape: str):
-    """granite-3-2b's LMArch with phase 9c's batch of ``shape``."""
+    """granite-3-2b's LMArch, LM_LAYERS deep, with phase 9c's batch of ``shape``."""
+    import dataclasses
+
     from repro_torch.archs import get_arch
     from repro_torch.archs.lm import LMArch
 
     arch = get_arch(LM_NAME)
     shapes = {k: dict(v, global_batch=LM_BATCH.get(k, v["global_batch"]))
               for k, v in arch.shapes.items()}
-    return LMArch(arch.cfg, arch.optimizer_name, shapes, arch.grad_accum)
+    return LMArch(dataclasses.replace(arch.cfg, n_layers=LM_LAYERS), arch.optimizer_name, shapes,
+                  arch.grad_accum)
 
 
 def lm_teacher_forcing(args, dev) -> None:
@@ -3563,9 +3697,10 @@ def lm_teacher_forcing(args, dev) -> None:
 
 
 def lm_phase(args, dev) -> None:
-    """9c: granite-3-2b at full width and depth, bf16 weights from --seed:
-    prefill_32k (batch 1), decode_32k (batch 16) and long_500k (batch 1),
-    8 decode steps each from a random bf16 cache at its last 8 positions;
+    """9c: granite-3-2b at full width, LM_LAYERS deep, bf16 weights from
+    --seed: prefill_32k (batch 1), decode_32k (batch 16) and long_500k
+    (batch 1), LM_DECODE_STEPS decode steps each from a random bf16 cache
+    at its last LM_DECODE_STEPS positions;
     one `lm {...}` line a cell and `profile decode_32k`."""
     from repro_torch.data import lm_batch
     from repro_torch.models.transformer import init_params
@@ -3648,10 +3783,10 @@ def lm_cache(cfg, b: int, n: int, seed: int, dev) -> dict:
 
 
 # 9d: deepseek-v2-236b (MLA + MoE) at full width. Depth cut from 1 dense + 59
-# MoE layers to 1 + 4 (17.28e9 parameters, 34.55 GB of bf16 weights);
+# MoE layers to 1 + 2 (9.33e9 parameters, 18.66 GB of bf16 weights);
 # prefill_32k at batch 1 (at 32 the MoE dispatch alone holds 80.5 GB),
-# decode_32k at batch 128 as published (24.2 GB of latent cache), long_500k
-# as published (3.0 GB), then again on a (1, 4) mesh of the card (four
+# decode_32k at batch 128 as published (14.5 GB of latent cache), long_500k
+# as published (1.8 GB), then again on a (1, 4) mesh of the card (four
 # sequence shards, the MoE expert-parallel over 4), the logits of each step
 # whose tokens route as the one-device run's held to that run's within
 # DS_MESH_TOL: only the order of the shards' sums differs (the LSE combine,
@@ -3659,7 +3794,7 @@ def lm_cache(cfg, b: int, n: int, seed: int, dev) -> dict:
 # roundings of the residual stream, as LM_TF_TOL's bf16 case allows for.
 # deepseek-v3-671b is counted on the meta device.
 DS_NAME = "deepseek-v2-236b"
-DS_LAYERS = 5
+DS_LAYERS = 3
 DS_BATCH = {"prefill_32k": 1, "decode_32k": 128, "long_500k": 1}
 DS_MESH_TOL = 0.1  # abs on logits up to ~3
 
@@ -3769,10 +3904,10 @@ def timed_decode(model, cache, tokens, fn, same_cache, what,
 
 def ds_phase(args, dev) -> None:
     """9d: deepseek-v2-236b at full width, depth cut to DS_LAYERS (one dense,
-    four MoE), bf16 weights from --seed: prefill_32k (batch 1), decode_32k
-    (batch 128) and long_500k (batch 1), 8 decode steps each from a random
-    bf16 latent cache at its last 8 positions, long_500k again on a (1, 4)
-    mesh of the card; one `lm {...}` line a cell and `profile
+    two MoE), bf16 weights from --seed: prefill_32k (batch 1), decode_32k
+    (batch 128) and long_500k (batch 1), LM_DECODE_STEPS decode steps each
+    from a random bf16 latent cache at its last positions, long_500k again
+    on a (1, 4) mesh of the card; one `lm {...}` line a cell and `profile
     decode_32k_v2`. deepseek-v3-671b's counts on the meta device."""
     from repro_torch.archs import get_arch
     from repro_torch.data import lm_batch
@@ -3916,12 +4051,13 @@ def ds_mesh_long(mesh, model, tokens, one, walls_one, bound, arch) -> None:
 # LM training: train_4k through LMArch.make_cell on the card (Adafactor or
 # AdamW as the arch names, clip 1.0, its grad_accum), bf16 weights from
 # --seed, seq 4096. No ported kernel is on this path. Cuts (PERF.md §4):
-# every batch from 256 sequences; deepseek-v2-236b's depth from 1 dense +
+# every batch from 256 sequences; granite-3-2b's depth from 40 layers to 8
+# (for the script's time); deepseek-v2-236b's depth from 1 dense +
 # 59 MoE layers to 1 + 1 (5.4e9 parameters, all 160 experts); deepseek-
 # v3-671b's from 3 dense + 58 MoE layers to its 3 dense layers and the MTP
 # block (one V3 MoE layer, 11.3e9 parameters, does not train on one card
-# with its state). (name, layers or None for all, sequences, steps)
-LM_TRAIN_CELLS = (("granite-3-2b", None, 8, 2), ("deepseek-v2-236b", 2, 2, 3),
+# with its state). (name, layers, sequences, steps)
+LM_TRAIN_CELLS = (("granite-3-2b", 8, 8, 2), ("deepseek-v2-236b", 2, 2, 3),
                   ("deepseek-v3-671b", 3, 4, 2))
 # card == CPU: two train_4k steps of each at the smoke widths (float32),
 # from each of CARD_CPU_SEEDS seeds (--seed, --seed + 1, ...)
@@ -4031,7 +4167,7 @@ def lm_train_phase(args, dev) -> None:
                             LM_TRAIN_LR[opt], seed)
     for name, layers, b, steps in LM_TRAIN_CELLS:
         base = get_arch(name)
-        cfg = base.cfg if layers is None else dataclasses.replace(base.cfg, n_layers=layers)
+        cfg = dataclasses.replace(base.cfg, n_layers=layers)
         shapes = {"train_4k": dict(base.shapes["train_4k"], global_batch=b)}
         arch = LMArch(cfg, base.optimizer_name, shapes, base.grad_accum)
         s = shapes["train_4k"]["seq_len"]
@@ -4408,19 +4544,27 @@ def driver_part(args, dev) -> None:
     shutil.rmtree(PHASE12_DIR, ignore_errors=True)
 
 
-def mesh_table_bytes(cell, model, mi) -> list:
-    """Each mesh position's bytes of the tables' blocks under the cell's
-    layout (row-major positions): what ``mesh_lookup`` places on a
-    position at each read of every table (views on one card, copies on
-    several)."""
-    from repro_torch.distributed.layout import shard_shape
-    from repro_torch.train import reference_layout
+def mesh_table_bytes(model, mi) -> list:
+    """Each mesh position's bytes of the tables' blocks resident on it
+    (row-major positions; positions that share a card share its parts)."""
+    from repro_torch.distributed.layout import Blocks
+    from repro_torch.train import param_leaves
 
-    per = 0
-    for k, v in reference_layout(model).items():
-        if k.startswith("tables."):
-            per += math.prod(shard_shape(v.shape, cell.specs[k], mi)) * v.element_size()
-    return [per] * len(mi.mesh.devices)
+    per = [0] * len(mi.mesh.devices)
+    for v in param_leaves(model).values():
+        if isinstance(v, Blocks):
+            for pos, part in enumerate(v.positions()):
+                per[pos] += part.numel() * part.element_size()
+    return per
+
+
+def table_part_ptrs(model) -> dict:
+    """{table: the data pointers of its resident parts}."""
+    from repro_torch.distributed.layout import Blocks
+    from repro_torch.train import param_leaves
+
+    return {k: [p.data_ptr() for p in v.parts] for k, v in param_leaves(model).items()
+            if isinstance(v, Blocks)}
 
 
 class OnDevice(collections.abc.Mapping):
@@ -4460,6 +4604,7 @@ def dlrm_mesh_part(args, dev) -> None:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         model, state, batch = cell.make_inputs(args.seed, dev)
+        ptrs = table_part_ptrs(model)
         run = dict(start=snapshot(model) if name == "one" else None, walls=[], metrics=[])
         for step in range(2):
             if step:
@@ -4477,7 +4622,9 @@ def dlrm_mesh_part(args, dev) -> None:
                               for k, v in reference_layout(model).items()})
         run["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
         if cell.specs:
-            run["table_bytes"] = mesh_table_bytes(cell, model, mi)
+            run["table_bytes"] = mesh_table_bytes(model, mi)
+            check(len(ptrs) == len(arch.cfg.vocab_sizes) and table_part_ptrs(model) == ptrs,
+                  "train_mesh dlrm (2, 2): a table is not resident, or its blocks moved")
         runs[name] = run
         del model, state, batch
     one, mesh = runs["one"], runs["mesh"]
@@ -4582,47 +4729,50 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s (set-up)")
     for stem, out in BUILD_LOGS.items():
         log(f"ptxas {stem}: {ptxas_summary(out)}")
+    PHASE_WALLS["1-2 set-up and build"] = round(time.perf_counter() - T_START, 1)
 
     # 3.-6.
-    max_err, timings = kernel_phase(args, dev)
-    pq_err, pq_timings = pq_kernel_phase(args, dev)
-    l2_err, l2_timing = l2_kernel_phase(args, dev)
-    bag_err, bag_timings = bag_kernel_phase(args, dev)
+    max_err, timings = timed("3 kernels", kernel_phase, args, dev)
+    pq_err, pq_timings = timed("3 pq kernels", pq_kernel_phase, args, dev)
+    l2_err, l2_timing = timed("3 l2_matmul", l2_kernel_phase, args, dev)
+    bag_err, bag_timings = timed("3 embedding_bag", bag_kernel_phase, args, dev)
     # 3b. the tuner's lattice at the main path's shapes
-    tune_phase(args, dev)
-    small_world_phase(args, dev)
-    two_tower_small_phase(args, dev)
+    timed("3b tune", tune_phase, args, dev)
+    timed("4 small world", small_world_phase, args, dev)
+    timed("4 small two-tower", two_tower_small_phase, args, dev)
     launch = LaunchCounts()
-    world = search_phase(args, dev, launch)
+    world = timed("5-6 world and search", search_phase, args, dev, launch)
     # 6b. streaming and hybrid, over phase 6's world
-    streaming_phase(args, dev, launch, world)
+    timed("6b streaming", streaming_phase, args, dev, launch, world)
     # 6c. serving, over phase 6's world
-    serving_phase(args, dev, launch, world)
+    timed("6c serving", serving_phase, args, dev, launch, world)
     log_memory("after phase 6c")
     # 6d. scale-out (mesh, replicas, HTTP, the launcher), over phase 6's world
-    scaleout_phase(args, dev, launch, world)
+    timed("6d scale-out", scaleout_phase, args, dev, launch, world)
+    # 6e. the registry cells over phase 6's world, the dry run, the report
+    timed("6e registry", registry_phase, args, dev, launch, world)
     del world
     # the serving phases' objects (a closure cycle among them) may pin
     # cached segments that phase 7's 51.2 GB table needs
     log_memory("after phase 6d, the world freed")
     # 7. two-tower-retrieval, after the airship-sift1m world is freed
-    two_tower_phase(args, dev, launch)
+    timed("7 two-tower", two_tower_phase, args, dev, launch)
     log_memory("after phase 7, its tables freed")
     # 8. recsys training: the bag's backward kernel, then DeepFM, DLRM and
     # the two-tower model
-    bwd_err, bwd_timing = bag_backward_phase(args, dev)
-    train_phase(args, dev, launch)
+    bwd_err, bwd_timing = timed("8 bag backward", bag_backward_phase, args, dev)
+    timed("8 training", train_phase, args, dev, launch)
     log_memory("after phase 8")
     # 9. attention, SASRec, granite-3-2b and deepseek-v2-236b serving (no
     # ported kernel on this path: launch counts stay as phases 3-8 left them)
     t9 = time.perf_counter()
-    attention_phase(args, dev)
-    sasrec_phase(args, dev)
-    lm_phase(args, dev)
+    timed("9a attention", attention_phase, args, dev)
+    timed("9b sasrec", sasrec_phase, args, dev)
+    timed("9c granite", lm_phase, args, dev)
     log_memory("after phase 9c")
     # 9d. deepseek-v2-236b (MLA + MoE), after 9c's model and caches are freed
     t9d = time.perf_counter()
-    ds_phase(args, dev)
+    timed("9d deepseek-v2", ds_phase, args, dev)
     log(f"phase 9d: wall {time.perf_counter() - t9d:.1f} s (host clock)")
     log(f"phase 9: wall {time.perf_counter() - t9:.1f} s (host clock)")
     log_memory("after phase 9d")
@@ -4630,10 +4780,10 @@ def main() -> int:
     # training over a mesh (no ported kernel on these paths: the counts read
     # after them must stay 0)
     launch.reset()
-    lm_train_phase(args, dev)
-    mace_phase(args, dev)
+    timed("10 lm training", lm_train_phase, args, dev)
+    timed("11 mace", mace_phase, args, dev)
     log_memory("after phase 11")
-    mesh_train_phase(args, dev)
+    timed("12 driver and mesh training", mesh_train_phase, args, dev)
     idle = launch.read()
     check(not any(idle.values()), f"phases 10-12 launched ported kernels: {idle}")
 
@@ -4669,6 +4819,8 @@ def main() -> int:
                             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
                             bound_by=t["bound_by"], library_ms=t.get("library_ms"),
                             config=t.get("config")))
+    log(f"phase walls {json.dumps(PHASE_WALLS)} (host clock, s); script "
+        f"{time.perf_counter() - T_START:.1f} s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

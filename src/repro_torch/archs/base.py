@@ -5,15 +5,15 @@ plus a function that builds the step's inputs on a device.
 The reference's ``CellSpec`` also carries abstract input shapes and their
 PartitionSpecs, which its dry run lowers and compiles; the port runs
 eagerly on one controller, so ``make_inputs`` takes the place of the
-shapes, and a train cell built over a mesh carries its parameters'
-layout in ``specs`` (``distributed/layout.py``). Names the
-port lacks (the AIRSHIP cells of the dry run) raise with the ROADMAP item
-that ports them.
+shapes (on the meta device, tensors without storage), and ``specs`` gives
+the layout (``distributed/layout.py``): a train cell built over a mesh
+keys its parameters' specs by name, an AIRSHIP cell its arguments' by
+their paths from ``arg_names``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 
 @dataclasses.dataclass
@@ -22,7 +22,9 @@ class CellSpec:
     kind: str  # train | serve
     fn: Callable  # positional args: make_inputs' tuple
     make_inputs: Callable[..., tuple]  # (seed=0, device="cuda") -> fn's positional args
-    specs: Optional[Dict[str, tuple]] = None  # parameter name -> its spec over the cell's mesh
+    specs: Optional[Dict[str, tuple]] = None  # parameter name (or argument path) -> its spec
+    arg_names: Optional[Tuple[str, ...]] = None  # fn's positional arguments, where specs name paths
+    note: str = ""
 
 
 class Arch:
@@ -47,11 +49,8 @@ def register(name: str, factory: Callable[[], Arch]) -> None:
 
 def get_arch(name: str) -> Arch:
     if name not in _REGISTRY:
-        import repro_torch.configs as configs  # populate the registry
+        import repro_torch.configs  # noqa: F401 (populate the registry)
 
-        if name in configs.NOT_PORTED:
-            raise NotImplementedError(
-                f"{name} is not ported yet (ROADMAP item {configs.NOT_PORTED[name]})")
     return _REGISTRY[name]()
 
 

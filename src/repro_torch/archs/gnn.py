@@ -24,7 +24,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.archs.base import Arch, CellSpec
-from repro_torch.common.device import resolve_device
+from repro_torch.common.device import make_generator, resolve_device
 from repro_torch.data.pipeline import gnn_batch
 from repro_torch.distributed.meshinfo import single_device_meshinfo
 from repro_torch.models.gnn import mace as gm
@@ -121,7 +121,7 @@ class GNNArch(Arch):
 
         def make_inputs(seed: int = 0, device="cuda"):
             dev = resolve_device(device)
-            model = gm.init_params(torch.Generator(device=dev).manual_seed(seed), cfg, device=dev)
+            model = gm.init_params(make_generator(dev, seed), cfg, device=dev)
             return model, opt.init(reference_layout(model)), self.batch(shape, seed, 0, dev, mi)
 
         step = make_train_step(self.loss_fn(shape, mi), opt, clip_norm=1.0)

@@ -27,7 +27,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.archs.base import Arch, CellSpec
-from repro_torch.common.device import resolve_device
+from repro_torch.common.device import make_generator, resolve_device
 from repro_torch.data.pipeline import lm_batch
 from repro_torch.models.transformer import model as tm
 from repro_torch.train.optimizer import adafactor, adamw
@@ -97,8 +97,7 @@ class LMArch(Arch):
 
             def make_train_inputs(seed: int = 0, device="cuda"):
                 dev = resolve_device(device)
-                model = tm.init_params(torch.Generator(device=dev).manual_seed(seed), cfg,
-                                       device=dev)
+                model = tm.init_params(make_generator(dev, seed), cfg, device=dev)
                 batch = lm_batch(seed, 0, b, s, cfg.vocab_size, device=dev)
                 return model, opt.init(reference_layout(model)), batch
 
@@ -110,7 +109,7 @@ class LMArch(Arch):
 
         def make_inputs(seed: int = 0, device="cuda"):
             dev = resolve_device(device)
-            gen = torch.Generator(device=dev).manual_seed(seed)
+            gen = make_generator(dev, seed)
             model = tm.init_params(gen, cfg, device=dev)
             tokens = lm_batch(seed, 0, b, s if prefill else 1, cfg.vocab_size,
                               device=dev)["tokens"]

@@ -21,7 +21,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from repro_torch.archs.base import Arch, CellSpec
-from repro_torch.common.device import resolve_device
+from repro_torch.common.device import make_generator, resolve_device
 from repro_torch.data.pipeline import (
     deepfm_batch,
     dlrm_batch,
@@ -33,7 +33,7 @@ from repro_torch.distributed.meshinfo import MeshInfo
 from repro_torch.models.recsys import models as rs
 from repro_torch.models.recsys.models import RecsysConfig, TwoTower
 from repro_torch.train.optimizer import adamw
-from repro_torch.train.train_step import make_train_step, reference_layout
+from repro_torch.train.train_step import init_state, make_train_step
 
 RECSYS_SHAPES: Dict[str, dict] = {
     "train_batch": dict(kind="train", batch=65536),
@@ -160,9 +160,10 @@ class RecsysArch(Arch):
     def make_cell(self, shape: str, mi: Optional[MeshInfo] = None) -> CellSpec:
         """train_batch: ``fn(model, opt_state, batch) -> (model, opt_state,
         metrics)``, one AdamW step (lr 1e-3) in place; over ``mi`` (a mesh of
-        more than one position) the tables are read in the reference's
-        layout, which ``specs`` gives (``models.param_specs``), the batch
-        split over the data groups. Serve shapes:
+        more than one position) the tables are resident as their blocks in
+        the reference's layout, which ``specs`` gives (``models.param_specs``,
+        ``models.make_resident``: from ``make_inputs`` on, or a whole model's
+        first step), the batch split over the data groups. Serve shapes:
         ``fn(model, batch)`` (``serve_fn``). ``make_inputs(seed, device)``
         draws the model from ``seed`` and the batch of step 0 (retrieval_cand
         of the two-tower model: the item tower over items 0..C-1, modulo the
@@ -173,20 +174,27 @@ class RecsysArch(Arch):
 
         def model_of(seed, device):  # the reference's init laws, drawn from seed
             dev = resolve_device(device)
-            gen = torch.Generator(device=dev).manual_seed(seed)
+            gen = make_generator(dev, seed)
             return _INIT[cfg.model](gen, cfg, device=dev), dev
 
         if sh["kind"] == "train":
             opt = adamw(lr=1e-3)
+            mesh = mi if mi is not None and len(mi.mesh.devices) > 1 else None
 
             def make_train_inputs(seed: int = 0, device="cuda"):
                 model, dev = model_of(seed, device)
+                rs.make_resident(model, mesh)
                 batch = shape_batch(cfg, shape, seed, 0, shapes=self.shapes, device=dev)
-                return model, opt.init(reference_layout(model)), batch
+                return model, init_state(opt, model), batch
 
-            mesh = mi if mi is not None and len(mi.mesh.devices) > 1 else None
-            return CellSpec(name=name, kind="train",
-                            fn=make_train_step(functools.partial(self.loss, mi=mesh), opt),
+            step = make_train_step(functools.partial(self.loss, mi=mesh), opt)
+
+            def train_step(model, opt_state, batch, **kw):
+                # a model built whole (a checkpoint's, the reference's) turns
+                # resident at its first step over the mesh
+                return step(rs.make_resident(model, mesh), opt_state, batch, **kw)
+
+            return CellSpec(name=name, kind="train", fn=train_step if mesh else step,
                             make_inputs=make_train_inputs,
                             specs=None if mesh is None else rs.param_specs(cfg, mesh))
 

@@ -8,7 +8,11 @@ Layout, the reference's exactly::
         leaf_<i:05d>.npy
 
 A tree is nested dicts of tensors: the train state is ``{"params":
-reference_layout(model), "opt": opt_state}``. Each leaf's key is its
+param_leaves(model), "opt": opt_state}``, where a resident table and its
+moments are ``Blocks``: ``save`` writes such a leaf whole (``Blocks.whole``,
+``layout.gather``) and ``restore`` places it back as blocks of its
+``like`` leaf's layout, so the files are the reference's layout whatever
+the mesh. Each leaf's key is its
 reference keypath joined by "/": a dict key that is a port parameter name
 expands through ``train.reference_key`` (``bot.layers.0.weight`` ->
 ``bot/layers/0/w``, a ``StackedLayers`` leaf ``dense_layers.attn.wq.weight``
@@ -41,7 +45,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch.distributed.layout import place
+from repro_torch.distributed.layout import Blocks, place
 from repro_torch.train.train_step import reference_key
 
 BF16_DESCR = "<V2"  # the .npy header of an ml_dtypes bfloat16 array
@@ -98,7 +102,7 @@ def save(ckpt_dir: str, step: int, tree: Any) -> str:
     os.makedirs(tmp, exist_ok=True)
     manifest = {"step": step, "leaves": []}
     for i, (key, leaf) in enumerate(_flat(tree)):
-        t = torch.as_tensor(leaf)
+        t = leaf.whole() if isinstance(leaf, Blocks) else torch.as_tensor(leaf)
         fname = f"leaf_{i:05d}.npy"
         _write(os.path.join(tmp, fname), t)
         manifest["leaves"].append({"key": key, "file": fname, "shape": list(t.shape),
@@ -157,6 +161,8 @@ def restore(ckpt_dir: str, step: int, like: Any, device=None, layout=None) -> An
             raise ValueError(f"shape mismatch for {key}: {tuple(t.shape)} vs {tuple(leaf.shape)}")
         dev = torch.device(device) if device is not None else leaf.device
         t = t.to(device=dev, dtype=leaf.dtype)
+        if isinstance(leaf, Blocks):  # a resident leaf: placed as its blocks
+            return Blocks.place(t, leaf.layout.spec, leaf.layout.mesh)
         if layout is None:
             return t
         mesh, specs = layout

@@ -1,16 +1,32 @@
-"""Recsys and MACE configurations of the port (port of
-``repro.configs.other_configs``'s recsys and MACE entries), the LM
-configurations (``lm_configs.py``), and the registry of archs under the
-reference's names (``repro/configs/__init__.py``). ``NOT_PORTED`` names
-the archs the port lacks and the ROADMAP item that ports each."""
+"""Recsys, MACE and AIRSHIP configurations of the port (port of
+``repro.configs.other_configs``), the LM configurations
+(``lm_configs.py``), and the registry of archs under the reference's
+names (``repro/configs/__init__.py``): the ten ``ASSIGNED`` architectures,
+the paper's own AIRSHIP serve workload and their smoke variants.
+``NOT_PORTED``, the reference's names the port lacks, is empty."""
 from __future__ import annotations
 
+from repro_torch.archs.airship import AirshipArch, AirshipServeConfig
 from repro_torch.archs.base import register
 from repro_torch.archs.gnn import GNNArch
 from repro_torch.archs.recsys import RecsysArch
 from repro_torch.configs import lm_configs as lm
+from repro_torch.core.types import SearchParams
 from repro_torch.models.gnn.mace import MACEConfig
 from repro_torch.models.recsys.models import RecsysConfig
+
+ASSIGNED = (
+    "deepseek-v2-236b",
+    "deepseek-v3-671b",
+    "command-r-plus-104b",
+    "granite-3-2b",
+    "command-r-35b",
+    "mace",
+    "two-tower-retrieval",
+    "deepfm",
+    "sasrec",
+    "dlrm-mlperf",
+)
 
 # MLPerf DLRM (Criteo 1TB) categorical vocab sizes: 26 fields.
 CRITEO_VOCABS = (
@@ -138,10 +154,25 @@ def smoke_mace() -> GNNArch:
                    shapes=SMOKE_GNN_SHAPES)
 
 
-# The reference's registered names the port does not have, and the ROADMAP
-# item of each: the dry run's AIRSHIP cells (the serve path itself is
-# archs/airship.py).
-NOT_PORTED = dict.fromkeys(("airship-sift1m", "smoke-airship"), "14e, part 3")
+def airship_sift1m() -> AirshipArch:
+    """The paper's evaluation scale: 1M 128-d vectors, 10 labels (SIFT1M +
+    the k-means labelling protocol, §3 'Data')."""
+    return AirshipArch(AirshipServeConfig())
+
+
+def smoke_airship() -> AirshipArch:
+    cfg = AirshipServeConfig(
+        name="smoke-airship", n=2048, dim=16, degree=8, sample_per_shard=32,
+        params=SearchParams(
+            mode="prefer", k=5, ef_result=32, ef_sat=32, ef_other=32,
+            n_start=8, max_iters=64,
+        ),
+    )
+    return AirshipArch(cfg, shapes={"serve_256": dict(kind="serve", batch=16)})
+
+
+# The reference's registered names the port does not have: none.
+NOT_PORTED: dict = {}
 
 register("dlrm-mlperf", lambda: RecsysArch(dlrm_mlperf()))
 register("deepfm", lambda: RecsysArch(deepfm()))
@@ -160,7 +191,10 @@ register("smoke-gqa", lm.smoke_gqa)
 register("smoke-mla-moe", lm.smoke_mla_moe)
 register("mace", mace)
 register("smoke-mace", smoke_mace)
+register("airship-sift1m", airship_sift1m)
+register("smoke-airship", smoke_airship)
 
-__all__ = ["CRITEO_VOCABS", "DEEPFM_VOCABS", "NOT_PORTED", "SMOKE_GNN_SHAPES",
-           "SMOKE_RECSYS_SHAPES", "deepfm", "dlrm_mlperf", "mace", "sasrec", "smoke_deepfm",
-           "smoke_dlrm", "smoke_mace", "smoke_sasrec", "smoke_two_tower", "two_tower_retrieval"]
+__all__ = ["ASSIGNED", "CRITEO_VOCABS", "DEEPFM_VOCABS", "NOT_PORTED", "SMOKE_GNN_SHAPES",
+           "SMOKE_RECSYS_SHAPES", "airship_sift1m", "deepfm", "dlrm_mlperf", "mace", "sasrec",
+           "smoke_airship", "smoke_deepfm", "smoke_dlrm", "smoke_mace", "smoke_sasrec",
+           "smoke_two_tower", "two_tower_retrieval"]

@@ -33,6 +33,7 @@ the search body.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Sequence, Tuple
@@ -45,6 +46,7 @@ from repro_torch.core.engine.loop import search_with_context
 from repro_torch.core.pq import PQIndex
 from repro_torch.core.types import Corpus, GraphIndex, SearchParams, SearchResult, SearchStats
 from repro_torch.distributed.meshinfo import DeviceMesh
+from repro_torch.roofline import collectives
 
 Splitter = Callable[..., object]
 
@@ -109,6 +111,7 @@ class ShardedIndex:
     corpus: Corpus  # the global rows, as given
     n_shards: int
     shards: Tuple[Dict[torch.device, Tuple[Corpus, GraphIndex]], ...]
+    graph: Optional[GraphIndex] = None  # the global partitioned graph, as given
 
     @property
     def dim(self) -> int:
@@ -150,7 +153,7 @@ def shard_corpus_for_mesh(corpus: Corpus, graph: GraphIndex, mesh: DeviceMesh,
                            entry_point=entries[m : m + 1].to(dev)),
             )
         shards.append(placed)
-    return ShardedIndex(corpus=corpus, n_shards=p, shards=tuple(shards))
+    return ShardedIndex(corpus=corpus, n_shards=p, shards=tuple(shards), graph=graph)
 
 
 def make_distributed_search(
@@ -212,33 +215,12 @@ def make_distributed_search(
         b = queries.shape[0]
         if b % n_groups:
             raise ValueError(f"batch {b} does not split over {n_groups} data groups")
-        b_local, n_local = b // n_groups, index.n_local
+        b_local = b // n_groups
         outs = []
         for g in range(n_groups):
-            rows = slice(g * b_local, (g + 1) * b_local)
-            head = grid[g, 0]
-            parts = []
-            for m in range(p):
-                dev = grid[g, m]
-                corpus, sub = index.shards[m][dev]
-                codes_rows = slice(m * n_local, (m + 1) * n_local)
-                pq = split_backend[0](pq_index, codes_rows, dev) if split_backend else None
-                if shard_walls is not None:
-                    _sync(dev)
-                    t0 = time.perf_counter()
-                res = shard_search(corpus, sub, queries[rows].to(dev),
-                                   split_constraint(constraint, rows, dev), pq)
-                if shard_walls is not None:
-                    _sync(dev)
-                    shard_walls.append((g, m, time.perf_counter() - t0))
-                # Local ids -> global ids (row-split partition => offset).
-                gids = torch.where(res.ids >= 0, res.ids + m * n_local, res.ids)
-                parts.append((res, gids))
-            # One gather: every shard's K best to the group's first device.
-            all_d = torch.stack([r.dists.to(head) for r, _ in parts], 1)  # (B, P, K)
-            all_i = torch.stack([i.to(head) for _, i in parts], 1)
-            outs.append((*merge_topk(all_d, all_i, params.k),
-                         _combine_stats([r.stats for r, _ in parts], head)))
+            with collectives.group(g):
+                outs.append(group_search(index, g, slice(g * b_local, (g + 1) * b_local),
+                                         queries, constraint, pq_index, shard_walls))
 
         def cat(tensors):
             return torch.cat([t.to(out_dev) for t in tensors])
@@ -258,6 +240,35 @@ def make_distributed_search(
             ),
         )
 
+    def group_search(index, g, rows, queries, constraint, pq_index, shard_walls):
+        """Data group ``g``'s query rows on every shard, merged on the
+        group's first device -> (dists, ids, stats)."""
+        n_local = index.n_local
+        head = grid[g, 0]
+        parts = []
+        for m in range(p):
+            dev = grid[g, m]
+            corpus, sub = index.shards[m][dev]
+            codes_rows = slice(m * n_local, (m + 1) * n_local)
+            pq = split_backend[0](pq_index, codes_rows, dev) if split_backend else None
+            if shard_walls is not None:
+                _sync(dev)
+                t0 = time.perf_counter()
+            res = shard_search(corpus, sub, queries[rows].to(dev),
+                               split_constraint(constraint, rows, dev), pq)
+            if shard_walls is not None:
+                _sync(dev)
+                shard_walls.append((g, m, time.perf_counter() - t0))
+            # Local ids -> global ids (row-split partition => offset).
+            gids = torch.where(res.ids >= 0, res.ids + m * n_local, res.ids)
+            parts.append((res, gids))
+        # One gather: every shard's K best to the group's first device.
+        all_d = torch.stack([r.dists.to(head) for r, _ in parts], 1)  # (B, P, K)
+        all_i = torch.stack([i.to(head) for _, i in parts], 1)
+        collectives.record("all-gather", all_d, all_i)
+        return (*merge_topk(all_d, all_i, params.k),
+                _combine_stats([r.stats for r, _ in parts], head))
+
     return search
 
 
@@ -274,10 +285,12 @@ def _combine_stats(stats: Sequence[SearchStats], dev: torch.device) -> SearchSta
     def stacked(field):
         return torch.stack([getattr(s, field).to(dev) for s in stats])
 
-    return SearchStats(
+    out = SearchStats(
         dist_evals=stacked("dist_evals").sum(0, dtype=torch.int32),
         hops=stacked("hops").amax(0),
         visited=stacked("visited").sum(0, dtype=torch.int32),
         iters=stacked("iters").amax(0),
         beam_expansions=stacked("beam_expansions").sum(0, dtype=torch.int32),
     )
+    collectives.record("all-reduce", *(getattr(out, f.name) for f in dataclasses.fields(out)))
+    return out

@@ -45,6 +45,7 @@ constexpr int kChunk = 16;           // code words held in registers at once
 constexpr int kRowsPerBlock = 16384; // rows a block walks (fewer when N needs more blocks)
 constexpr int kMaxLaneQ = 4;         // queries a lane serves: one 16-byte lookup
 constexpr size_t kSmemLimit = 232448; // bytes of shared memory one block may use (sm_90)
+constexpr size_t kSmemDefault = 48 * 1024;  // dynamic shared memory a launch gets unasked
 
 template <int QL>
 struct Vec;
@@ -158,12 +159,12 @@ int launch(const float* lut, const int* codes, float* out, int B, int N, int m_s
   }
   const dim3 grid(groups, (N + rows_per_block - 1) / rows_per_block);
   const size_t smem = static_cast<size_t>(Q) * m_sub * n_cent * sizeof(float);
-  static size_t smem_set = 48 * 1024;  // the default limit of dynamic shared memory
-  if (smem > smem_set) {
+  // The limit is a property of the kernel on the current card: set it on
+  // every launch past the 48 KB default, so each card gets it.
+  if (smem > kSmemDefault) {
     const cudaError_t err = cudaFuncSetAttribute(
         pq_adc_kernel<Q>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    smem_set = smem;
   }
   pq_adc_kernel<Q><<<grid, kThreads, smem, stream>>>(lut, codes, out, B, N, m_sub, n_cent,
                                                      rows_per_block, vec4);

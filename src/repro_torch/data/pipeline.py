@@ -116,6 +116,8 @@ def gnn_batch(seed: int, step: int, n_nodes: int, n_edges: int, n_species: int =
     d_feat) normal or ``species`` (N,) uniform, and with n_graphs > 1
     ``node_graph`` (N,) sorted graph ids and ``n_graphs``."""
     dev = resolve_device(device)
+    if dev.type == "meta":  # the dry run's shapes: nothing drawn
+        return _meta_gnn_batch(n_nodes, n_edges, d_feat, n_graphs, dev)
     r = _rng(seed, step)
     out = {
         "positions": _tensor(r.normal(size=(n_nodes, 3)), dev, np.float32),
@@ -130,6 +132,25 @@ def gnn_batch(seed: int, step: int, n_nodes: int, n_edges: int, n_species: int =
         out["species"] = _tensor(r.integers(0, n_species, size=n_nodes), dev)
     if n_graphs > 1:
         out["node_graph"] = _tensor(np.sort(r.integers(0, n_graphs, size=n_nodes)), dev)
+        out["n_graphs"] = n_graphs
+    return out
+
+
+def _meta_gnn_batch(n_nodes, n_edges, d_feat, n_graphs, dev) -> dict:
+    """``gnn_batch``'s leaves as meta tensors of their shapes and dtypes."""
+    def empty(*shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    f32 = torch.float32
+    out = {"positions": empty(n_nodes, 3, dtype=f32), "senders": empty(n_edges),
+           "receivers": empty(n_edges), "energy": empty(n_graphs, dtype=f32),
+           "forces": empty(n_nodes, 3, dtype=f32)}
+    if d_feat:
+        out["node_feat"] = empty(n_nodes, d_feat, dtype=f32)
+    else:
+        out["species"] = empty(n_nodes)
+    if n_graphs > 1:
+        out["node_graph"] = empty(n_nodes)
         out["n_graphs"] = n_graphs
     return out
 

@@ -15,25 +15,29 @@ Positions that a spec does not split over hold the same block, as the
 reference replicates it. ``grouped`` arranges ``place``'s blocks as
 ``DeviceMesh.groups`` arranges the devices.
 
-The port's model code does not hold its parameters as blocks: one
-controller keeps each parameter whole on the model's device, and the work
-a position does reads its block through views and a ``.to`` (a model
-shard's experts, a graph shard's layer). The recsys tables are read
-through ``place`` with their specs, so a position receives the block its
-spec names and no more (``models/recsys/models.py::mesh_lookup``);
-``place`` and ``gather`` also carry a checkpoint onto a mesh
-(``ckpt.checkpoint.restore(..., layout=...)``). ``place`` splits the
-tensor dimension by dimension (``Tensor.split``), so the gradients of
-all its blocks reach the tensor as one tensor of its shape.
+The port's model code holds most parameters whole: one controller keeps
+each on the model's device, and the work a position does reads its block
+through views and a ``.to`` (a model shard's experts, a graph shard's
+layer). The recsys tables are the exception: over a mesh each lives as
+its blocks (``Blocks`` of a ``BlockLayout``, one part for each distinct
+block on each device), resident on their positions from the train
+cell's construction (``models/recsys/models.py::make_resident``), with
+their gradients and optimizer moments as ``Blocks`` of the same layout.
+``place`` and ``gather`` also carry a checkpoint onto a mesh and back
+(``ckpt.checkpoint``). ``place`` splits the tensor dimension by dimension
+(``Tensor.split``), so the gradients of all its blocks reach the tensor
+as one tensor of its shape.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.distributed.meshinfo import DeviceMesh, MeshInfo
+from repro_torch.roofline import collectives
 
 Spec = Tuple  # one entry a dimension: None, an axis name or a tuple of names
 
@@ -133,6 +137,7 @@ def gather(blocks: Sequence[torch.Tensor], spec: Spec, mesh, shape: Sequence[int
     out = torch.empty(tuple(shape), dtype=blocks[0].dtype, device=blocks[0].device)
     for pos, blk in enumerate(blocks):
         out[_block_slices(shape, spec, m, pos)] = blk.to(out.device)
+    collectives.record("all-gather", out)
     return out
 
 
@@ -177,3 +182,97 @@ def stacked(tree):
     if isinstance(tree, list):
         return [stacked(v) for v in tree]
     return (None,) + tuple(tree)
+
+
+@dataclass(frozen=True)
+class BlockLayout:
+    """Where the blocks of a ``shape`` leaf under ``spec`` live on ``mesh``:
+    one part for each distinct (block, device) pair, in the order of the
+    positions that first hold it; ``index[pos]`` is position pos's part,
+    ``block[i]`` part i's block coordinates (parts with equal coordinates
+    on distinct devices are replicas of one block)."""
+
+    shape: Tuple[int, ...]
+    spec: Spec
+    mesh: DeviceMesh
+    index: Tuple[int, ...]
+    block: Tuple[tuple, ...]
+    devices: Tuple[torch.device, ...]
+
+    @classmethod
+    def of(cls, shape, spec: Spec, mesh) -> "BlockLayout":
+        m = _mesh(mesh)
+        shape = tuple(int(s) for s in shape)
+        shard_shape(shape, spec, m)  # raises where the axes do not divide
+        parts: Dict[tuple, int] = {}
+        index, block, devices = [], [], []
+        for pos, dev in enumerate(m.devices):
+            coords = _block_index(len(shape), spec, m, pos)
+            key = (coords, dev)
+            if key not in parts:
+                parts[key] = len(block)
+                block.append(coords)
+                devices.append(dev)
+            index.append(parts[key])
+        return cls(shape, tuple(spec), m, tuple(index), tuple(block), tuple(devices))
+
+    def replicas(self) -> list:
+        """The parts of each block, grouped, in part order."""
+        groups: Dict[tuple, list] = {}
+        for i, b in enumerate(self.block):
+            groups.setdefault(b, []).append(i)
+        return list(groups.values())
+
+
+class Blocks:
+    """A leaf held as its blocks on a mesh (``BlockLayout``): each part
+    a tensor of the block's shape on its device. The optimizer's moments
+    and the gradients of a resident table are ``Blocks`` of its layout."""
+
+    def __init__(self, layout: BlockLayout, parts: Sequence[torch.Tensor]):
+        if len(parts) != len(layout.block):
+            raise ValueError(f"{len(parts)} parts for a layout of {len(layout.block)}")
+        self.layout = layout
+        self.parts = list(parts)
+
+    @classmethod
+    def place(cls, t: torch.Tensor, spec: Spec, mesh) -> "Blocks":
+        """``t``'s blocks as parts of their own (contiguous copies: no part
+        keeps ``t``'s storage alive)."""
+        lay = BlockLayout.of(t.shape, spec, mesh)
+        blocks = _split(t, shard_shape(t.shape, spec, lay.mesh))
+        return cls(lay, [blocks[b].to(d, memory_format=torch.contiguous_format, copy=True)
+                         for b, d in zip(lay.block, lay.devices)])
+
+    @property
+    def shape(self) -> torch.Size:
+        return torch.Size(self.layout.shape)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.parts[0].dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.layout.mesh.devices[0]
+
+    def element_size(self) -> int:
+        return self.parts[0].element_size()
+
+    def positions(self) -> list:
+        """Each position's part, in the mesh's row-major order."""
+        return [self.parts[i] for i in self.layout.index]
+
+    def whole(self) -> torch.Tensor:
+        """The whole leaf on the first position's device (``gather``)."""
+        return gather(self.positions(), self.layout.spec, self.layout.mesh, self.layout.shape)
+
+    def map(self, fn) -> "Blocks":
+        return Blocks(self.layout, [fn(p) for p in self.parts])
+
+    @torch.no_grad()
+    def copy_(self, src: "Blocks") -> "Blocks":
+        """Write ``src``'s parts (``Blocks`` of this layout) into the parts."""
+        for p, s in zip(self.parts, src.parts):
+            p.copy_(s)
+        return self

@@ -29,6 +29,8 @@ from typing import Dict, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.roofline import collectives
+
 
 @dataclass(frozen=True)
 class DeviceMesh:
@@ -131,6 +133,7 @@ def sum_in_order(parts, dev):
     total = parts[0].to(dev)
     for p in parts[1:]:
         total = total + p.to(dev)
+    collectives.record("all-reduce", total)
     return total
 
 

@@ -38,10 +38,11 @@ BUILD_LOGS: Dict[str, str] = {}
 
 
 def dispatch(device: torch.device, kernel_fn: Callable, plain_fn: Callable) -> Callable:
-    """The kernel for CUDA tensors, the plain version for CPU tensors."""
+    """The kernel for CUDA tensors, the plain version for CPU tensors and for
+    meta tensors (the dry run's shapes: nothing runs)."""
     if device.type == "cuda":
         return kernel_fn
-    if device.type == "cpu":
+    if device.type in ("cpu", "meta"):
         return plain_fn
     raise RuntimeError(f"no kernel or plain version for device {device}")
 

@@ -4,8 +4,9 @@ Functions, not module-level constants, so importing this module touches
 no device state. Single pod: (16, 16) = 256 devices ("data", "model");
 multi-pod: (2, 16, 16) = 512 devices ("pod", "data", "model"). The
 production shapes take one CUDA device each and raise, naming the count,
-where the machine has fewer; ``make_test_mesh`` may repeat one device
-(a (1, 4) mesh of four shards on one card).
+where the machine has fewer, or repeat one named device (the dry run);
+``make_test_mesh`` may repeat one device (a (1, 4) mesh of four shards on
+one card).
 """
 from __future__ import annotations
 
@@ -14,20 +15,31 @@ from typing import Optional
 import torch
 
 from repro_torch.common.device import resolve_device
-from repro_torch.distributed.meshinfo import DeviceMesh
+from repro_torch.distributed.meshinfo import DeviceMesh, MeshInfo
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
+def make_production_mesh(*, multi_pod: bool = False, device="cuda") -> DeviceMesh:
+    """The production mesh. ``device="cuda"`` takes one CUDA device a
+    position and raises where the machine has fewer; any other device
+    (``"meta"``, ``"cpu"``, ``"cuda:0"``) fills every position, as the dry
+    run's one controller does."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     need = 1
     for s in shape:
         need *= s
+    dev = torch.device(device)
+    if dev.type != "cuda" or dev.index is not None:
+        return DeviceMesh.create([dev] * need, shape, axes)
     have = torch.cuda.device_count()
     if have < need:
         raise RuntimeError(f"the {'x'.join(map(str, shape))} production mesh needs {need} CUDA "
                            f"devices; this machine has {have}")
     return DeviceMesh.create([torch.device("cuda", i) for i in range(need)], shape, axes)
+
+
+def make_production_meshinfo(*, multi_pod: bool = False, device="cuda") -> MeshInfo:
+    return MeshInfo(mesh=make_production_mesh(multi_pod=multi_pod, device=device))
 
 
 def make_test_mesh(n_devices: Optional[int] = None, model: int = 1,

@@ -23,10 +23,10 @@ taken, so its resume takes that step a second time.
 
 On a machine with more than one CUDA device (and ``--device cuda``) the
 cell runs over the reference's (device_count, 1) mesh; otherwise on the
-one device named (``--device cuda:0`` for one card of several). The
-port keeps each parameter whole on the first card and gives every
-position its block at each read, so on several cards this mesh moves
-the tables each step and runs slower than one card (PERF.md). On the card, the scatter-adds of the embedding
+one device named (``--device cuda:0`` for one card of several). Over the
+mesh the recsys tables and their moments stay resident as their blocks
+on each position (``models.recsys.models.make_resident``); the other
+parameters stay whole on the first card. On the card, the scatter-adds of the embedding
 gradients add in no fixed order, so two runs of one step part by
 rounding; ``--deterministic`` turns on PyTorch's deterministic algorithms
 (with cuBLAS's fixed workspace), and a resumed run then repeats the
@@ -53,7 +53,7 @@ from repro_torch.common.device import resolve_device
 from repro_torch.data.pipeline import lm_batch
 from repro_torch.distributed import MeshInfo
 from repro_torch.launch.mesh import make_test_mesh
-from repro_torch.train import reference_layout
+from repro_torch.train import param_leaves
 
 clock = time.perf_counter  # the step clock (a test drives stragglers through it)
 
@@ -116,7 +116,7 @@ def main(argv=None) -> int:
     batch_fn = make_batch_fn(arch, shape, dev, mi)
 
     def state():
-        return {"params": reference_layout(model), "opt": opt_state}
+        return {"params": param_leaves(model), "opt": opt_state}
 
     start = ck.latest_step(args.ckpt_dir)
     if start is not None:

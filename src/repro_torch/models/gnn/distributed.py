@@ -45,6 +45,7 @@ from repro_torch.models.gnn.mace import (
     mlp_apply,
     objective,
 )
+from repro_torch.roofline import collectives
 
 
 def shard_devices(mi) -> list:
@@ -136,6 +137,7 @@ def dst_partitioned_energy(model: MACE, cfg: MACEConfig, mi, batch: dict):
     for lp in model.layers:
         # the all-gather, in shard order, once a device
         h_global = {dev: torch.cat([x.to(dev) for x in h]) for dev in at}
+        collectives.record("all-gather", next(iter(h_global.values())))
         h = [maybe_remat(cfg.remat_layers, functools.partial(
                  on_device, lp, dev, functools.partial(_shard_layer, cfg=cfg, lo=i * n_local)),
                  h[i], h_global[dev], at[dev], *edges[i])

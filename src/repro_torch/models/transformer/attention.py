@@ -41,6 +41,7 @@ import torch
 from torch import nn
 
 from repro_torch.models.common.modules import Dense, RMSNorm, apply_rope, chunked_attention
+from repro_torch.roofline import collectives
 
 DECODE_CHUNK = 8192  # cache rows a chunk of the decode softmax: bounds the f32 score slice
 
@@ -120,6 +121,7 @@ def _lse_combine(parts):
         lc, oc = lsum.to(dev) * corr, o.to(dev) * corr[..., None]
         l_g = lc if l_g is None else l_g + lc
         o_g = oc if o_g is None else o_g + oc
+    collectives.record("all-reduce", m_g, l_g, o_g)  # one pmax, two psums
     return o_g / l_g.clamp_min(1e-30)[..., None]
 
 

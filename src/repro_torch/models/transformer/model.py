@@ -72,6 +72,7 @@ from repro_torch.models.recsys.models import fill_normal_
 from repro_torch.models.transformer import attention as attn
 from repro_torch.distributed.layout import flat_specs, stacked
 from repro_torch.models.transformer.moe import MoE, SwiGLU, moe_specs, router_aux_loss
+from repro_torch.roofline import collectives
 
 
 @dataclasses.dataclass(frozen=True)
@@ -469,8 +470,12 @@ def _by_batch_block(fn, x, caches):
     if isinstance(caches[0], torch.Tensor):
         return fn(x, *caches).to(x.device)
     bl = x.shape[0] // len(caches[0])
-    return torch.cat([fn(x[g * bl : (g + 1) * bl], *blocks).to(x.device)
-                      for g, blocks in enumerate(zip(*caches))], dim=0)
+
+    def block(g, blocks):
+        with collectives.group(g):
+            return fn(x[g * bl : (g + 1) * bl], *blocks).to(x.device)
+
+    return torch.cat([block(g, blocks) for g, blocks in enumerate(zip(*caches))], dim=0)
 
 
 def _gqa_decode_sharded(ap, cfg: TransformerConfig, h, k_cache, v_cache, pos):

@@ -40,6 +40,7 @@ from torch import nn
 from repro_torch.distributed.meshinfo import sum_in_order
 from repro_torch.models.common.modules import Dense
 from repro_torch.models.recsys.models import stable_topk
+from repro_torch.roofline import collectives
 
 
 class SwiGLU(nn.Module):
@@ -209,7 +210,8 @@ def _expert_parallel(mp: MoE, cfg, mi, x, probs):
         rows = slice(g * bl, (g + 1) * bl)
         shards = [tuple(w[m * e_local : (m + 1) * e_local].to(devs[g, m])
                         for w in (ex.w1, ex.w3, ex.w2)) for m in range(tp)]
-        outs.append(_moe_local(x[rows], probs[rows], shards, cfg=cfg).to(x.device))
+        with collectives.group(g):  # the gate sums' and outputs' psums
+            outs.append(_moe_local(x[rows], probs[rows], shards, cfg=cfg).to(x.device))
     return torch.cat(outs, dim=0)
 
 

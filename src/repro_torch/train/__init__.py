@@ -5,7 +5,9 @@ from repro_torch.train.train_step import (
     clip_by_global_norm,
     global_norm,
     gradients,
+    init_state,
     make_train_step,
+    param_leaves,
     reference_key,
     reference_layout,
 )
@@ -18,7 +20,9 @@ __all__ = [
     "clip_by_global_norm",
     "global_norm",
     "gradients",
+    "init_state",
     "make_train_step",
+    "param_leaves",
     "reference_key",
     "reference_layout",
 ]

@@ -41,6 +41,7 @@ class Optimizer:
     init: Callable[[Tree], dict]
     update: Callable[[Tree, dict, Tree], tuple]  # (grads, state, params) -> (updates, state)
     state_specs: Callable[[dict, Tree], dict]  # (param specs, params) -> the state's specs
+    elementwise: bool = True  # each element's update reads only that element (a block may go alone)
 
 
 def _device(params: Tree) -> torch.device:
@@ -170,7 +171,7 @@ def adafactor(lr: float = 1e-2, decay: float = 0.8, eps: float = 1e-30,
             out["m"] = dict(specs)
         return out
 
-    return Optimizer(init=init, update=update, state_specs=state_specs)
+    return Optimizer(init=init, update=update, state_specs=state_specs, elementwise=False)
 
 
 @torch.no_grad()

@@ -44,7 +44,8 @@ from repro_torch.interop import (
 )
 from repro_torch.distributed import single_device_meshinfo
 from repro_torch.launch import serve, train
-from repro_torch.launch.mesh import make_test_mesh
+from repro_torch.common.device import make_generator
+from repro_torch.launch.mesh import make_production_mesh, make_test_mesh
 from repro_torch.models.common.modules import (
     MLP,
     Dense,
@@ -119,7 +120,8 @@ def test_no_reference_imports():
             "configs/lm_configs.py", "models/transformer/moe.py", "models/gnn/__init__.py",
             "models/gnn/mace.py", "models/gnn/sampler.py", "models/gnn/distributed.py",
             "archs/gnn.py", "train/parity.py", "ckpt/__init__.py", "ckpt/checkpoint.py",
-            "launch/train.py", "train/compression.py", "distributed/layout.py"} <= walked
+            "launch/train.py", "train/compression.py", "distributed/layout.py",
+            "launch/dryrun.py", "roofline/report.py", "roofline/collectives.py"} <= walked
     bad = {str(p.relative_to(ROOT)): sorted(_imported_roots(p) & set(FORBIDDEN))
            for p in files if _imported_roots(p) & set(FORBIDDEN)}
     assert not bad, bad
@@ -187,7 +189,11 @@ def test_tensor_creators_default_to_cuda_and_raise_without_it():
                  lambda: Embedding(8, 2),
                  lambda: dlrm_batch(0, 0, 4, 4, (10, 10)), lambda: deepfm_batch(0, 0, 4, (10,)),
                  lambda: shape_batch(smoke_dlrm(), "train_batch"),
-                 lambda: get_arch("smoke-deepfm").make_cell("train_batch").make_inputs(0)):
+                 lambda: get_arch("smoke-deepfm").make_cell("train_batch").make_inputs(0),
+                 lambda: get_arch("smoke-airship").make_cell("serve_256"),
+                 lambda: get_arch("smoke-airship").make_cell(
+                     "serve_256", single_device_meshinfo("cpu")).make_inputs(0),
+                 lambda: make_production_mesh()):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
     dlrm = dlrm_init(g, smoke_dlrm(), device="cpu")
@@ -271,7 +277,8 @@ def test_no_module_waits_for_items_11b_or_12():
     name ROADMAP item 11b, 12, 14b, 14c or 14d as missing; the launcher takes
     --serve-http, --replicas, --router and --distributed."""
     bad = {str(p.relative_to(ROOT)) for p in _port_files()
-           if any(f"item {i}" in p.read_text() for i in ("11b", "12", "14b", "14c", "14d"))}
+           if any(f"item {i}" in p.read_text()
+                  for i in ("11b", "12", "14b", "14c", "14d", "14e"))}
     assert not bad, bad
     args = serve.parse_args(["--serve-http", "0", "--replicas", "2", "--router",
                              "least-loaded", "--distributed"])
@@ -284,3 +291,8 @@ def test_generator_must_match_device():
         make_labeled_corpus(torch.Generator(), 64, 4, 3, device="meta")
     with pytest.raises(ValueError, match="generator"):
         two_tower_init(torch.Generator(), smoke_two_tower(), device="meta")
+    # the meta device's stand-in draws nothing and passes there only
+    assert make_labeled_corpus(make_generator("meta", 0), 64, 4, 3, device="meta",
+                               use_kmeans_labels=False).vectors.is_meta
+    model = two_tower_init(make_generator("meta", 0), smoke_two_tower(), device="meta")
+    assert all(p.is_meta for p in model.parameters())

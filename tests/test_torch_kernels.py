@@ -143,8 +143,11 @@ def test_dispatch_takes_plain_version_on_cpu_and_raises_elsewhere():
     assert dispatch(cpu, gather_distance_cuda, gather_distance_plain) is gather_distance_plain
     assert dispatch(torch.device("cuda"), fused_expand_cuda, fused_expand_plain) is \
         fused_expand_cuda
+    # meta tensors (the dry run's shapes) take the plain version too
+    assert dispatch(torch.device("meta"), gather_distance_cuda, gather_distance_plain) is \
+        gather_distance_plain
     with pytest.raises(RuntimeError):
-        dispatch(torch.device("meta"), gather_distance_cuda, gather_distance_plain)
+        dispatch(torch.device("mps"), gather_distance_cuda, gather_distance_plain)
 
 
 def test_cpu_calls_do_not_count_launches():

@@ -166,17 +166,17 @@ def test_configs_and_registry_match_reference():
                 "deepseek-v2-236b", "deepseek-v3-671b", "smoke-mla-moe"}
     # the MACE archs, compared in test_torch_gnn_arch.py
     gnn_names = {"mace", "smoke-mace"}
-    assert list_archs() == sorted(set(pairs) | lm_names | gnn_names)
+    # the AIRSHIP archs, compared in test_torch_airship_arch.py
+    airship_names = {"airship-sift1m", "smoke-airship"}
+    assert list_archs() == sorted(set(pairs) | lm_names | gnn_names | airship_names)
     for name, ref_arch in pairs.items():
         arch = get_arch(name)
         assert arch.cfg == port_cfg(ref_arch.cfg) and arch.shapes == ref_arch.shapes, name
         assert arch.shape_names() == ref_arch.shape_names()
-    for name in set(ASSIGNED) | {"smoke-mla-moe", "smoke-mace", "airship-sift1m"}:
-        if name in pairs or name in lm_names or name in gnn_names:
-            continue
-        with pytest.raises(NotImplementedError, match="ROADMAP item 14e"):
-            get_arch(name)
+    assert set(ASSIGNED) | {"airship-sift1m"} <= set(list_archs())
+    assert not configs.NOT_PORTED  # every reference name is ported
     assert get_arch("mace").family == "gnn"
+    assert get_arch("smoke-airship").family == "airship"
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
     gnn = RecsysConfig(name="g", model="gnn", embed_dim=4)

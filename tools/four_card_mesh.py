@@ -2,6 +2,13 @@
 
     python3 tools/four_card_mesh.py          # on a machine with four CUDA devices
 
+First, one PQ scan (``pq_adc``) on each card in turn, its table staged in
+more shared memory than the 48 KB a launch gets unasked (m_sub 16 x 256
+centroids x 4 B = 16 KB a query, 8 queries a block: 128 KB), each held bit
+for bit to its plain version on integer-valued tables: the kernel's
+shared-memory limit is a property of each card, so every card must be
+given it.
+
 One card can only hold a mesh that repeats cuda:0 (chip_smoke.py phase 12);
 this run puts each position on its own card, so every move of a table's
 block, an expert shard, a graph shard or a data group's ids crosses
@@ -82,6 +89,33 @@ def compare(name, make_cell, grid, cards, seed, lr, next_batch) -> bool:
     return not bad
 
 
+PQ_SCAN = dict(b=64, n=100_000, m_sub=16, n_cent=256)
+
+
+def pq_scan_each_card(cards) -> bool:
+    """One ``pq_adc`` scan a card, in turn, against its plain version."""
+    from repro_torch.kernels.pq_adc import SMEM_LIMIT, pq_adc, pq_adc_plain
+
+    b, n, m_sub, n_cent = (PQ_SCAN[k] for k in ("b", "n", "m_sub", "n_cent"))
+    gen = torch.Generator().manual_seed(0)
+    lut = torch.randint(0, 64, (b, m_sub, n_cent), generator=gen).float()
+    codes = torch.randint(0, n_cent, (n, m_sub), generator=gen, dtype=torch.int32)
+    want = pq_adc_plain(lut, codes)
+    table = m_sub * n_cent * 4
+    # queries a block stages, by the kernel's rule
+    per_block = next(q for q in (32, 16, 8, 4, 2, 1) if SMEM_LIMIT // table >= q)
+    ok = True
+    for card in cards:
+        launches = pq_adc.launches
+        got = pq_adc(lut.to(card), codes.to(card)).cpu()
+        same = torch.equal(got, want) and pq_adc.launches == launches + 1
+        print("four_cards " + json.dumps(dict(
+            case="pq_adc", card=str(card), batch=b, rows=n, table_bytes=table,
+            staged_bytes=per_block * table, equal_plain=same)), flush=True)
+        ok &= same
+    return ok
+
+
 def driver(arch, ckpt_dir) -> bool:
     """The driver on every card: 8 steps, then a second process to 12."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -134,7 +168,7 @@ def main() -> int:
 
     build_all()
     cards = [torch.device("cuda", i) for i in range(4)]
-    ok = True
+    ok = pq_scan_each_card(cards)
     for name in RECSYS:
         arch = get_arch(name)
         ok &= compare(name, lambda mi, a=arch: a.make_cell("train_batch", mi), (2, 2), cards, 0,
