@@ -184,8 +184,9 @@ Phases, any failure exits non-zero:
      cell over a (2, 2) mesh of the card against its one-device step by
      train.parity, with each position's table bytes (`train_mesh {...}`);
      deepseek-v2-236b's train_4k at phase 10's cut over a (1, 4) mesh of
-     the card, the MoE's expert-parallel backward, beside phase 10's row
-     (`lm_train {...}`). One card holds only a mesh that repeats cuda:0:
+     the card, the MoE's expert-parallel backward with the experts four
+     resident parts updated in place (no expert weight moves), beside
+     phase 10's row (`lm_train {...}`). One card holds only a mesh that repeats cuda:0:
      the phase checks layouts and numerics, not multi-card speed. The
      launch counts read after phases 10-12 must be 0.
 
@@ -4092,8 +4093,18 @@ def card_equals_cpu(name, cell, dev, lr, seed, dtype="float32") -> None:
         check(False, f"card == CPU {name}: {msg}")
 
 
-def leaf_sums(views) -> dict:
-    return {k: float(v.detach().sum(dtype=torch.float64)) for k, v in views.items()}
+def leaf_parts(v) -> list:
+    """A leaf's tensors: a resident leaf's parts, or the leaf itself."""
+    from repro_torch.distributed.layout import Blocks
+
+    return v.parts if isinstance(v, Blocks) else [v]
+
+
+def leaf_sums(leaves) -> dict:
+    """Each leaf's float64 sum (a resident leaf's parts' sums added, read in
+    place: no whole copy)."""
+    return {k: sum(float(p.detach().sum(dtype=torch.float64)) for p in leaf_parts(v))
+            for k, v in leaves.items()}
 
 
 def train_cell_run(cell, dev, seed, steps, next_batch):
@@ -4104,7 +4115,7 @@ def train_cell_run(cell, dev, seed, steps, next_batch):
     RMSNorm scales at 1.0 do not move under AdamW at lr 3e-4, whose update
     is under half of bf16's ulp there; the first moment shows that the
     leaf's gradient reached the optimizer."""
-    from repro_torch.train import reference_layout
+    from repro_torch.train import param_leaves
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -4113,7 +4124,7 @@ def train_cell_run(cell, dev, seed, steps, next_batch):
     model, state, batch = cell.make_inputs(seed, dev)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
-    views = reference_layout(model)
+    views = param_leaves(model)  # views, a resident leaf's parts
     before = leaf_sums(views)
     walls, metrics = [], []
     for step in range(steps):
@@ -4127,11 +4138,11 @@ def train_cell_run(cell, dev, seed, steps, next_batch):
         metrics.append({k: float(v) for k, v in m.items()})
     after = leaf_sums(views)
     unmoved = [k for k in views if after[k] == before[k]]
-    silent = [k for k, v in state["m"].items() if not bool(v.any())]
+    silent = [k for k, v in state["m"].items() if not any(bool(p.any()) for p in leaf_parts(v))]
     warm = walls[1:] or walls  # the steps after the first
     row = dict(init_s=t_init, first_step_s=walls[0], step_s_warm=sum(warm) / len(warm),
                step_s=walls, metrics=metrics, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
-               params=sum(v.numel() for v in views.values()), leaves=len(views),
+               params=sum(math.prod(v.shape) for v in views.values()), leaves=len(views),
                every_leaf_moved=not unmoved, every_leaf_updated=not silent,
                unmoved_bf16=[k for k in unmoved if views[k].dtype == torch.bfloat16])
     unmoved = [k for k in unmoved if views[k].dtype != torch.bfloat16]
@@ -4387,7 +4398,8 @@ def mace_phase(args, dev) -> None:
 # (2, 2) mesh of the card against its one-device step. 12c: phase 10's
 # deepseek-v2-236b train_4k cut (1 + 1 layers, all 160 experts, B 2,
 # Adafactor, grad_accum 2) over a (1, 4) mesh of the card: the MoE's
-# expert-parallel backward, 40 experts a shard. One card can only hold a
+# expert-parallel backward, 40 experts a shard, each shard's experts a
+# resident part with its Adafactor state. One card can only hold a
 # mesh that repeats cuda:0, so this phase checks layouts and numerics, not
 # multi-card memory or speed.
 DRIVER_ARCH, DRIVER_STEPS, DRIVER_EVERY, DRIVER_KILL_AT = "deepfm", 12, 4, 8
@@ -4648,10 +4660,35 @@ def dlrm_mesh_part(args, dev) -> None:
     log_memory("after phase 12b")
 
 
+def expert_part_ptrs(model, state) -> dict:
+    """{leaf: the data pointers of its resident parts and of each of its
+    optimizer statistics' parts}: the experts and their Adafactor state."""
+    from repro_torch.distributed.layout import Blocks
+    from repro_torch.train import param_leaves
+
+    out = {k: [p.data_ptr() for p in v.parts] for k, v in param_leaves(model).items()
+           if isinstance(v, Blocks)}
+    for name, sub in state.items():
+        if isinstance(sub, dict):
+            out.update({f"{name}:{k}": [p.data_ptr() for p in v.parts] for k, v in sub.items()
+                        if isinstance(v, Blocks)})
+    return out
+
+
+# 12c's rows from before the experts were resident (PERF.md section 5, on
+# an H100 at 700 W): the (1, 4) step with the experts whole and copied to
+# each shard, and phase 10's one-device step of the same cut
+EXPERTS_WHOLE_P1X4_STEP_S_WARM, EXPERTS_WHOLE_ONE_DEVICE_STEP_S_WARM = 1.889, 1.908
+
+
 def moe_mesh_part(args, dev) -> None:
     """12c: deepseek-v2-236b's train_4k at phase 10's cut over a (1, 4) mesh
-    of the card: finite losses, every leaf moved (but the bf16 leaves whose
-    update rounds away), beside phase 10's one-device row."""
+    of the card, its MoE layer's experts resident as four parts and updated
+    there by Adafactor: finite losses, every leaf moved (but the bf16 leaves
+    whose update rounds away), every expert part and Adafactor statistic in
+    its storage after the steps, no expert weight moved (the tally holds no
+    all-gather or reduce-scatter), beside phase 10's one-device row and the
+    earlier runs' rows with the experts whole."""
     import dataclasses
 
     from repro_torch.archs import get_arch
@@ -4659,6 +4696,7 @@ def moe_mesh_part(args, dev) -> None:
     from repro_torch.data import lm_batch
     from repro_torch.distributed import MeshInfo
     from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.roofline import collectives
 
     name, layers, b, steps = next(c for c in LM_TRAIN_CELLS if c[0] == MOE_MESH_ARCH)
     base = get_arch(name)
@@ -4667,18 +4705,41 @@ def moe_mesh_part(args, dev) -> None:
     arch = LMArch(cfg, base.optimizer_name, shapes, base.grad_accum)
     s = shapes["train_4k"]["seq_len"]
     mi = MeshInfo(make_test_mesh(4, model=4, device=dev))
-    row, unmoved = train_cell_run(
-        arch.make_cell("train_4k", mi), dev, args.seed, steps,
-        lambda step: lm_batch(args.seed, step, b, s, cfg.vocab_size, device=dev))
+    cell = arch.make_cell("train_4k", mi)
+    held = {}
+
+    def make_inputs(seed, device):
+        model, state, batch = cell.make_inputs(seed, device)
+        held.update(model=model, state=state, ptrs=expert_part_ptrs(model, state))
+        return model, state, batch
+
+    with collectives.tally() as tally:
+        row, unmoved = train_cell_run(
+            dataclasses.replace(cell, make_inputs=make_inputs), dev, args.seed, steps,
+            lambda step: lm_batch(args.seed, step, b, s, cfg.vocab_size, device=dev))
+    ptrs = expert_part_ptrs(held["model"], held["state"])
+    in_place = ptrs == held["ptrs"]
+    moved = {k: n for k, n in tally.result()["per_op_counts"].items()
+             if k in ("all-gather", "reduce-scatter")}
+    held.clear()
     one = LM_TRAIN_ROWS.get(name, {})
     row = dict(cell=f"train_4k_{name}_p1x4", card=args.card, mesh=[1, 4],
                experts_per_shard=cfg.n_experts // 4, layers=cfg.n_layers, batch=b, seq=s,
                grad_accum=arch.grad_accum, tokens_per_s=b * s / row["step_s_warm"],
                one_device_step_s_warm=one.get("step_s_warm"),
                one_device_tokens_per_s=one.get("tokens_per_s"),
-               one_device_peak_gb=one.get("peak_gb"), **row)
+               one_device_peak_gb=one.get("peak_gb"),
+               experts_whole_p1x4_step_s_warm=EXPERTS_WHOLE_P1X4_STEP_S_WARM,
+               experts_whole_one_device_step_s_warm=EXPERTS_WHOLE_ONE_DEVICE_STEP_S_WARM,
+               resident_leaves=len([k for k in ptrs if ":" not in k]),
+               resident_parts_in_place=in_place, expert_moves=moved, **row)
     log(f"lm_train {json.dumps(row)}")
     check_train_row(f"lm_train {name} over (1, 4)", row, unmoved)
+    check(row["resident_leaves"] == 3, f"lm_train {name} over (1, 4): "
+          f"{row['resident_leaves']} resident leaves, expected the experts' w1, w3 and w2")
+    check(in_place, f"lm_train {name} over (1, 4): an expert part or its optimizer state left "
+                    f"its storage")
+    check(not moved, f"lm_train {name} over (1, 4): expert weights moved: {moved}")
     log_memory("after phase 12c")
 
 

@@ -14,7 +14,10 @@ and ``d_feat`` enters through the feature projection. ``make_cell(shape,
 mi)`` takes ``mi`` for the dst-partitioned layout's shards (default: one
 shard), each on its mesh position's device; the other modes run on the
 model's device, as the reference replicates them. A cell over a mesh
-carries the reference's parameter layout in ``specs`` (every leaf whole).
+carries the reference's parameter layout in ``specs`` (every leaf whole);
+in the dst-partitioned layout its parameters live as replicas, one part a
+distinct device (``make_replicas``), from ``make_inputs`` on, or from a
+whole model's first step, with their AdamW state beside them.
 """
 from __future__ import annotations
 
@@ -30,12 +33,13 @@ from repro_torch.distributed.meshinfo import single_device_meshinfo
 from repro_torch.models.gnn import mace as gm
 from repro_torch.models.gnn.distributed import (
     dst_partitioned_loss,
+    make_replicas,
     partition_by_destination,
     shard_devices,
 )
 from repro_torch.models.gnn.sampler import subgraph_sizes
 from repro_torch.train.optimizer import adamw
-from repro_torch.train.train_step import make_train_step, reference_layout
+from repro_torch.train.train_step import init_state, make_train_step
 
 
 def _round_up(x: int, m: int) -> int:
@@ -118,14 +122,23 @@ class GNNArch(Arch):
         0)``."""
         cfg = self.cfg_for(shape)
         opt = adamw(lr=1e-3)
+        mesh = mi is not None and len(mi.mesh.devices) > 1
+        replicas = mesh and self.shapes[shape]["mode"] == "dst_partitioned"
+
+        def resident(model):
+            return make_replicas(model, cfg, mi) if replicas else model
 
         def make_inputs(seed: int = 0, device="cuda"):
             dev = resolve_device(device)
-            model = gm.init_params(make_generator(dev, seed), cfg, device=dev)
-            return model, opt.init(reference_layout(model)), self.batch(shape, seed, 0, dev, mi)
+            model = resident(gm.init_params(make_generator(dev, seed), cfg, device=dev))
+            return model, init_state(opt, model), self.batch(shape, seed, 0, dev, mi)
 
         step = make_train_step(self.loss_fn(shape, mi), opt, clip_norm=1.0)
-        mesh = mi is not None and len(mi.mesh.devices) > 1
-        return CellSpec(name=f"{self.name}:{shape}", kind="train", fn=step,
-                        make_inputs=make_inputs,
+
+        def train_step(model, opt_state, batch, **kw):
+            # a model built whole turns into replicas at its first mesh step
+            return step(resident(model), opt_state, batch, **kw)
+
+        return CellSpec(name=f"{self.name}:{shape}", kind="train",
+                        fn=train_step if replicas else step, make_inputs=make_inputs,
                         specs=gm.param_specs(cfg, mi) if mesh else None)

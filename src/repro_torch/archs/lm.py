@@ -10,7 +10,10 @@ arch's ``grad_accum`` microbatches, on one device or over a mesh: there
 the MoE runs its expert-parallel branch, forward and backward, each data
 group computing its own capacity as the reference's ``shard_map`` does,
 and the cell's ``specs`` give the reference's parameter layout
-(``model.param_specs``).
+(``model.param_specs``). Over a mesh the routed experts are resident as
+their blocks from ``make_inputs`` on (or from a whole model's first
+step: ``model.make_resident``), and so are their gradients and the
+optimizer's state of them.
 
 prefill_32k runs the full sequence and returns the last position's
 logits. decode_32k and long_500k run one decode step: one new token a
@@ -31,7 +34,7 @@ from repro_torch.common.device import make_generator, resolve_device
 from repro_torch.data.pipeline import lm_batch
 from repro_torch.models.transformer import model as tm
 from repro_torch.train.optimizer import adafactor, adamw
-from repro_torch.train.train_step import make_train_step, reference_layout
+from repro_torch.train.train_step import init_state, make_train_step
 
 LM_SHAPES: Dict[str, dict] = {
     "train_4k": dict(kind="train", seq_len=4096, global_batch=256),
@@ -97,13 +100,21 @@ class LMArch(Arch):
 
             def make_train_inputs(seed: int = 0, device="cuda"):
                 dev = resolve_device(device)
-                model = tm.init_params(make_generator(dev, seed), cfg, device=dev)
+                model = tm.make_resident(tm.init_params(make_generator(dev, seed), cfg,
+                                                        device=dev), mesh)
                 batch = lm_batch(seed, 0, b, s, cfg.vocab_size, device=dev)
-                return model, opt.init(reference_layout(model)), batch
+                return model, init_state(opt, model), batch
 
             step = make_train_step(functools.partial(self.loss, mi=mesh), opt, clip_norm=1.0,
                                    grad_accum=self.grad_accum)
-            return CellSpec(name=name, kind="train", fn=step, make_inputs=make_train_inputs,
+
+            def train_step(model, opt_state, batch, **kw):
+                # a model built whole (a checkpoint's, the reference's) turns
+                # its experts resident at its first step over the mesh
+                return step(tm.make_resident(model, mesh), opt_state, batch, **kw)
+
+            return CellSpec(name=name, kind="train", fn=train_step if mesh else step,
+                            make_inputs=make_train_inputs,
                             specs=None if mesh is None else tm.param_specs(cfg, mesh))
         prefill = shape.startswith("prefill")
 

@@ -15,14 +15,18 @@ Positions that a spec does not split over hold the same block, as the
 reference replicates it. ``grouped`` arranges ``place``'s blocks as
 ``DeviceMesh.groups`` arranges the devices.
 
-The port's model code holds most parameters whole: one controller keeps
-each on the model's device, and the work a position does reads its block
-through views and a ``.to`` (a model shard's experts, a graph shard's
-layer). The recsys tables are the exception: over a mesh each lives as
-its blocks (``Blocks`` of a ``BlockLayout``, one part for each distinct
-block on each device), resident on their positions from the train
-cell's construction (``models/recsys/models.py::make_resident``), with
-their gradients and optimizer moments as ``Blocks`` of the same layout.
+Over a mesh of more than one position a train cell holds some leaves as
+their blocks (``Blocks`` of a ``BlockLayout``: one part for each distinct
+block on each device), each part a parameter of a ``Resident`` module on
+its position from the cell's construction (``make_resident``): the recsys
+tables (``models/recsys/models.py``), the LM's routed experts
+(``models/transformer/model.py``) and MACE's parameters, one replica a
+device (``models/gnn/distributed.py``). A stacked layer list's leaf is
+resident as the (L, ...) blocks of its stacked spec, each layer reading
+its rows of them. The step reads the parts in place, their gradients and
+optimizer state are ``Blocks`` of the same layout (``train/train_step.py``),
+and a block held on several devices gets the sum of its replicas'
+gradients. The other parameters stay whole on the model's device.
 ``place`` and ``gather`` also carry a checkpoint onto a mesh and back
 (``ckpt.checkpoint``). ``place`` splits the tensor dimension by dimension
 (``Tensor.split``), so the gradients of all its blocks reach the tensor
@@ -30,11 +34,13 @@ as one tensor of its shape.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Iterable, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.distributed.meshinfo import DeviceMesh, MeshInfo
 from repro_torch.roofline import collectives
@@ -236,6 +242,14 @@ class Blocks:
         self.parts = list(parts)
 
     @classmethod
+    def zeros(cls, shape, spec: Spec, mesh, dtype) -> "Blocks":
+        """Zeros of a ``shape`` leaf laid out by ``spec``, each part on its
+        device (an optimizer's state of a resident leaf)."""
+        lay = BlockLayout.of(shape, spec, mesh)
+        block = shard_shape(lay.shape, spec, lay.mesh)
+        return cls(lay, [torch.zeros(block, dtype=dtype, device=d) for d in lay.devices])
+
+    @classmethod
     def place(cls, t: torch.Tensor, spec: Spec, mesh) -> "Blocks":
         """``t``'s blocks as parts of their own (contiguous copies: no part
         keeps ``t``'s storage alive)."""
@@ -276,3 +290,132 @@ class Blocks:
         for p, s in zip(self.parts, src.parts):
             p.copy_(s)
         return self
+
+
+@functools.lru_cache(maxsize=None)
+def stacked_layout(layout: BlockLayout, n: int) -> BlockLayout:
+    """The layout of ``n`` layers' ``layout`` leaves stacked on a leading
+    whole axis: its parts are the layers' parts stacked, in the same order."""
+    return BlockLayout.of((n,) + layout.shape, (None,) + tuple(layout.spec), layout.mesh)
+
+
+class Resident(nn.Module):
+    """A leaf held as its blocks over a mesh (``BlockLayout``): ``parts``,
+    one trainable tensor for each distinct block on each device. A layer of
+    a ``StackedLayers`` list holds its rows of the list's stacked parts.
+
+    A read that knows which rows of a part it touches reports them
+    (``touch``, a table's lookups); the step takes them with the part's
+    gradient (``take_rows``), so that the replicas of a block add only
+    those rows (``train_step``)."""
+
+    def __init__(self, blocks: Blocks, requires_grad: bool = True):
+        super().__init__()
+        self.layout: BlockLayout = blocks.layout
+        self.parts = nn.ParameterList([nn.Parameter(p, requires_grad=requires_grad)
+                                       for p in blocks.parts])
+        self._rows = None
+
+    @property
+    def shape(self) -> torch.Size:
+        return torch.Size(self.layout.shape)
+
+    @property
+    def device(self) -> torch.device:
+        return self.layout.mesh.devices[0]
+
+    def blocks(self) -> Blocks:
+        return Blocks(self.layout, list(self.parts))
+
+    def grid(self, mi) -> np.ndarray:
+        """Each position's part as ``DeviceMesh.groups(tp axis)`` lays out
+        the devices: (data groups, model shards)."""
+        return grouped(self.blocks().positions(), mi, mi.tp_axis)
+
+    def part_on(self, dev) -> torch.Tensor:
+        """The part on ``dev`` of a leaf that every position holds whole."""
+        dev = torch.device(dev)
+        if any(any(b) for b in self.layout.block):
+            raise ValueError(f"a leaf split by {self.layout.spec} has no one part a device")
+        return self.parts[self.layout.devices.index(dev)]
+
+    def touch(self, part: int, rows: torch.Tensor) -> None:
+        """Rows of part ``part`` that a read under autograd took, on the part's
+        device (a superset does no harm: the replica sum adds every row it
+        is given)."""
+        p = self.parts[part]
+        if torch.is_grad_enabled() and p.requires_grad:
+            if self._rows is None:
+                self._rows = {}
+            self._rows.setdefault(part, []).append(rows.reshape(-1).to(p.device))
+
+    def take_rows(self):
+        """{part: the rows touched since the last call} or None where no read
+        reported any."""
+        rows, self._rows = self._rows, None
+        return None if rows is None else {i: torch.cat(r) for i, r in rows.items()}
+
+
+def _rebind(parent: nn.Module, leaf: str, module: nn.Module) -> None:
+    """``parent.<leaf>`` (a parameter) replaced by ``module``, in place; a
+    ``ParameterDict`` keeps its keys' order."""
+    if isinstance(parent, nn.ParameterDict):
+        rest = {k: parent[k] for k in list(parent.keys())}
+        for k in rest:
+            del parent[k]
+        for k, v in rest.items():
+            parent[k] = module if k == leaf else v
+    else:
+        delattr(parent, leaf)
+        parent.add_module(leaf, module)
+
+
+def _port_spec(name: str, t: torch.Tensor, spec: Spec, stacked: bool = False) -> tuple:
+    """``spec`` (of the reference's layout) for the port's tensor: a 2-D
+    ``weight`` (``nn.Linear``, ``Dense``) is the reference's (in, out) ``w``
+    transposed, so its last two entries swap."""
+    full = _padded(spec, t.dim())
+    if t.dim() == 2 + stacked and name.endswith("weight"):
+        full = full[:-2] + (full[-1], full[-2])
+    return full
+
+
+def make_resident(model: nn.Module, specs: Dict[str, Spec], mi, names: Iterable[str]):
+    """Each leaf of ``model`` that ``names`` names (as ``train.param_leaves``
+    names it: a ``StackedLayers`` list's leaf as one, ``<list>.<parameter>``)
+    becomes ``Resident`` blocks of ``specs[name]`` over ``mi``, in place, and
+    its whole tensor is let go. A leaf already resident, and any model on
+    one position, is left as it is."""
+    from repro_torch.models.common.modules import StackedLayers
+
+    if mi is None or len(_mesh(mi).devices) == 1:
+        return model
+    lists = {k + ".": m for k, m in model.named_modules() if isinstance(m, StackedLayers)}
+    for name in names:
+        pre = next((p for p in lists if name.startswith(p)), None)
+        if pre is None:
+            parent_name, _, leaf = name.rpartition(".")
+            parent = model.get_submodule(parent_name) if parent_name else model
+            p = getattr(parent, leaf)
+            if isinstance(p, Resident):
+                continue
+            blocks = Blocks.place(p.detach(), _port_spec(name, p, specs[name]), mi)
+            _rebind(parent, leaf, Resident(blocks, p.requires_grad))
+            continue
+        layers, rest = lists[pre], name[len(pre):]
+        if rest not in layers.stacked:
+            continue  # resident already
+        stack = layers.stack(rest)
+        requires = layers[0].get_parameter(rest).requires_grad
+        blocks = Blocks.place(stack.detach(), _port_spec(name, stack, specs[name], True), mi)
+        layer_layout = BlockLayout.of(stack.shape[1:], blocks.layout.spec[1:], mi)
+        owner, _, leaf = rest.rpartition(".")
+        for i, layer in enumerate(layers):
+            parent = layer.get_submodule(owner) if owner else layer
+            _rebind(parent, leaf, Resident(Blocks(layer_layout, [p[i] for p in blocks.parts]),
+                                           requires))
+        del layers.stacked[rest]
+        for j, p in enumerate(blocks.parts):
+            layers.stacked[f"{rest}.parts.{j}"] = p
+        del stack
+    return model

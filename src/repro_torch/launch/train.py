@@ -24,9 +24,11 @@ taken, so its resume takes that step a second time.
 On a machine with more than one CUDA device (and ``--device cuda``) the
 cell runs over the reference's (device_count, 1) mesh; otherwise on the
 one device named (``--device cuda:0`` for one card of several). Over the
-mesh the recsys tables and their moments stay resident as their blocks
-on each position (``models.recsys.models.make_resident``); the other
-parameters stay whole on the first card. On the card, the scatter-adds of the embedding
+mesh the cell holds what its layout splits or replicates as blocks on
+each position, with their optimizer state (``distributed.layout.Resident``:
+the recsys tables, the LM's routed experts, MACE's parameters in the
+dst-partitioned layout); the other parameters stay whole on the first
+card. On the card, the scatter-adds of the embedding
 gradients add in no fixed order, so two runs of one step part by
 rounding; ``--deterministic`` turns on PyTorch's deterministic algorithms
 (with cuBLAS's fixed workspace), and a resumed run then repeats the

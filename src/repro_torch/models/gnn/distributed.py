@@ -14,11 +14,16 @@ accumulates strictly locally. The shards' partial energies are summed in
 shard order on the first shard's device (the reference's ``psum``).
 
 Each shard's work runs on its mesh position's device with the parameters
-moved there (``on_device``: a move to the device a parameter is on is
-the parameter itself, so a mesh of one card copies nothing); its block of
-nodes and edges and the gathered h are moved there too, and the forces
-come by autograd back through every move. The shards run one after
-another from one controller.
+there (``on_device``). A train cell over a mesh holds every parameter as
+replicas, one part a distinct device (``make_replicas``: the reference's
+specs leave every leaf whole), and a shard reads its device's part in
+place; the step sums the replicas' gradients in part order and updates
+each part on its device (``train/train_step.py``). A model whose
+parameters are whole has them moved to the shard's device for the call
+(a move to the device a parameter is on is the parameter itself). Its
+block of nodes and edges and the gathered h are moved there too, and the
+forces come by autograd back through every move. The shards run one
+after another from one controller.
 
 Memory: each (layer, shard) runs under its own checkpoint where autograd
 records, so the forward holds one shard's edge tensors at a time and
@@ -32,6 +37,7 @@ import functools
 import torch
 from torch import nn
 
+from repro_torch.distributed.layout import Resident, make_resident
 from repro_torch.distributed.meshinfo import sum_in_order
 
 from repro_torch.models.gnn.mace import (
@@ -44,6 +50,7 @@ from repro_torch.models.gnn.mace import (
     maybe_remat,
     mlp_apply,
     objective,
+    param_specs,
 )
 from repro_torch.roofline import collectives
 
@@ -85,22 +92,38 @@ def partition_by_destination(batch: dict, n_shards: int) -> dict:
     return out
 
 
+def make_replicas(model: MACE, cfg: MACEConfig, mi) -> MACE:
+    """Over ``mi`` (a mesh of more than one position) every parameter of
+    ``model`` becomes ``Resident`` replicas of its spec (whole), one part a
+    distinct device of the mesh, in place; a model already so, or any model
+    on one position, is left as it is."""
+    specs = param_specs(cfg, mi)
+    return make_resident(model, specs, mi, list(specs))
+
+
 def _moved(module: nn.Module, dev) -> nn.Module:
     """A shallow copy of ``module`` (and of its submodules) whose parameters
-    are the originals moved to ``dev``; the original is left untouched."""
+    are on ``dev``: a resident parameter's part there, any other the
+    original moved there; the original is left untouched."""
     clone = copy.copy(module)
     clone._parameters = {k: None if p is None else p.to(dev)
                          for k, p in module._parameters.items()}
-    clone._modules = {k: _moved(m, dev) for k, m in module._modules.items()}
+    clone._modules = {}
+    for k, m in module._modules.items():
+        if isinstance(m, Resident):
+            clone._parameters[k] = m.part_on(dev)
+        else:
+            clone._modules[k] = _moved(m, dev)
     return clone
 
 
 def on_device(module: nn.Module, dev, fn, *args):
-    """fn(module, *args) with ``module``'s parameters moved to ``dev``: the
-    work of a mesh position reads its own copy of the weights, and their
-    gradients flow back through the moves. The copy shares nothing that
-    changes with ``module``: autograd recomputes the shards' checkpoints on
-    one thread a device, at once, and each moves its weights again."""
+    """fn(module, *args) with ``module``'s parameters on ``dev``: the work of
+    a mesh position reads its device's replica in place (``make_replicas``),
+    or a copy of a whole weight, and the gradients flow back to them. The
+    shallow copy shares nothing that changes with ``module``: autograd
+    recomputes the shards' checkpoints on one thread a device, at once, and
+    each builds its copy again."""
     return fn(_moved(module, dev), *args)
 
 

@@ -40,7 +40,7 @@ Over a mesh (``mi``, a ``MeshInfo`` of more than one position) the
 tables are laid out as the reference's specs lay them (``table_spec``:
 rows over the model axis, columns over the data axes where those divide
 the width). A train cell makes them resident (``make_resident``): each
-table becomes a ``ResidentTable``, its blocks on their positions (one
+table becomes a ``distributed.layout.Resident``, its blocks on their positions (one
 part for each distinct block on each device, the reference's
 ``NamedSharding``), and each table read (``mesh_lookup``) reads the
 blocks in place. The read splits the ids over the data groups where the
@@ -71,7 +71,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.device import check_generator, resolve_device
 from repro_torch.data.pipeline import shard_batch
-from repro_torch.distributed.layout import BlockLayout, Blocks, flat_specs, grouped, place
+from repro_torch.distributed import layout
+from repro_torch.distributed.layout import flat_specs, grouped, place
 from repro_torch.distributed.meshinfo import sum_in_order
 from repro_torch.roofline import collectives
 from repro_torch.kernels.embedding_bag import embedding_bag
@@ -150,74 +151,40 @@ def table_spec(width: int, mi) -> tuple:
     return (mi.tp_axis, mi.axes_if_divisible(width, mi.fsdp_axis))
 
 
-class ResidentTable(nn.Module):
-    """A table held as its blocks over a mesh (``BlockLayout``): ``parts``,
-    one trainable block for each distinct block on each device."""
-
-    def __init__(self, blocks: Blocks):
-        super().__init__()
-        self.layout: BlockLayout = blocks.layout
-        self.parts = nn.ParameterList([nn.Parameter(p) for p in blocks.parts])
-
-    @property
-    def shape(self) -> torch.Size:
-        return torch.Size(self.layout.shape)
-
-    @property
-    def device(self) -> torch.device:
-        return self.layout.mesh.devices[0]
-
-    def blocks(self) -> Blocks:
-        return Blocks(self.layout, list(self.parts))
-
-
 def make_resident(model: nn.Module, mi) -> nn.Module:
     """Over ``mi`` (a mesh of more than one position) each table parameter
-    of ``model`` (a ``table_spec`` leaf) becomes a ``ResidentTable`` of its
+    of ``model`` (a ``table_spec`` leaf) becomes a ``Resident`` of its
     blocks, in place, and its whole tensor is let go; a table already
     resident, or any model on one position, is left as it is."""
     if mi is None or len(mi.mesh.devices) == 1:
         return model
     specs = param_specs(model.cfg, mi)
-    for name, p in list(model.named_parameters()):
-        if (specs.get(name) or (None,))[0] != mi.tp_axis:
-            continue
-        parent_name, _, leaf = name.rpartition(".")
-        parent = model.get_submodule(parent_name) if parent_name else model
-        resident = ResidentTable(Blocks.place(p.detach(), specs[name], mi))
-        resident.parts.requires_grad_(p.requires_grad)
-        if isinstance(parent, nn.ParameterDict):  # keep the dict's order
-            rest = {k: parent[k] for k in list(parent.keys())}
-            for k in rest:
-                del parent[k]
-            for k, v in rest.items():
-                parent[k] = resident if k == leaf else v
-        else:
-            delattr(parent, leaf)
-            parent.add_module(leaf, resident)
-    return model
+    tables = [k for k, _ in model.named_parameters() if (specs.get(k) or (None,))[0] == mi.tp_axis]
+    return layout.make_resident(model, specs, mi, tables)
 
 
 def mesh_lookup(table, ids, mi=None, bag: bool = False):
     """The rows of ``ids`` (``bag``: the sum of each -1-padded row of ids,
     ``embedding_bag_sum``) over ``mi``'s layout of ``table``
-    (``table_spec``; the module docstring): a ``ResidentTable``'s blocks in
+    (``table_spec``; the module docstring): a ``Resident`` table's blocks in
     place, a whole table's placed for this read; without ``mi``, or on one
     position, one read of the whole table. The result lands on the first
     position's device."""
     if mi is None or len(mi.mesh.devices) == 1:
-        if isinstance(table, ResidentTable):
+        if isinstance(table, layout.Resident):
             table = table.blocks().whole()
         return embedding_bag_sum(table, ids) if bag else _rows(table, ids)
     spec = table_spec(table.shape[1], mi)
     devs = mi.mesh.groups(mi.tp_axis)  # (data groups, row blocks)
-    if isinstance(table, ResidentTable):
+    if isinstance(table, layout.Resident):
         if table.layout.spec != spec:
             raise ValueError(f"resident blocks laid out by {table.layout.spec}, the mesh's "
                              f"spec is {spec}")
-        blocks = grouped(table.blocks().positions(), mi, mi.tp_axis)
+        blocks = table.grid(mi)
+        part = grouped(list(table.layout.index), mi, mi.tp_axis)
     else:
         blocks = grouped(place(table, spec, mi), mi, mi.tp_axis)
+        part = None
     if bag:  # the kernel reads a dense table
         read = lambda blk, local: embedding_bag_sum(blk.contiguous(), local)
     else:
@@ -236,9 +203,14 @@ def mesh_lookup(table, ids, mi=None, bag: bool = False):
                 local = torch.where((local >= 0) & (local < n), local, -1)
                 if spec[1] is None:
                     parts.append(read(blocks[g, m], local))
+                    if part is not None:
+                        table.touch(part[g, m], local.clamp_min(0))
                 else:  # column block c on position (c, m), joined in order on (g, m)
                     joined = torch.cat([read(blocks[c, m], local.to(devs[c, m])).to(dev)
                                         for c in range(devs.shape[0])], dim=-1)
+                    if part is not None:
+                        for c in range(devs.shape[0]):
+                            table.touch(part[c, m], local.clamp_min(0).to(devs[c, m]))
                     if m == 0:
                         collectives.record("all-gather", joined)
                     parts.append(joined)

@@ -36,7 +36,13 @@ projections run on the model's device. The MoE runs its expert-parallel
 branch (``moe.py``). A mesh whose model axis is 1 runs the one-device
 path, as the reference's does.
 
-Training (``lm_loss``) runs on one device. ``cfg.remat`` rematerialises
+Training (``lm_loss``) runs on one device or over a mesh. Over a mesh of
+more than one position whose model axis divides E, the routed experts of
+every MoE layer are resident as their blocks (``make_resident``: the
+stacked (L, E, D, Fe) / (L, E, Fe, D) leaves by ``moe_specs`` with a
+leading whole layer axis), and ``lm_loss`` refuses a model whose experts
+are whole there; the other parameters stay whole on the model's device.
+``cfg.remat`` rematerialises
 each layer and each cross-entropy chunk in the backward where autograd
 records (``"full"``: nothing saved; ``"dots"``: the products without
 batch dimensions saved; ``"none"``: everything saved), as the reference's
@@ -70,7 +76,8 @@ from repro_torch.models.common.modules import (
 )
 from repro_torch.models.recsys.models import fill_normal_
 from repro_torch.models.transformer import attention as attn
-from repro_torch.distributed.layout import flat_specs, stacked
+from repro_torch.distributed import layout
+from repro_torch.distributed.layout import Resident, flat_specs, stacked
 from repro_torch.models.transformer.moe import MoE, SwiGLU, moe_specs, router_aux_loss
 from repro_torch.roofline import collectives
 
@@ -255,6 +262,41 @@ def param_specs(cfg: TransformerConfig, mi) -> dict:
     return flat_specs(p)
 
 
+EXPERTS = ("w1", "w3", "w2")
+
+
+def resident_expert_names(cfg: TransformerConfig, mi) -> list:
+    """The routed experts' leaves that a train step over ``mi`` holds as
+    their blocks: every MoE layer's, where ``mi`` has more than one position
+    and its axes divide the experts as ``moe_specs`` splits them (E over the
+    model axis, d_model over the data axes); else none."""
+    if mi is None or len(mi.mesh.devices) == 1 or not cfg.n_moe:
+        return []
+    if cfg.n_experts % mi.tp_size or cfg.d_model % mi.dp_size:
+        return []
+    return [f"moe_layers.ffn.experts.{w}" for w in EXPERTS]
+
+
+def make_resident(model: Transformer, mi) -> Transformer:
+    """Over ``mi``, the routed experts of every MoE layer become resident as
+    their blocks (``resident_expert_names``), in place, and their whole
+    tensors are let go; experts already resident, or none to make so, leave
+    the model as it is."""
+    names = resident_expert_names(model.cfg, mi)
+    if names:
+        layout.make_resident(model, param_specs(model.cfg, mi), mi, names)
+    return model
+
+
+def _check_experts(model: Transformer, mi) -> None:
+    """A step over ``mi`` reads the experts as blocks where its layout says
+    so: whole experts there raise (they are never copied quietly)."""
+    if resident_expert_names(model.cfg, mi) and not all(
+            isinstance(lp.ffn.experts.w1, Resident) for lp in model.moe_layers):
+        raise ValueError("the experts are whole over a mesh whose layout holds them as blocks: "
+                         "make them resident first (models.transformer.model.make_resident)")
+
+
 def _layer_apply(cfg: TransformerConfig, lp: Layer, x, positions, mi):
     h = lp.ln1(x)
     if cfg.attn_type == "mla":
@@ -339,6 +381,7 @@ def lm_loss(model: Transformer, batch: dict, mi=None):
     proxy). metrics: ``ce``, ``mtp_ce``, ``router_aux`` where they apply,
     and ``loss``."""
     cfg = model.cfg
+    _check_experts(model, mi)
     tokens = batch["tokens"]
     h = forward_hidden(model, tokens, mi)
     labels, weights = _shifted(tokens, 1)

@@ -21,13 +21,23 @@ Dispatch, as the reference's (fixed shapes, capacity drops):
 
 Expert parallelism (``moe_ffn`` with a mesh whose model axis divides E):
 model shard m holds experts [m E / tp, (m + 1) E / tp) on its mesh
-position's device (a slice of the stacked parameter: a view where that is
-the parameter's device, else a copy made for the call). The tokens split
-over the data axes where those divide the batch, and each data group
-computes its own capacity from its own token count, so a (2, 2) mesh
-drops other tokens than a (1, 1) one: the reference's semantics, kept.
-The gate sums and the outputs are summed across the shards in shard order
-on the group's first device.
+position's device. The tokens split over the data axes where those
+divide the batch, and each data group computes its own capacity from its
+own token count, so a (2, 2) mesh drops other tokens than a (1, 1) one:
+the reference's semantics, kept. The gate sums and the outputs are summed
+across the shards in shard order on the group's first device.
+
+A train cell over a mesh holds the experts resident as the reference's
+blocks (``moe_specs``: ``w1`` / ``w3`` (tp, fs, None), ``w2`` (tp, None,
+fs); ``distributed.layout.Resident``, one part a position), and a step
+reads them in place: on a mesh whose data axes have one position, shard
+m's part is its experts whole. Where the data axes split D, each data
+group first gathers shard m's blocks from the data positions, joined in
+position order on its own device (the reference's all-gather), and the
+backward sums the groups' gradients in group order, each block's slice
+on the block's device (the reduce-scatter): ``_GatherBlocks``. A model
+whose experts are whole (serving) reads model shard m's slice of them (a
+view on the parameter's device, else a copy made for the call).
 """
 from __future__ import annotations
 
@@ -37,6 +47,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed.layout import Resident
 from repro_torch.distributed.meshinfo import sum_in_order
 from repro_torch.models.common.modules import Dense
 from repro_torch.models.recsys.models import stable_topk
@@ -194,6 +205,59 @@ def _moe_local(x, probs, shards, *, cfg):
     return sum_in_order(outs, dev0).reshape(bl, s, d)
 
 
+class _GatherBlocks(torch.autograd.Function):
+    """One model shard's blocks over the data positions (``parts``, in
+    position order) joined along ``dim`` on each of ``targets`` (the
+    all-gather); the backward adds the targets' gradients in target order,
+    each block's slice on that block's device (the reduce-scatter), and
+    reports it to ``tallies``."""
+
+    @staticmethod
+    def forward(ctx, dim, targets, tallies, *parts):
+        ctx.dim, ctx.tallies = dim, tallies
+        ctx.blocks = [(p.device, p.shape[dim]) for p in parts]
+        out = tuple(torch.cat([p.to(t) for p in parts], dim) for t in targets)
+        collectives.record_into(tallies, "all-gather", out[0])
+        return out
+
+    @staticmethod
+    def backward(ctx, *grads):
+        out, lo = [], 0
+        for dev, size in ctx.blocks:
+            total = None
+            for g in grads:  # the groups in order
+                piece = g.narrow(ctx.dim, lo, size).to(dev)
+                total = piece if total is None else total + piece
+            out.append(total)
+            lo += size
+        collectives.record_into(ctx.tallies, "reduce-scatter", out[0])
+        return (None, None, None, *out)
+
+
+def _split_dim(w: Resident) -> int:
+    """The dimension of a resident expert weight that the data axes split."""
+    return next(d for d, e in enumerate(w.layout.spec) if d > 0 and e is not None)
+
+
+def _resident_shards(w: Resident, mi, targets) -> list:
+    """``targets`` (data groups, model shards) devices -> [g][m] model shard
+    m's experts of ``w`` on ``targets[g][m]``: its part in place where the
+    data axes do not split it, else gathered (``_GatherBlocks``)."""
+    grid = w.grid(mi)  # (data positions, model shards)
+    out = [[None] * len(targets[0]) for _ in targets]
+    for m in range(len(targets[0])):
+        column = list(grid[:, m])
+        devs = [t[m] for t in targets]
+        if len(column) == 1 and all(d == column[0].device for d in devs):
+            for g in range(len(targets)):
+                out[g][m] = column[0]
+            continue
+        got = _GatherBlocks.apply(_split_dim(w), devs, collectives.open_tallies(), *column)
+        for g, t in enumerate(got):
+            out[g][m] = t
+    return out
+
+
 def _expert_parallel(mp: MoE, cfg, mi, x, probs):
     """The ``shard_map`` branch: the tokens of each data group (the data
     axes split the batch where they divide it, else one group holds it)
@@ -205,25 +269,34 @@ def _expert_parallel(mp: MoE, cfg, mi, x, probs):
     n_groups = mi.dp_size if mi.axes_if_divisible(b, mi.dp_axes) else 1
     bl = b // n_groups
     ex = mp.experts
+    if isinstance(ex.w1, Resident):
+        targets = [list(devs[g]) for g in range(n_groups)]
+        w1, w3, w2 = (_resident_shards(w, mi, targets) for w in (ex.w1, ex.w3, ex.w2))
+        shards = [list(zip(w1[g], w3[g], w2[g])) for g in range(n_groups)]
+    else:
+        shards = [[tuple(w[m * e_local : (m + 1) * e_local].to(devs[g, m])
+                         for w in (ex.w1, ex.w3, ex.w2)) for m in range(tp)]
+                  for g in range(n_groups)]
     outs = []
     for g in range(n_groups):
         rows = slice(g * bl, (g + 1) * bl)
-        shards = [tuple(w[m * e_local : (m + 1) * e_local].to(devs[g, m])
-                        for w in (ex.w1, ex.w3, ex.w2)) for m in range(tp)]
         with collectives.group(g):  # the gate sums' and outputs' psums
-            outs.append(_moe_local(x[rows], probs[rows], shards, cfg=cfg).to(x.device))
+            outs.append(_moe_local(x[rows], probs[rows], shards[g], cfg=cfg).to(x.device))
     return torch.cat(outs, dim=0)
 
 
 def moe_ffn(mp: MoE, cfg, x, mi=None):
     """(B, S, D) -> (B, S, D) in x's dtype. With ``mi`` whose model axis is
     > 1 and divides E, the expert-parallel branch; otherwise every expert
-    over every token on x's device."""
+    over every token on x's device (resident experts gathered there)."""
     probs = _router_probs(mp, x).to(x.dtype)
+    ex = mp.experts
     if mi is not None and mi.tp_size > 1 and cfg.n_experts % mi.tp_size == 0:
         out = _expert_parallel(mp, cfg, mi, x, probs)
+    elif isinstance(ex.w1, Resident):
+        w = [_resident_shards(w, mi, [[x.device]])[0][0] for w in (ex.w1, ex.w3, ex.w2)]
+        out = _moe_local(x, probs, [tuple(w)], cfg=cfg)
     else:
-        ex = mp.experts
         out = _moe_local(x, probs, [(ex.w1, ex.w3, ex.w2)], cfg=cfg)
     if cfg.n_shared_experts:
         out = out + mp.shared(x)

@@ -30,7 +30,11 @@ The hooks and their kinds:
     column blocks (all-gather);
   * ``models/transformer/moe.py``: the expert-parallel dispatch of a data
     group's tokens to the model shards and the combine of their outputs
-    (all-to-all, one op each);
+    (all-to-all, one op each); resident experts that the data axes split
+    gathered for each model shard (all-gather, one op a weight and shard,
+    the gathered block), and their gradients' slices summed back onto the
+    blocks by the backward (reduce-scatter, one op a weight and shard, one
+    block);
   * ``models/transformer/attention.py::_lse_combine``: the sequence
     shards' max, sum and output (all-reduce, 3 ops);
   * ``models/gnn/distributed.py``: each layer's node features gathered
@@ -38,7 +42,8 @@ The hooks and their kinds:
 
 Autograd carries the gradients back through the same moves; those
 backward moves are not reported (no hook sees them), where the reference's
-HLO holds its backward collectives too.
+HLO holds its backward collectives too, but for the experts'
+reduce-scatter, whose backward reports to the tallies its forward saw.
 
 The reference's HLO pass reads only the first shape of a tuple-shaped
 collective, so where XLA combines several reductions into one op it counts
@@ -103,12 +108,23 @@ def group(g: int) -> Iterator[None]:
         _local.group = prev
 
 
+def open_tallies() -> tuple:
+    """The tallies a report made here would reach (none inside a data group
+    past the first): a backward pass, which autograd may run on a thread of
+    its own, reports its moves to the tallies its forward saw
+    (``record_into``)."""
+    tallies = _open()
+    return () if _local.group else tuple(tallies)
+
+
 def record(kind: str, *tensors: torch.Tensor) -> None:
     """One op of ``kind`` for each of ``tensors``, each the op's result at
     one position."""
-    tallies = _open()
-    if not tallies or _local.group:
-        return
+    record_into(open_tallies(), kind, *tensors)
+
+
+def record_into(tallies, kind: str, *tensors: torch.Tensor) -> None:
+    """``record`` into the given tallies."""
     if kind not in KINDS:
         raise ValueError(f"unknown collective {kind!r}")
     for t in tallies:

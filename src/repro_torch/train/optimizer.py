@@ -23,15 +23,43 @@ and squares it into g^2's, so it holds at most three float32 tensors of
 one leaf's size beside the state. ``apply_updates`` adds in place.
 ``state_specs`` derives the state's layout over a mesh from the
 parameters' specs (``distributed/layout.py``), as the reference's ZeRO
-layout does: a moment as its parameter, Adafactor's row and column
-statistics from the parameter's leading and last entries.
+layout does: a moment as its parameter, Adafactor's row statistics
+``vr`` by the spec without its last entry and its column statistics
+``vc`` by the spec without its second-to-last.
+
+A leaf may be a ``Blocks`` (a resident leaf over a mesh): its gradient,
+state and update are ``Blocks`` then, each part computed on its device
+(``train_step.init_state`` lays the state out). AdamW updates each part
+alone (every element's update reads only that element). Adafactor's
+reductions cross the blocks, and each sums the blocks' partial sums in
+part order, taking one part of each block (its first replica), the order
+``train_step.global_norm`` adds in:
+
+  * ``vr``: the mean over the last dimension, the row sums of the blocks
+    that split it added in part order, then divided by its length;
+  * ``vc``: the mean over the second-to-last dimension likewise, from the
+    column sums;
+  * the mean of ``vr`` over its last dimension (vhat's denominator), from
+    ``vr``'s blocks' row sums;
+  * the update's RMS for the clip: every block's sum of squares in part
+    order, divided by the leaf's size.
+
+Each sum is taken on the device of its first block's part and moved to
+the others; a block's replicas take the first replica's statistics and
+update (copies), so they stay equal bit for bit. A whole leaf takes
+``mean`` instead (its own reduction order), so a leaf split into blocks
+is updated within rounding of the whole leaf's update, not bit for bit.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Dict, Optional
 
 import torch
+
+from repro_torch.distributed.layout import Blocks
+from repro_torch.distributed.meshinfo import sum_in_order
 
 Tree = Dict[str, torch.Tensor]
 
@@ -41,11 +69,20 @@ class Optimizer:
     init: Callable[[Tree], dict]
     update: Callable[[Tree, dict, Tree], tuple]  # (grads, state, params) -> (updates, state)
     state_specs: Callable[[dict, Tree], dict]  # (param specs, params) -> the state's specs
-    elementwise: bool = True  # each element's update reads only that element (a block may go alone)
 
 
 def _device(params: Tree) -> torch.device:
     return next(iter(params.values())).device
+
+
+def _first_replicas(b: Blocks) -> list:
+    """One part of each block of ``b`` (its first), in part order."""
+    return [group[0] for group in b.layout.replicas()]
+
+
+def _total(xs: list, dev) -> torch.Tensor:
+    """``xs`` added in order on ``dev`` (one tensor: itself, no move)."""
+    return xs[0].to(dev) if len(xs) == 1 else sum_in_order(xs, dev)
 
 
 def _writable(g: torch.Tensor, dtype) -> bool:
@@ -72,6 +109,20 @@ def adamw(lr: float = 1e-3, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-
             "count": torch.zeros((), dtype=torch.int32, device=_device(params)),
         }
 
+    def one(g, m, v, p, c1, c2):
+        g32 = g.to(state_dtype)
+        m.mul_(b1).add_(g32 * (1 - b1))
+        t = g32 * (1 - b2)
+        v.mul_(b2).add_(t.mul_(g32))
+        step = g32 if _writable(g, state_dtype) else torch.empty_like(m)
+        torch.div(m, c1, out=step)  # mhat, into the gradient's buffer
+        t = torch.div(v, c2, out=t).sqrt_().add_(eps)  # sqrt(vhat) + eps
+        step.div_(t)
+        del t
+        if weight_decay:
+            step.add_(p.to(state_dtype) * weight_decay)
+        return step.mul_(-lr).to(p.dtype)
+
     @torch.no_grad()
     def update(grads, state, params):
         count = state["count"] + 1
@@ -80,18 +131,12 @@ def adamw(lr: float = 1e-3, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-
         updates = {}
         for k, g in grads.items():
             m, v, p = state["m"][k], state["v"][k], params[k]
-            g32 = g.to(state_dtype)
-            m.mul_(b1).add_(g32 * (1 - b1))
-            t = g32 * (1 - b2)
-            v.mul_(b2).add_(t.mul_(g32))
-            step = g32 if _writable(g, state_dtype) else torch.empty_like(m)
-            torch.div(m, c1, out=step)  # mhat, into the gradient's buffer
-            t = torch.div(v, c2, out=t).sqrt_().add_(eps)  # sqrt(vhat) + eps
-            step.div_(t)
-            del t
-            if weight_decay:
-                step.add_(p.to(state_dtype) * weight_decay)
-            updates[k] = step.mul_(-lr).to(p.dtype)
+            if isinstance(g, Blocks):  # each part alone, on its device
+                updates[k] = Blocks(g.layout, [
+                    one(gp, mp, vp, pp, c1.to(pp.device), c2.to(pp.device))
+                    for gp, mp, vp, pp in zip(g.parts, m.parts, v.parts, p.parts)])
+            else:
+                updates[k] = one(g, m, v, p, c1, c2)
         return updates, dict(state, count=count)
 
     def state_specs(specs, params):
@@ -107,7 +152,7 @@ def adafactor(lr: float = 1e-2, decay: float = 0.8, eps: float = 1e-30,
               clip_threshold: float = 1.0, momentum: Optional[float] = None,
               momentum_dtype=torch.bfloat16) -> Optimizer:
     def factored(p) -> bool:
-        return p.dim() >= 2
+        return len(p.shape) >= 2
 
     def init(params):
         def vr(p):
@@ -136,6 +181,10 @@ def adafactor(lr: float = 1e-2, decay: float = 0.8, eps: float = 1e-30,
         updates = {}
         for k, g in grads.items():
             p, vr, vc = params[k], state["vr"][k], state["vc"][k]
+            if isinstance(g, Blocks):
+                m = state["m"][k] if momentum is not None else None
+                updates[k] = blocks_update(g, p, vr, vc, m, beta2, one_minus)
+                continue
             g32 = g.float()
             g2 = torch.mul(g32, g32).add_(eps)
             if factored(p):
@@ -159,6 +208,79 @@ def adafactor(lr: float = 1e-2, decay: float = 0.8, eps: float = 1e-30,
             updates[k] = step.mul_(-lr).to(p.dtype)
         return updates, dict(state, count=count)
 
+    def refresh(stat: Blocks, g2: dict, lay, dim: int, n: int, beta2, one_minus) -> None:
+        """A statistic's blocks <- beta2 s + (1 - beta2) mean(g2, dim): each
+        block's mean from the sums of the parameter blocks that split ``dim``,
+        added in part order on the statistic's first part of that block, its
+        other parts copies."""
+        rows: dict = {}
+        for i in g2:  # the parameter's first replicas, in part order
+            rows.setdefault(lay.block[i][:dim] + lay.block[i][dim + 1:], []).append(i)
+        for key, idx in rows.items():
+            held = [j for j, b in enumerate(stat.layout.block) if b == key]
+            s0 = stat.parts[held[0]]
+            mean = _total([g2[i].sum(dim) for i in idx], s0.device) / n
+            s0.copy_(beta2.to(s0.device) * s0 + one_minus.to(s0.device) * mean)
+            for j in held[1:]:
+                stat.parts[j].copy_(s0)
+
+    def blocks_update(g: Blocks, p: Blocks, vr: Blocks, vc: Blocks, m, beta2, one_minus):
+        """One resident leaf's update (the module docstring's reductions)."""
+        lay = p.layout
+        first = _first_replicas(p)
+        at = {i: lay.index.index(i) for i in first}  # a position that holds part i
+
+        def held(stat: Blocks, i: int) -> torch.Tensor:
+            return stat.parts[stat.layout.index[at[i]]]
+
+        g32 = {i: g.parts[i].float() for i in first}
+        g2 = {i: torch.mul(g32[i], g32[i]).add_(eps) for i in first}
+        nd = len(p.shape)
+        steps = {}
+        if nd >= 2:
+            refresh(vr, g2, lay, nd - 1, p.shape[-1], beta2, one_minus)
+            refresh(vc, g2, lay, nd - 2, p.shape[-2], beta2, one_minus)
+            rows: dict = {}  # vhat's denominator: vr's mean over its last dimension
+            for j in _first_replicas(vr):
+                rows.setdefault(vr.layout.block[j][:-1], []).append(vr.parts[j])
+            denom = {}
+            for key, parts in rows.items():
+                mean = _total([x.sum(-1, keepdim=True) for x in parts],
+                              parts[0].device) / vr.shape[-1]
+                denom[key] = torch.maximum(mean, _f32(eps, mean))
+            for i in first:
+                r, c = held(vr, i), held(vc, i)
+                d = denom[lay.block[i][:-2]].to(r.device)
+                step = (r[..., None] / d[..., None]) * c[..., None, :]  # vhat
+                steps[i] = torch.div(g32[i], step.add_(eps).sqrt_(), out=step)
+        else:
+            for group in lay.replicas():  # vr is laid out as the parameter
+                i, r = group[0], vr.parts[group[0]]
+                r.copy_(beta2.to(r.device) * r + one_minus.to(r.device) * g2[i])
+                for j in group[1:]:
+                    vr.parts[j].copy_(r)
+                step = r.clone()
+                steps[i] = torch.div(g32[i], step.add_(eps).sqrt_(), out=step)
+        dev = steps[first[0]].device
+        squares = _total([torch.mul(steps[i], steps[i], out=g2[i]).sum() for i in first], dev)
+        del g2
+        rms = torch.sqrt(squares / math.prod(p.shape) + 1e-30)
+        scale = torch.maximum(_f32(1.0, rms), rms / _f32(clip_threshold, rms))
+        out = [None] * len(p.parts)
+        for i in first:
+            step = steps.pop(i).div_(scale.to(g32[i].device))
+            if m is not None:
+                mi = held(m, i)
+                step.add_(mi.float().mul_(momentum))  # momentum * m + step
+                mi.copy_(step)  # rounds to momentum_dtype
+            out[i] = step.mul_(-lr).to(p.dtype)
+        for group in lay.replicas():  # a block's replicas: the first's update and moment
+            for j in group[1:]:
+                out[j] = out[group[0]].to(p.parts[j].device)
+                if m is not None:
+                    m.parts[m.layout.index[lay.index.index(j)]].copy_(held(m, group[0]))
+        return Blocks(lay, out)
+
     def state_specs(specs, params):
         def full(k):
             return tuple(specs[k]) + (None,) * (params[k].dim() - len(specs[k]))
@@ -171,13 +293,15 @@ def adafactor(lr: float = 1e-2, decay: float = 0.8, eps: float = 1e-30,
             out["m"] = dict(specs)
         return out
 
-    return Optimizer(init=init, update=update, state_specs=state_specs, elementwise=False)
+    return Optimizer(init=init, update=update, state_specs=state_specs)
 
 
 @torch.no_grad()
 def apply_updates(params: Tree, updates: Tree) -> Tree:
-    """p <- p + u, in place (the reference returns new arrays of the same
-    values)."""
+    """p <- p + u, in place, a ``Blocks`` leaf part by part (the reference
+    returns new arrays of the same values)."""
     for k, p in params.items():
-        p.add_(updates[k].to(p.dtype))
+        u = updates[k]
+        for pp, up in (zip(p.parts, u.parts) if isinstance(p, Blocks) else ((p, u),)):
+            pp.add_(up.to(pp.dtype))
     return params

@@ -18,24 +18,32 @@ array as one leaf: Adafactor factors and clips it whole. A
 one (L, ...) tensor; the layout then presents that tensor as one leaf, named ``<list>.<parameter>`` (``dense_layers.attn.wq.weight``), and
 the step stacks the layers' gradients to match.
 
-Over a mesh the recsys tables are resident as their blocks
-(``models.recsys.models.ResidentTable``). ``param_leaves`` presents such a
-table as one leaf, its ``Blocks``; its gradient and moments are
-``Blocks`` of the same layout, each part updated on its device (a block
-held on several devices gets the sum of their gradients on each, in part
-order: the reference's all-reduce of a replicated block's gradient), so
-only an elementwise optimizer (AdamW) may update one. ``reference_layout``
-presents it whole (``Blocks.whole``), a copy.
+Over a mesh a cell may hold some leaves as their blocks
+(``distributed.layout.Resident``: the recsys tables, the LM's routed
+experts, MACE's parameters). ``param_leaves`` presents such a leaf as one
+``Blocks`` in the reference's layout (a stacked list's leaf as its (L,
+...) blocks); its gradient and optimizer state are ``Blocks`` of that
+leaf's layout and of the state's own specs (``init_state``), each part
+updated on its device by the optimizer (``train/optimizer.py`` says how
+Adafactor reduces across blocks). A block held on several devices gets
+the sum of its replicas' gradients on each, added in part order (the
+reference's all-reduce of a replicated block's gradient); where the reads
+reported the rows they touched (a table's), only those rows are added,
+which leaves the same bits as the sum of every row, since an untouched
+row is +0.0 in every replica. ``reference_layout`` presents a resident
+leaf whole (``Blocks.whole``), a copy.
 """
 from __future__ import annotations
 
+import functools
 from collections import Counter
-from typing import Any, Callable, Dict, Tuple
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
-from repro_torch.distributed.layout import Blocks
+from repro_torch.distributed.layout import BlockLayout, Blocks, Resident, stacked_layout
 from repro_torch.distributed.meshinfo import sum_in_order
 from repro_torch.models.common.modules import StackedLayers
 from repro_torch.train.optimizer import Optimizer, Tree, _writable, apply_updates
@@ -59,103 +67,171 @@ def _as_reference(name: str, t: torch.Tensor, stacked: bool = False) -> torch.Te
     return t.transpose(-1, -2) if t.dim() == 2 + stacked and name.endswith("weight") else t
 
 
-def _resident_modules(model: nn.Module) -> dict:
-    from repro_torch.models.recsys.models import ResidentTable
+@functools.lru_cache(maxsize=None)
+def _transposed(layout: BlockLayout) -> BlockLayout:
+    """``layout`` with its last two dimensions swapped."""
+    shape, spec = layout.shape, tuple(layout.spec)
+    return BlockLayout.of(shape[:-2] + (shape[-1], shape[-2]), spec[:-2] + (spec[-1], spec[-2]),
+                          layout.mesh)
 
-    return {k + ".": m for k, m in model.named_modules() if isinstance(m, ResidentTable)}
+
+def _blocks_as_reference(name: str, b: Blocks, stacked: bool = False) -> Blocks:
+    """A resident leaf's ``Blocks`` (the port's layout) in the reference's
+    layout: a 2-D ``weight``'s parts transposed, and its layout."""
+    if not (len(b.shape) == 2 + stacked and name.endswith("weight")):
+        return b
+    return Blocks(_transposed(b.layout), [p.transpose(-1, -2) for p in b.parts])
 
 
-def _layout(model: nn.Module) -> Dict[str, Tuple[Any, list, bool]]:
-    """name -> (view in the reference's layout, or a resident table's
-    ``Blocks``; the names of the parameters it holds; stacked or not), in
-    ``jax.tree.leaves`` order."""
+@dataclass
+class _Leaf:
+    """One leaf of the optimizer's view: ``value`` (a view in the reference's
+    layout, or a resident leaf's ``Blocks``), the parameters it holds in the
+    order ``gradients`` reads them (a stacked resident leaf's part-major:
+    part 0's layers, then part 1's), the layers stacked (0: none), and the
+    ``Resident`` that may report touched rows."""
+
+    value: Any
+    names: list
+    stacked: int = 0
+    resident: Optional[Resident] = None
+
+
+def _layout(model: nn.Module) -> Dict[str, _Leaf]:
+    """name -> ``_Leaf``, in ``jax.tree.leaves`` order."""
     lists = {k + ".": m for k, m in model.named_modules() if isinstance(m, StackedLayers)}
-    resident = _resident_modules(model)
-    out: Dict[str, Tuple[Any, list, bool]] = {}
+    resident = {k + ".": m for k, m in model.named_modules() if isinstance(m, Resident)}
+    out: Dict[str, _Leaf] = {}
+    split: Dict[str, list] = {}  # a stacked resident leaf's names, a list a part
     for k, p in model.named_parameters():
         if not p.requires_grad:
             continue
-        table = next((pre for pre in resident if k.startswith(pre)), None)
-        if table is not None:
-            key = table[:-1]
+        lst = next((pre for pre in lists if k.startswith(pre)), None)
+        res = next((pre for pre in resident if k.startswith(pre)), None)
+        if lst is None and res is None:
+            out[k] = _Leaf(_as_reference(k, p), [k])
+        elif lst is None:
+            key = res[:-1]
             if key not in out:
-                out[key] = (resident[table].blocks(), [], False)
-            out[key][1].append(k)
-            continue
-        prefix = next((pre for pre in lists if k.startswith(pre)), None)
-        if prefix is None:
-            out[k] = (_as_reference(k, p), [k], False)
-            continue
-        rest = k[len(prefix):].partition(".")[2]
-        key = prefix + rest
-        if key not in out:
-            out[key] = (_as_reference(key, lists[prefix].stack(rest), True), [], True)
-        out[key][1].append(k)
+                r = resident[res]
+                out[key] = _Leaf(_blocks_as_reference(key, r.blocks()), [], 0, r)
+            out[key].names.append(k)
+        elif res is None:
+            rest = k[len(lst):].partition(".")[2]
+            key = lst + rest
+            if key not in out:
+                out[key] = _Leaf(_as_reference(key, lists[lst].stack(rest), True), [], 1)
+            out[key].names.append(k)
+        else:
+            rest = res[len(lst):].partition(".")[2][:-1]  # the layer's path to it
+            key = lst + rest
+            layers = lists[lst]
+            if key not in out:
+                r = resident[res]
+                n = len(r.parts)
+                parts = [layers.stack(f"{rest}.parts.{j}") for j in range(n)]
+                value = Blocks(stacked_layout(r.layout, len(layers)), parts)
+                out[key] = _Leaf(_blocks_as_reference(key, value, True), [], len(layers))
+                split[key] = [[] for _ in range(n)]
+            split[key][int(k.rpartition(".")[2])].append(k)
+    for key, per_part in split.items():
+        out[key].names = [n for names in per_part for n in names]
     return dict(sorted(out.items(), key=lambda kv: reference_key(kv[0])))
 
 
 def param_leaves(model: nn.Module) -> Dict[str, Any]:
     """The trainable parameters of ``model`` as the step updates them: views
     in the reference's layout, in ``jax.tree.leaves`` order (writing into a
-    view writes the parameters), a resident table as its ``Blocks``."""
-    return {k: v for k, (v, _, _) in _layout(model).items()}
+    view writes the parameters), a resident leaf as its ``Blocks``."""
+    return {k: leaf.value for k, leaf in _layout(model).items()}
 
 
 def reference_layout(model: nn.Module) -> Dict[str, torch.Tensor]:
     """The trainable parameters of ``model`` as views in the reference's
     layout, in ``jax.tree.leaves`` order, a stacked layer list's as one
     (L, ...) leaf; writing into a view writes the parameters. A resident
-    table is presented whole (a copy gathered from its blocks)."""
+    leaf is presented whole (a copy gathered from its blocks)."""
     return {k: v.whole() if isinstance(v, Blocks) else v for k, v in param_leaves(model).items()}
 
 
-def _sum_replicas(g: Blocks) -> Blocks:
+def _sum_replicas(g: Blocks, rows: Optional[dict] = None) -> Blocks:
     """Each block's gradient summed over its replicas (the parts of one block
-    on distinct devices) in part order, the sum on every replica."""
+    on distinct devices) in part order, the sum on every replica. With
+    ``rows`` ({part: rows its reads touched}) only the union of the
+    replicas' rows is added, written into each replica's gradient."""
     parts = list(g.parts)
     for group in g.layout.replicas():
-        if len(group) > 1:
-            total = sum_in_order([parts[i] for i in group], parts[group[0]].device)
-            for i in group:
-                parts[i] = total if i == group[0] else total.to(parts[i].device)
+        if len(group) < 2:
+            continue
+        dev = parts[group[0]].device
+        if rows is None:
+            total = sum_in_order([parts[i] for i in group], dev)
+            for i in group:  # a copy each (a move to an equal device would not copy)
+                parts[i] = total if i == group[0] else total.to(parts[i].device, copy=True)
+            continue
+        touched = [rows[i].to(dev) for i in group if i in rows]
+        if not touched:
+            continue
+        idx = torch.unique(torch.cat(touched).long())
+        total = sum_in_order([parts[i].index_select(0, idx.to(parts[i].device)) for i in group],
+                             dev)
+        for i in group:
+            d = parts[i].device
+            if not _writable(parts[i], parts[i].dtype):
+                parts[i] = parts[i].clone()
+            parts[i].index_copy_(0, idx.to(d), total.to(d))
     return Blocks(g.layout, parts)
 
 
 def gradients(model: nn.Module, loss: torch.Tensor) -> Dict[str, Any]:
     """d loss / d each leaf of ``param_leaves(model)``, in that layout (a
     stacked list's layers' gradients stacked, each layer's freed once
-    stacked; a resident table's as ``Blocks``)."""
+    stacked; a resident leaf's as ``Blocks``, its replicas summed)."""
     layout = _layout(model)
     named = dict(model.named_parameters())
-    flat = list(torch.autograd.grad(loss, [named[n] for _, ns, _ in layout.values() for n in ns],
+    flat = list(torch.autograd.grad(loss, [named[n] for leaf in layout.values()
+                                           for n in leaf.names],
                                     allow_unused=True, materialize_grads=True))
     grads, i = {}, 0
-    for k, (leaf, names, stacked) in layout.items():
-        rows, flat[i : i + len(names)] = flat[i : i + len(names)], [None] * len(names)
-        i += len(names)
-        if isinstance(leaf, Blocks):
-            grads[k] = _sum_replicas(Blocks(leaf.layout, rows))
+    for k, leaf in layout.items():
+        n = len(leaf.names)
+        rows, flat[i : i + n] = flat[i : i + n], [None] * n
+        i += n
+        if isinstance(leaf.value, Blocks):
+            if leaf.stacked:  # part-major: each part's layers stacked
+                rows = [_stack(rows[j : j + leaf.stacked]) for j in range(0, n, leaf.stacked)]
+            parts = [_as_reference(k, r, bool(leaf.stacked)) for r in rows]
+            touched = leaf.resident.take_rows() if leaf.resident is not None else None
+            grads[k] = _sum_replicas(Blocks(leaf.value.layout, parts), touched)
             continue
-        g = (rows[0].unsqueeze(0) if len(rows) == 1 else torch.stack(rows)) if stacked else rows[0]
-        grads[k] = _as_reference(k, g, stacked)
+        g = _stack(rows) if leaf.stacked else rows[0]
+        grads[k] = _as_reference(k, g, bool(leaf.stacked))
     return grads
 
 
+def _stack(rows: list) -> torch.Tensor:
+    return rows[0].unsqueeze(0) if len(rows) == 1 else torch.stack(rows)
+
+
 def init_state(optimizer: Optimizer, model: nn.Module) -> dict:
-    """``optimizer.init`` of ``param_leaves(model)``: a resident table's
-    moments as ``Blocks`` of its layout, each part beside its block."""
+    """``optimizer.init`` of ``param_leaves(model)``: a resident leaf's state
+    as ``Blocks`` laid out by the optimizer's ``state_specs`` (zeros, each
+    part beside the blocks it serves)."""
     leaves = param_leaves(model)
     plain = {k: v for k, v in leaves.items() if not isinstance(v, Blocks)}
-    state = optimizer.init(plain)
+    state = optimizer.init(plain) if plain else {}
     for k, b in leaves.items():
         if not isinstance(b, Blocks):
             continue
-        if not optimizer.elementwise:
-            raise ValueError(f"{k} is resident as blocks: its optimizer must be elementwise")
-        per = [optimizer.init({k: p}) for p in b.parts]
-        for name, sub in per[0].items():
+        meta = {k: torch.empty(b.shape, dtype=b.dtype, device="meta")}
+        shapes = optimizer.init(meta)
+        specs = optimizer.state_specs({k: b.layout.spec}, meta)
+        for name, sub in shapes.items():
             if isinstance(sub, dict):
-                state[name][k] = Blocks(b.layout, [s[name][k] for s in per])
+                state.setdefault(name, {})[k] = Blocks.zeros(sub[k].shape, specs[name][k],
+                                                             b.layout.mesh, sub[k].dtype)
+            elif name not in state:
+                state[name] = torch.zeros_like(sub, device=b.device)
     for name, sub in state.items():  # the leaves' order
         if isinstance(sub, dict):
             state[name] = {k: sub[k] for k in leaves if k in sub}
@@ -203,13 +279,6 @@ def clip_by_global_norm(tree: Tree, max_norm: float):
             for k, x in tree.items()}, norm
 
 
-def _part_state(state: dict, k: str, i: int, dev: torch.device) -> dict:
-    """The optimizer's state of part ``i`` of resident leaf ``k``, the step
-    count on the part's device."""
-    return {name: ({k: sub[k].parts[i]} if isinstance(sub, dict) else sub.to(dev))
-            for name, sub in state.items()}
-
-
 def make_train_step(loss_fn: LossFn, optimizer: Optimizer, *, grad_accum: int = 1,
                     clip_norm: float = 0.0):
     """Returns step(model, opt_state, batch, skip_nonfinite=False) -> (model,
@@ -223,8 +292,9 @@ def make_train_step(loss_fn: LossFn, optimizer: Optimizer, *, grad_accum: int = 
     The step takes no mesh: over one, the loss runs each position's share
     where the reference's layout puts it (the tables' blocks, the
     experts, the graph's shards) and combines the shares in shard order,
-    and autograd carries each share's gradient back through the moves onto
-    the whole parameters, as GSPMD's reductions carry the reference's.
+    and autograd carries each share's gradient back onto the resident
+    parts it read and through the moves onto the whole parameters, as
+    GSPMD's reductions carry the reference's.
 
     With grad_accum > 1 the batch's leading axis is split into
     ``grad_accum`` microbatches run one after another; their gradients are
@@ -244,10 +314,6 @@ def make_train_step(loss_fn: LossFn, optimizer: Optimizer, *, grad_accum: int = 
 
     def step(model, opt_state, batch, skip_nonfinite: bool = False):
         params = param_leaves(model)
-        resident = [k for k, p in params.items() if isinstance(p, Blocks)]
-        if resident and not optimizer.elementwise:
-            raise ValueError(f"{resident[0]} is resident as blocks: its optimizer must be "
-                             f"elementwise")
         if grad_accum > 1:
             size = next(iter(batch.values())).shape[0] // grad_accum
             acc = {k: p.map(zeros) if isinstance(p, Blocks) else zeros(p)
@@ -276,21 +342,12 @@ def make_train_step(loss_fn: LossFn, optimizer: Optimizer, *, grad_accum: int = 
             grads, gnorm = clip_by_global_norm(grads, clip_norm)
             metrics = dict(metrics, grad_norm=gnorm)
         # Leaf by leaf, each gradient freed once applied: the optimizers'
-        # updates are elementwise or per leaf, and each call counts the step
-        # from the same state.
+        # updates are elementwise or per leaf (a resident leaf's parts each on
+        # its device), and each call counts the step from the same state.
         new_state = opt_state
         for k in list(grads):
-            g, p = grads.pop(k), params[k]
-            if not isinstance(p, Blocks):
-                updates, new_state = optimizer.update({k: g}, opt_state, {k: p})
-                apply_updates({k: p}, updates)
-                continue
-            for i, (gp, pp) in enumerate(zip(g.parts, p.parts)):  # each block on its device
-                updates, part = optimizer.update({k: gp}, _part_state(opt_state, k, i, pp.device),
-                                                 {k: pp})
-                apply_updates({k: pp}, updates)
-            if new_state is opt_state:
-                new_state = dict(opt_state, count=part["count"].to(opt_state["count"].device))
+            updates, new_state = optimizer.update({k: grads.pop(k)}, opt_state, {k: params[k]})
+            apply_updates({k: params[k]}, updates)
         return model, new_state, metrics
 
     return step

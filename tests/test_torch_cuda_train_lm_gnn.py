@@ -17,7 +17,13 @@ parameter within 2 lr + 1e-6 of the CPU's, and at most
 ``LEAF_FAR_SHARE`` of each leaf's elements beyond 1e-3 lr + 1e-6 (1e-2
 float32, 0.3 bf16); each limit below its control (one update's change
 of the loss; a leaf's update dropped or sign-flipped).
+
+smoke-mla-moe's train_4k (Adafactor) over (1, 4) and (2, 2) meshes of
+cuda:0, its experts resident as four parts on the card, against the same
+mesh of CPU positions from the same weights, by the same limits; the
+parts and Adafactor's statistics keep their storage across the steps.
 """
+import copy
 import dataclasses
 
 import pytest
@@ -25,7 +31,13 @@ import torch
 
 from repro_torch.archs import get_arch
 from repro_torch.archs.lm import LMArch
-from repro_torch.train.parity import failures, step_readings
+from repro_torch.data import lm_batch
+from repro_torch.distributed import MeshInfo
+from repro_torch.distributed.layout import Blocks
+from repro_torch.launch.mesh import make_test_mesh
+from repro_torch.models.transformer import model as tm
+from repro_torch.train import init_state, param_leaves
+from repro_torch.train.parity import deterministic, failures, readings, snapshot, step_readings
 
 pytestmark = pytest.mark.cuda
 
@@ -52,3 +64,36 @@ def test_mace_step_card_equals_cpu(dev, shape):
     arch = get_arch("smoke-mace")
     dtype = str(arch.cfg_for(shape).compute_dtype).split(".")[1]
     assert failures(step_readings(arch.make_cell(shape), dev, 0, 1e-3), 1e-3, dtype) == []
+
+
+def _ptrs(model, state) -> list:
+    leaves = param_leaves(model)
+    return [[p.data_ptr() for p in v.parts] for tree in (leaves, state["vr"], state["vc"],
+                                                         state["m"])
+            for v in tree.values() if isinstance(v, Blocks)]
+
+
+@pytest.mark.parametrize("grid", [(1, 4), (2, 2)])
+def test_resident_experts_on_a_card_mesh_equal_the_cpu_mesh(dev, grid):
+    base = get_arch("smoke-mla-moe")
+    arch = LMArch(dataclasses.replace(base.cfg, router_aux_coef=0.01), "adafactor", base.shapes)
+    card = torch.device("cuda", 0)
+    whole, _, batch = arch.make_cell("train_4k").make_inputs(0, "cpu")
+    start = snapshot(whole)
+    nxt = lm_batch(0, 1, 4, 32, arch.cfg.vocab_size, device="cpu")
+    runs = {}
+    for where, device in (("cpu", "cpu"), ("card", card)):
+        mi = MeshInfo(make_test_mesh(4, model=grid[1], device=device))
+        cell = arch.make_cell("train_4k", mi)
+        model = tm.make_resident(copy.deepcopy(whole).to(device), mi)
+        state = init_state(arch.optimizer(), model)
+        before = _ptrs(model, state)
+        assert len(before) == 12  # three expert leaves, each with vr, vc and m
+        with deterministic():
+            model, state, m1 = cell.fn(model, state, {k: v.to(device) for k, v in batch.items()})
+            p1 = snapshot(model)
+            model, state, m2 = cell.fn(model, state, {k: v.to(device) for k, v in nxt.items()})
+        assert _ptrs(model, state) == before
+        runs[where] = (p1, (m1, m2))
+    r = readings(start, runs["cpu"][0], runs["card"][0], runs["cpu"][1], runs["card"][1], 1e-3)
+    assert failures(r, 1e-3, "float32") == []

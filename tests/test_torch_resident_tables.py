@@ -1,7 +1,7 @@
 """Recsys tables resident as their blocks over a mesh.
 
 A train cell over a mesh of more than one position makes every table a
-``ResidentTable`` (``models/recsys/models.py::make_resident``): its
+``Resident`` (``models/recsys/models.py::make_resident``): its
 ``table_spec`` blocks on their positions from ``make_inputs`` on, one part
 for each distinct block on each device, each position's block of the
 reference's ``NamedSharding`` shard shape. The step reads the blocks in
@@ -114,13 +114,23 @@ def test_a_whole_model_turns_resident_at_its_first_mesh_step():
 
 
 def test_norm_over_blocks_and_an_elementwise_optimizer():
+    """The norm over the blocks is the whole leaves' norm. AdamW's moments
+    are laid out as their tables; Adafactor, which is not elementwise, lays
+    its statistics out by its own ``state_specs``: ``vr`` by the table's
+    spec without its last entry, ``vc`` without its second-to-last."""
     arch, mi = get_arch("smoke-two-tower"), mesh22()
     model, _, _ = arch.make_cell("train_batch", mi).make_inputs(0, "cpu")
     leaves = param_leaves(model)
     whole = reference_layout(model)
     torch.testing.assert_close(global_norm(leaves), global_norm(whole), rtol=1e-6, atol=0)
-    with pytest.raises(ValueError, match="elementwise"):
-        init_state(adafactor(lr=1e-3), model)
+    tables = {k: v for k, v in leaves.items() if isinstance(v, Blocks)}
+    state = init_state(adafactor(lr=1e-3), model)
+    for k, b in tables.items():
+        spec = tuple(b.layout.spec)
+        vr, vc = state["vr"][k], state["vc"][k]
+        assert isinstance(vr, Blocks) and isinstance(vc, Blocks), k
+        assert (vr.layout.spec, vc.layout.spec) == (spec[:-1], spec[:-2] + spec[-1:]), k
+        assert (vr.shape, vc.shape) == (b.shape[:-1], b.shape[:-2] + b.shape[-1:]), k
 
 
 def test_mesh_checkpoint_restores_on_one_device(tmp_path):

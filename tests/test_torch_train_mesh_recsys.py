@@ -11,7 +11,8 @@ Ground truth is the reference's jitted step, run in a subprocess with
 ``XLA_FLAGS=--xla_force_host_platform_device_count=4`` on meshes of
 ``AxisType.Auto`` axes (``tests/test_torch_lm_sharded.py`` says why), with
 its parameters, optimizer state and batch laid out by the cell's own
-``in_specs``. Both sides start from the reference's PRNGKey(0) parameters
+``in_specs`` (a case may name the arch's optimizer and config fields to
+replace). Both sides start from the reference's PRNGKey(0) parameters
 (carried across by ``interop``) and take two steps on the batches of
 steps 0 and 1 (the port's generators, which equal the reference's bit for
 bit). The limits are ``train/parity.py``'s float32 ones, each against its
@@ -24,7 +25,9 @@ recsys cell is held to the reference's (2, 2) step.
 
 MACE's ogb_products shape (smoke size, 128 x 512, d_feat 8) in the
 dst-partitioned layout over a (1, 4) and a (2, 2) mesh: four graph
-shards, each on its position with the parameters moved there. Self-loop
+shards, each on its position reading the parameters' replica there (the
+step makes the whole model's parameters replicas at its first step, as
+the cell's does). Self-loop
 edges are padded out of the batch in both packages
 (``tests/test_torch_mace.py`` says why). The cell computes in bf16, which
 XLA and PyTorch round at different points (the first step's metrics
@@ -58,7 +61,11 @@ from repro_torch.distributed.layout import shard_shape
 from repro_torch.interop import _by_port_name, _unstacked, mace_params_from_reference
 from repro_torch.interop import recsys_params_from_reference
 from repro_torch.launch.mesh import make_test_mesh
-from repro_torch.models.gnn.distributed import dst_partitioned_loss, shard_devices
+from repro_torch.models.gnn.distributed import (
+    dst_partitioned_loss,
+    make_replicas,
+    shard_devices,
+)
 from repro_torch.train import adamw, make_train_step, reference_layout
 from repro_torch.train.parity import failures, readings, snapshot
 from test_torch_parity_world import torch_threads  # noqa: F401 (autouse)
@@ -116,6 +123,10 @@ SCRIPT = textwrap.dedent(
         else:
             if c.get("router_aux_coef"):
                 arch.cfg = dataclasses.replace(arch.cfg, router_aux_coef=c["router_aux_coef"])
+            if c.get("cfg"):
+                arch.cfg = dataclasses.replace(arch.cfg, **c["cfg"])
+            if c.get("optimizer"):
+                arch.optimizer_name = c["optimizer"]
             cell = arch.make_cell(c["shape"], mi)
             init = (tm.init_params if arch.family == "lm"
                     else rs_arch._INIT[arch.cfg.model])
@@ -320,7 +331,8 @@ def test_mace_dst_partitioned_mesh_step_equals_reference(tmp_path_factory, mesh_
     assert set(cell.specs) == set(reference_layout(model))
     step = make_train_step(lambda m, b: dst_partitioned_loss(m, cfg, mi, b), adamw(lr=LR),
                            clip_norm=1.0)
-    start, p1, got = port_cell_run(dataclasses.replace(cell, fn=step), model, batches)
+    fn = lambda m, state, b: step(make_replicas(m, cfg, mi), state, b)  # noqa: E731
+    start, p1, got = port_cell_run(dataclasses.replace(cell, fn=fn), model, batches)
     case = f"mace-{mesh_name}"
     want_p = reference_leaves(ref, f"{case}|p1|", model)
     r = readings(start, want_p, p1, (metrics_of(ref, case, 1), metrics_of(ref, case, 2)), got,

@@ -1,6 +1,6 @@
 """Training over a mesh of four distinct cards, against the same mesh on one card.
 
-    python3 tools/four_card_mesh.py          # on a machine with four CUDA devices
+    python3 tools/four_card_mesh.py [--repeat N]   # on a machine with four CUDA devices
 
 First, one PQ scan (``pq_adc``) on each card in turn, its table staged in
 more shared memory than the 48 KB a launch gets unasked (m_sub 16 x 256
@@ -17,30 +17,65 @@ the card its inputs live on. For each smoke train cell it takes two steps
 from one seed over a mesh of cuda:0..3 and over the same mesh of cuda:0,
 and holds the first to the second by ``train/parity.py``'s float32 limits
 (the card's scatter-adds add in no fixed order): smoke-dlrm,
-smoke-deepfm, smoke-two-tower and smoke-sasrec over (2, 2); smoke-mla-moe
-train_4k (MTP, router_aux_coef 0.01) over (1, 4) and (2, 2); smoke-mace's
-ogb_products layout over (1, 4), float32. Then the training driver on the
-four cards (its (4, 1) mesh) for smoke-two-tower and smoke-gqa: 8 steps,
-then a second process resuming to 12. Last, the driver's default on a
-machine of several cards against one card: deepfm as published (B
-65,536) for 31 steps with ``--device cuda`` (the (4, 1) mesh) and with
-``--device cuda:0``, the walls of steps 10, 20 and 30 as the driver
-prints them (host clock, each ending in the loss's read). One line a
-case; it exits nonzero on any failure. Without four CUDA devices it exits
-nonzero before running anything.
+smoke-deepfm, smoke-two-tower and smoke-sasrec over (2, 2) (their tables
+resident as blocks); smoke-mla-moe train_4k (MTP, router_aux_coef 0.01)
+over (1, 4) and (2, 2) (its experts resident as blocks, one a card);
+smoke-mace's ogb_products layout over (1, 4), float32 (its parameters
+four replicas, one a card).
+
+Then two cells that train at full width with their experts resident as
+four parts, one a card, and Adafactor's state beside them (finite
+losses; every leaf moved but the bf16 leaves whose update rounds away, and
+every leaf's first moment non-zero, as chip_smoke.py phase 10 checks; every
+expert part and statistic in its storage after the steps; each card's
+peak): deepseek-v2-236b train_4k at phase 10's cut (1 dense + 1 MoE layer,
+160 experts, batch 2, grad_accum 2), the cell of phase 12c, and
+deepseek-v3-671b train_4k with one MoE layer (256 experts, 11.3e9 expert
+parameters: 22.5 GB in bf16, about 90 GB with their gradients and float32
+accumulation, which no one card holds), its dense depth cut from 3
+layers to 2 and its batch kept at 4 (grad_accum 4): cuda:0 holds the
+dense layers, the embedding, the head and the MTP block whole with their
+state beside its quarter of the experts (PERF.md section 4 has the
+reckoning and the one-card calibration behind the cut).
+
+Then the training driver on the four cards (its (4, 1) mesh) for
+smoke-two-tower and smoke-gqa, the two at once: 8 steps, then a second
+process resuming to 12. Last, the driver's default on a machine of
+several cards against one card: deepfm as published (B 65,536) for 21
+steps with ``--device cuda`` (the (4, 1) mesh, its dim-10 tables a
+replica a card, their gradients summed over the rows the groups read)
+and with ``--device cuda:0``, the walls of steps 10 and 20 as the driver
+prints them (host clock, each ending in the loss's read).
+
+One line a case. ``--repeat N`` runs every case N times in rounds and
+counts each case's failures; a failing case (an exception included) does
+not stop the round. ``--only CASE ...`` runs only the cases named as the
+summary names them (a chip call of four cards costs four times its
+seconds: a repair is rerun on the cases it touches). It exits nonzero on any failure. Without four CUDA
+devices it exits nonzero before running anything.
 """
 from __future__ import annotations
 
+import argparse
+import collections
 import dataclasses
+import gc
 import json
+import math
 import os
 import subprocess
 import sys
 import tempfile
 import time
+import traceback
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-import torch
+# the full-width cells hold most of cuda:0: segments that grow in place keep
+# the caching allocator from pinning half-used blocks (chip_smoke.py does so)
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+
+import torch  # noqa: E402 (after the allocator's setting)
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
@@ -136,9 +171,9 @@ def driver(arch, ckpt_dir) -> bool:
 
 
 def driver_walls(arch, device, ckpt_dir) -> dict:
-    """The driver's printed step walls (ms) over 31 steps on ``device``."""
+    """The driver's printed step walls (ms) over 21 steps on ``device``."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch, "--steps", "31",
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch, "--steps", "21",
            "--ckpt-every", "1000", "--ckpt-dir", ckpt_dir, "--device", device]
     t0 = time.perf_counter()
     p = subprocess.run(cmd, capture_output=True, text=True, env=env, cwd=ROOT, timeout=900)
@@ -148,7 +183,96 @@ def driver_walls(arch, device, ckpt_dir) -> dict:
                 step_ms=walls, tail=(p.stdout + p.stderr)[-300:] if p.returncode else "")
 
 
+# (name, dense layers, layers, sequences, steps): the cuts of the full-width
+# cells over (1, 4) of the four cards (PERF.md section 4)
+LM_CELLS = (("deepseek-v2-236b", 1, 2, 2, 2), ("deepseek-v3-671b", 2, 3, 4, 2))
+
+
+def part_ptrs(model, state) -> dict:
+    """The data pointers of every resident part and optimizer statistic."""
+    from repro_torch.distributed.layout import Blocks
+    from repro_torch.train import param_leaves
+
+    out = {k: [p.data_ptr() for p in v.parts] for k, v in param_leaves(model).items()
+           if isinstance(v, Blocks)}
+    for name, sub in state.items():
+        if isinstance(sub, dict):
+            out.update({f"{name}:{k}": [p.data_ptr() for p in v.parts]
+                        for k, v in sub.items() if isinstance(v, Blocks)})
+    return out
+
+
+def parts_of(v) -> list:
+    from repro_torch.distributed.layout import Blocks
+
+    return v.parts if isinstance(v, Blocks) else [v]
+
+
+def leaf_sums(leaves) -> dict:
+    return {k: sum(float(p.detach().sum(dtype=torch.float64)) for p in parts_of(v))
+            for k, v in leaves.items()}
+
+
+def lm_mesh_cell(name, dense, layers, batch, steps, cards) -> bool:
+    """``name``'s train_4k at full width cut to ``dense`` dense layers of
+    ``layers`` and ``batch`` sequences over (1, 4) of the four cards."""
+    from repro_torch.archs import get_arch
+    from repro_torch.archs.lm import LMArch
+    from repro_torch.data import lm_batch
+    from repro_torch.train import param_leaves
+
+    base = get_arch(name)
+    cfg = dataclasses.replace(base.cfg, n_layers=layers, n_dense_layers=dense)
+    shapes = {"train_4k": dict(base.shapes["train_4k"], global_batch=batch)}
+    arch = LMArch(cfg, base.optimizer_name, shapes, base.grad_accum)
+    seq = shapes["train_4k"]["seq_len"]
+    cell = arch.make_cell("train_4k", mesh_of(cards, (1, 4)))
+    for c in cards:
+        torch.cuda.reset_peak_memory_stats(c)
+    t0 = time.perf_counter()
+    model, state, data = cell.make_inputs(0, cards[0])
+    for c in cards:
+        torch.cuda.synchronize(c)
+    init_s = time.perf_counter() - t0
+    leaves = param_leaves(model)
+    before, ptrs = leaf_sums(leaves), part_ptrs(model, state)
+    walls, losses = [], []
+    for step in range(steps):
+        if step:
+            data = lm_batch(0, step, batch, seq, cfg.vocab_size, device=cards[0])
+        t0 = time.perf_counter()
+        model, state, m = cell.fn(model, state, data)
+        for c in cards:
+            torch.cuda.synchronize(c)
+        walls.append(time.perf_counter() - t0)
+        losses.append({k: float(v) for k, v in m.items()})
+    after = leaf_sums(param_leaves(model))
+    unmoved = [k for k in leaves if after[k] == before[k]]
+    bf16 = [k for k in unmoved if leaves[k].dtype == torch.bfloat16]
+    silent = [k for k, v in state["m"].items() if not any(bool(p.any()) for p in parts_of(v))]
+    in_place = part_ptrs(model, state) == ptrs
+    finite = all(math.isfinite(v) for m in losses for v in m.values())
+    resident = [k for k in leaves if k.startswith("moe_layers.ffn.experts.")
+                and len(parts_of(leaves[k])) == 4]
+    ok = finite and in_place and not silent and len(resident) == 3 and unmoved == bf16
+    print("four_cards " + json.dumps(dict(
+        case=f"{name} train_4k", mesh=[1, 4], dense_layers=dense, moe_layers=layers - dense,
+        experts=cfg.n_experts, batch=batch, grad_accum=arch.grad_accum, seq=seq,
+        params=sum(math.prod(v.shape) for v in leaves.values()), init_s=init_s, step_s=walls,
+        step_s_warm=sum(walls[1:]) / max(len(walls) - 1, 1), metrics=losses,
+        peak_gb=[torch.cuda.max_memory_allocated(c) / 1e9 for c in cards],
+        resident_expert_leaves=resident, parts_in_place=in_place, unmoved_bf16=bf16,
+        unmoved_other=[k for k in unmoved if k not in bf16], first_moment_zero=silent,
+        ok=ok)), flush=True)
+    return ok
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--repeat", type=int, default=1, help="rounds of every case")
+    ap.add_argument("--only", nargs="+", metavar="CASE",
+                    help="run only these cases (the names the summary counts failures by)")
+    args = ap.parse_args()
     if torch.cuda.device_count() < 4:
         print(f"needs four CUDA devices; this machine has {torch.cuda.device_count()}",
               file=sys.stderr)
@@ -168,18 +292,8 @@ def main() -> int:
 
     build_all()
     cards = [torch.device("cuda", i) for i in range(4)]
-    ok = pq_scan_each_card(cards)
-    for name in RECSYS:
-        arch = get_arch(name)
-        ok &= compare(name, lambda mi, a=arch: a.make_cell("train_batch", mi), (2, 2), cards, 0,
-                      1e-3, lambda a=arch: shape_batch(a.cfg, "train_batch", 0, 1,
-                                                      shapes=a.shapes, device=cards[0]))
     base = get_arch("smoke-mla-moe")
     lm = LMArch(dataclasses.replace(base.cfg, router_aux_coef=0.01), "adamw", base.shapes)
-    for grid in ((1, 4), (2, 2)):
-        ok &= compare("smoke-mla-moe train_4k", lambda mi: lm.make_cell("train_4k", mi), grid,
-                      cards, 0, 3e-4,
-                      lambda: lm_batch(0, 1, 4, 32, lm.cfg.vocab_size, device=cards[0]))
     mace = get_arch("smoke-mace")
     cfg = dataclasses.replace(mace.cfg_for("ogb_products"), compute_dtype=torch.float32)
 
@@ -189,17 +303,64 @@ def main() -> int:
                                clip_norm=1.0)
         return dataclasses.replace(cell, fn=step)
 
-    ok &= compare("smoke-mace ogb_products (float32)", mace_cell, (1, 4), cards, 0, 1e-3,
-                  lambda: mace.batch("ogb_products", 0, 1, cards[0], mesh_of(cards, (1, 4))))
-    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
-        for arch in ("smoke-two-tower", "smoke-gqa"):
-            ok &= driver(arch, str(Path(tmp) / arch))
+    def drivers(tmp) -> bool:
+        with ThreadPoolExecutor(2) as pool:  # the two smoke drivers at once
+            runs = list(pool.map(lambda a: driver(a, str(Path(tmp) / a)),
+                                 ("smoke-two-tower", "smoke-gqa")))
+        return all(runs)
+
+    def deepfm(tmp) -> bool:
         runs = [driver_walls("deepfm", d, str(Path(tmp) / f"deepfm-{d}"))
                 for d in ("cuda", "cuda:0")]
-        ok &= all(r["returncode"] == 0 for r in runs)
         print("four_cards " + json.dumps(dict(case="driver deepfm, (4, 1) mesh against one card",
                                               runs=runs)), flush=True)
-    print(json.dumps({"four_cards_ok": bool(ok)}), flush=True)
+        return all(r["returncode"] == 0 for r in runs)
+
+    cases = [("pq_adc", lambda tmp: pq_scan_each_card(cards))]
+    for name in RECSYS:
+        arch = get_arch(name)
+        cases.append((name, lambda tmp, a=arch: compare(
+            a.name, lambda mi: a.make_cell("train_batch", mi), (2, 2), cards, 0, 1e-3,
+            lambda: shape_batch(a.cfg, "train_batch", 0, 1, shapes=a.shapes, device=cards[0]))))
+    for grid in ((1, 4), (2, 2)):
+        cases.append((f"smoke-mla-moe {grid}", lambda tmp, g=grid: compare(
+            "smoke-mla-moe train_4k", lambda mi: lm.make_cell("train_4k", mi), g, cards, 0,
+            3e-4, lambda: lm_batch(0, 1, 4, 32, lm.cfg.vocab_size, device=cards[0]))))
+    cases.append(("smoke-mace", lambda tmp: compare(
+        "smoke-mace ogb_products (float32)", mace_cell, (1, 4), cards, 0, 1e-3,
+        lambda: mace.batch("ogb_products", 0, 1, cards[0], mesh_of(cards, (1, 4))))))
+    for cut in LM_CELLS:
+        cases.append((cut[0], lambda tmp, c=cut: lm_mesh_cell(*c, cards)))
+    cases += [("drivers", drivers), ("driver deepfm", deepfm)]
+    if args.only:
+        unknown = set(args.only) - {name for name, _ in cases}
+        if unknown:
+            print(f"unknown cases {sorted(unknown)}", file=sys.stderr)
+            return 2
+        cases = [(name, run) for name, run in cases if name in args.only]
+
+    failed = collections.Counter()
+    for r in range(args.repeat):
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            for name, run in cases:
+                try:
+                    ok = run(tmp)
+                except Exception:  # a failing case is counted; the round goes on
+                    print(f"four_cards case {name} raised:\n{traceback.format_exc()}",
+                          flush=True)
+                    ok = False
+                failed[name] += not ok
+                gc.collect()
+                for c in cards:
+                    with torch.cuda.device(c):
+                        torch.cuda.empty_cache()
+        print("four_cards " + json.dumps(dict(round=r + 1, of=args.repeat,
+                                              round_s=time.perf_counter() - t0,
+                                              failed_so_far=dict(failed))), flush=True)
+    ok = not sum(failed.values())
+    print(json.dumps({"four_cards_ok": ok, "rounds": args.repeat,
+                      "failures": {name: failed[name] for name, _ in cases}}), flush=True)
     return 0 if ok else 1
 
 
