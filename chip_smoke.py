@@ -184,9 +184,11 @@ Phases, any failure exits non-zero:
      cell over a (2, 2) mesh of the card against its one-device step by
      train.parity, with each position's table bytes (`train_mesh {...}`);
      deepseek-v2-236b's train_4k at phase 10's cut over a (1, 4) mesh of
-     the card, the MoE's expert-parallel backward with the experts four
-     resident parts updated in place (no expert weight moves), beside
-     phase 10's row (`lm_train {...}`). One card holds only a mesh that repeats cuda:0:
+     the card, every leaf resident as its blocks (the experts, attention,
+     the feed-forwards, the embedding and the head four parts, the norms
+     and the router replicas) and updated in place, tensor-parallel, with
+     no weight moved and the step's all-reduces counted, beside phase 10's
+     row (`lm_train {...}`). One card holds only a mesh that repeats cuda:0:
      the phase checks layouts and numerics, not multi-card speed. The
      launch counts read after phases 10-12 must be 0.
 
@@ -4397,9 +4399,10 @@ def mace_phase(args, dev) -> None:
 # phase 8's dlrm-mlperf cell (tables capped at TRAIN_VOCAB_CAP rows) over a
 # (2, 2) mesh of the card against its one-device step. 12c: phase 10's
 # deepseek-v2-236b train_4k cut (1 + 1 layers, all 160 experts, B 2,
-# Adafactor, grad_accum 2) over a (1, 4) mesh of the card: the MoE's
-# expert-parallel backward, 40 experts a shard, each shard's experts a
-# resident part with its Adafactor state. One card can only hold a
+# Adafactor, grad_accum 2) over a (1, 4) mesh of the card: every leaf a
+# resident part a position (40 experts a shard, 32 heads, a quarter of the
+# feed-forward columns and of the vocabulary) or a replica (the norms, the
+# router) with its Adafactor state, the step tensor-parallel. One card can only hold a
 # mesh that repeats cuda:0, so this phase checks layouts and numerics, not
 # multi-card memory or speed.
 DRIVER_ARCH, DRIVER_STEPS, DRIVER_EVERY, DRIVER_KILL_AT = "deepfm", 12, 4, 8
@@ -4660,9 +4663,10 @@ def dlrm_mesh_part(args, dev) -> None:
     log_memory("after phase 12b")
 
 
-def expert_part_ptrs(model, state) -> dict:
+def resident_part_ptrs(model, state) -> dict:
     """{leaf: the data pointers of its resident parts and of each of its
-    optimizer statistics' parts}: the experts and their Adafactor state."""
+    optimizer statistics' parts}: every resident leaf and its Adafactor
+    state."""
     from repro_torch.distributed.layout import Blocks
     from repro_torch.train import param_leaves
 
@@ -4675,19 +4679,21 @@ def expert_part_ptrs(model, state) -> dict:
     return out
 
 
-# 12c's rows from before the experts were resident (PERF.md section 5, on
-# an H100 at 700 W): the (1, 4) step with the experts whole and copied to
-# each shard, and phase 10's one-device step of the same cut
+# 12c's rows from before any leaf was resident (PERF.md section 5, on an
+# H100 at 700 W): the (1, 4) step with the experts whole and copied to each
+# shard, and phase 10's one-device step of the same cut
 EXPERTS_WHOLE_P1X4_STEP_S_WARM, EXPERTS_WHOLE_ONE_DEVICE_STEP_S_WARM = 1.889, 1.908
 
 
 def moe_mesh_part(args, dev) -> None:
     """12c: deepseek-v2-236b's train_4k at phase 10's cut over a (1, 4) mesh
-    of the card, its MoE layer's experts resident as four parts and updated
-    there by Adafactor: finite losses, every leaf moved (but the bf16 leaves
-    whose update rounds away), every expert part and Adafactor statistic in
-    its storage after the steps, no expert weight moved (the tally holds no
-    all-gather or reduce-scatter), beside phase 10's one-device row and the
+    of the card, every leaf resident (``param_specs``' blocks, four parts or
+    four replicas) and updated there by Adafactor, the step tensor-parallel:
+    finite losses, every leaf moved (but the bf16 leaves whose update rounds
+    away), every part and Adafactor statistic in its storage after the
+    steps, no weight moved (the tally's weight moves: no all-gather or
+    reduce-scatter of a parameter, as the data axis has one position), the
+    step's all-reduces counted, beside phase 10's one-device row and the
     earlier runs' rows with the experts whole."""
     import dataclasses
 
@@ -4696,6 +4702,7 @@ def moe_mesh_part(args, dev) -> None:
     from repro_torch.data import lm_batch
     from repro_torch.distributed import MeshInfo
     from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.transformer.model import param_specs
     from repro_torch.roofline import collectives
 
     name, layers, b, steps = next(c for c in LM_TRAIN_CELLS if c[0] == MOE_MESH_ARCH)
@@ -4710,18 +4717,19 @@ def moe_mesh_part(args, dev) -> None:
 
     def make_inputs(seed, device):
         model, state, batch = cell.make_inputs(seed, device)
-        held.update(model=model, state=state, ptrs=expert_part_ptrs(model, state))
+        held.update(model=model, state=state, ptrs=resident_part_ptrs(model, state))
         return model, state, batch
 
     with collectives.tally() as tally:
         row, unmoved = train_cell_run(
             dataclasses.replace(cell, make_inputs=make_inputs), dev, args.seed, steps,
             lambda step: lm_batch(args.seed, step, b, s, cfg.vocab_size, device=dev))
-    ptrs = expert_part_ptrs(held["model"], held["state"])
+    ptrs = resident_part_ptrs(held["model"], held["state"])
     in_place = ptrs == held["ptrs"]
-    moved = {k: n for k, n in tally.result()["per_op_counts"].items()
-             if k in ("all-gather", "reduce-scatter")}
+    moved = dict(tally.weight_counts)
+    counts = tally.result()["per_op_counts"]
     held.clear()
+    leaves = len(param_specs(cfg, mi))
     one = LM_TRAIN_ROWS.get(name, {})
     row = dict(cell=f"train_4k_{name}_p1x4", card=args.card, mesh=[1, 4],
                experts_per_shard=cfg.n_experts // 4, layers=cfg.n_layers, batch=b, seq=s,
@@ -4731,15 +4739,17 @@ def moe_mesh_part(args, dev) -> None:
                one_device_peak_gb=one.get("peak_gb"),
                experts_whole_p1x4_step_s_warm=EXPERTS_WHOLE_P1X4_STEP_S_WARM,
                experts_whole_one_device_step_s_warm=EXPERTS_WHOLE_ONE_DEVICE_STEP_S_WARM,
-               resident_leaves=len([k for k in ptrs if ":" not in k]),
-               resident_parts_in_place=in_place, expert_moves=moved, **row)
+               resident_leaves=len([k for k in ptrs if ":" not in k]), cell_leaves=leaves,
+               resident_parts_in_place=in_place, weight_moves=moved,
+               all_reduces=counts.get("all-reduce", 0), all_gathers=counts.get("all-gather", 0),
+               **row)
     log(f"lm_train {json.dumps(row)}")
     check_train_row(f"lm_train {name} over (1, 4)", row, unmoved)
-    check(row["resident_leaves"] == 3, f"lm_train {name} over (1, 4): "
-          f"{row['resident_leaves']} resident leaves, expected the experts' w1, w3 and w2")
-    check(in_place, f"lm_train {name} over (1, 4): an expert part or its optimizer state left "
+    check(row["resident_leaves"] == leaves, f"lm_train {name} over (1, 4): "
+          f"{row['resident_leaves']} resident leaves of the cell's {leaves}")
+    check(in_place, f"lm_train {name} over (1, 4): a resident part or its optimizer state left "
                     f"its storage")
-    check(not moved, f"lm_train {name} over (1, 4): expert weights moved: {moved}")
+    check(not moved, f"lm_train {name} over (1, 4): weights moved: {moved}")
     log_memory("after phase 12c")
 
 

@@ -10,10 +10,11 @@ arch's ``grad_accum`` microbatches, on one device or over a mesh: there
 the MoE runs its expert-parallel branch, forward and backward, each data
 group computing its own capacity as the reference's ``shard_map`` does,
 and the cell's ``specs`` give the reference's parameter layout
-(``model.param_specs``). Over a mesh the routed experts are resident as
-their blocks from ``make_inputs`` on (or from a whole model's first
-step: ``model.make_resident``), and so are their gradients and the
-optimizer's state of them.
+(``model.param_specs``). Over a mesh every leaf is resident as its blocks
+from ``make_inputs`` on (or from a whole model's first step:
+``model.make_resident``), and so are its gradient and the optimizer's
+state of it; attention, the feed-forwards and the vocabulary run
+tensor-parallel over the model axis.
 
 prefill_32k runs the full sequence and returns the last position's
 logits. decode_32k and long_500k run one decode step: one new token a
@@ -110,7 +111,7 @@ class LMArch(Arch):
 
             def train_step(model, opt_state, batch, **kw):
                 # a model built whole (a checkpoint's, the reference's) turns
-                # its experts resident at its first step over the mesh
+                # resident at its first step over the mesh
                 return step(tm.make_resident(model, mesh), opt_state, batch, **kw)
 
             return CellSpec(name=name, kind="train", fn=train_step if mesh else step,

@@ -15,22 +15,25 @@ Positions that a spec does not split over hold the same block, as the
 reference replicates it. ``grouped`` arranges ``place``'s blocks as
 ``DeviceMesh.groups`` arranges the devices.
 
-Over a mesh of more than one position a train cell holds some leaves as
+Over a mesh of more than one position a train cell holds leaves as
 their blocks (``Blocks`` of a ``BlockLayout``: one part for each distinct
 block on each device), each part a parameter of a ``Resident`` module on
 its position from the cell's construction (``make_resident``): the recsys
-tables (``models/recsys/models.py``), the LM's routed experts
-(``models/transformer/model.py``) and MACE's parameters, one replica a
-device (``models/gnn/distributed.py``). A stacked layer list's leaf is
-resident as the (L, ...) blocks of its stacked spec, each layer reading
-its rows of them. The step reads the parts in place, their gradients and
-optimizer state are ``Blocks`` of the same layout (``train/train_step.py``),
-and a block held on several devices gets the sum of its replicas'
-gradients. The other parameters stay whole on the model's device.
-``place`` and ``gather`` also carry a checkpoint onto a mesh and back
-(``ckpt.checkpoint``). ``place`` splits the tensor dimension by dimension
-(``Tensor.split``), so the gradients of all its blocks reach the tensor
-as one tensor of its shape.
+tables (``models/recsys/models.py``), every leaf of the LM
+(``models/transformer/model.py``; its ``P(None)`` leaves one replica a
+device) and MACE's parameters, one replica a device
+(``models/gnn/distributed.py``). A stacked layer list's leaf is resident
+as the (L, ...) blocks of its stacked spec, each layer reading its rows of
+them. The step reads the parts in place (``tensor_parallel.py`` gathers a
+model shard over the data positions where those split it, and runs the
+positions one device holds as one batched call), their
+gradients and optimizer state are ``Blocks`` of the same layout
+(``train/train_step.py``), and a block held on several devices gets the
+sum of its replicas' gradients. The recsys dense MLPs stay whole on the
+model's device. ``place`` and ``gather`` also carry a checkpoint onto a
+mesh and back (``ckpt.checkpoint``). ``place`` splits the tensor
+dimension by dimension (``Tensor.split``), so the gradients of all its
+blocks reach the tensor as one tensor of its shape.
 """
 from __future__ import annotations
 
@@ -143,7 +146,7 @@ def gather(blocks: Sequence[torch.Tensor], spec: Spec, mesh, shape: Sequence[int
     out = torch.empty(tuple(shape), dtype=blocks[0].dtype, device=blocks[0].device)
     for pos, blk in enumerate(blocks):
         out[_block_slices(shape, spec, m, pos)] = blk.to(out.device)
-    collectives.record("all-gather", out)
+    collectives.record("all-gather", out, weights=True)
     return out
 
 
@@ -354,6 +357,12 @@ class Resident(nn.Module):
         reported any."""
         rows, self._rows = self._rows, None
         return None if rows is None else {i: torch.cat(r) for i, r in rows.items()}
+
+
+def whole_leaves(model: nn.Module) -> list:
+    """The names of ``model``'s parameters that no ``Resident`` holds."""
+    resident = {k for k, m in model.named_modules() if isinstance(m, Resident)}
+    return [k for k, _ in model.named_parameters() if k.rsplit(".", 2)[0] not in resident]
 
 
 def _rebind(parent: nn.Module, leaf: str, module: nn.Module) -> None:

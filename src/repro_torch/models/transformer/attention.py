@@ -75,24 +75,122 @@ def gqa_specs(cfg, mi) -> dict:
             "wo": {"w": (tp, fs)}}
 
 
+def gqa_project(ap: GQAttention, x):
+    """x (B, S, D) -> the q, k, v products (B, S, H dh), (B, S, Hkv dh) twice."""
+    return ap.wq(x), ap.wk(x), ap.wv(x)
+
+
+def gqa_heads(cfg, q, k, v, positions):
+    """The products (N, S, heads dh) -> (N, S, heads, dh) each, RoPE applied
+    to q and k."""
+    q, k, v = (t.reshape(t.shape[0], t.shape[1], -1, cfg.head_dim) for t in (q, k, v))
+    return apply_rope(q, positions, cfg.rope_theta), apply_rope(k, positions, cfg.rope_theta), v
+
+
 def gqa_qkv(ap: GQAttention, cfg, x, positions):
     """x (B, S, D) -> q (B, S, H, dh), k / v (B, S, Hkv, dh), RoPE applied to
     q and k."""
-    b, s, _ = x.shape
-    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = ap.wq(x).reshape(b, s, h, dh)
-    k = ap.wk(x).reshape(b, s, hkv, dh)
-    v = ap.wv(x).reshape(b, s, hkv, dh)
-    return apply_rope(q, positions, cfg.rope_theta), apply_rope(k, positions, cfg.rope_theta), v
+    return gqa_heads(cfg, *gqa_project(ap, x), positions)
 
 
 def gqa_train(ap: GQAttention, cfg, x, positions):
     """The prefill / training path: causal chunked attention with chunk
     ``cfg.attn_chunk``, then ``wo`` -> (B, S, D)."""
-    b, s, _ = x.shape
     q, k, v = gqa_qkv(ap, cfg, x, positions)
     out = chunked_attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
-    return ap.wo(out.reshape(b, s, cfg.n_heads * cfg.head_dim))
+    return ap.wo(out.flatten(-2))
+
+
+def _head_span(m: int, tp: int, h: int, d: int) -> tuple:
+    """Model position m's block of an (H d)-wide head-major activation split
+    ``tp`` ways: (its first head, one past its last, the block's first
+    column within those heads' columns, its width)."""
+    width = h * d // tp
+    lo = m * width
+    first = lo // d
+    return first, -(-(lo + width) // d), lo - first * d, width
+
+
+def _position_heads(grid, i: int, h: int, d: int, group: int, device):
+    """The heads each model position of part i attends where the model
+    axis does not divide the heads: those that its block of ``wo``'s rows
+    (of width d a head) reads, padded to one count (the last head
+    repeated). -> (q heads (Mp, n); kv heads (Mp, nkv), q head j reading
+    kv head j // (n / nkv), where ``group`` q heads read one kv head; the
+    columns (Mp, width) of the n heads' outputs that its block reads), made
+    on ``device`` (no copy from the host to wait for)."""
+    spans = [_head_span(m, grid.tp, h, d) for m in grid.parts[i].ms]
+    n = max(last - first for first, last, _, _ in spans)
+    width = spans[0][3]
+    lo = grid.model_index(i, device) * width
+    first = lo // d
+    q = torch.clamp(first[:, None] + torch.arange(n, device=device), max=h - 1)
+    cols = (lo - first * d)[:, None] + torch.arange(width, device=device)
+    rows = [[min(f + j, h - 1) // group for j in range(n)] for f, _, _, _ in spans]
+    per = [list(dict.fromkeys(r)) for r in rows]
+    nkv = len(per[0])
+    if all(len(r) == nkv for r in per) and n % nkv == 0 and all(
+            [x for x in r for _ in range(n // nkv)] == row for r, row in zip(per, rows)):
+        kv = (first // group)[:, None] + torch.arange(nkv, device=device)  # whole groups
+    else:
+        kv = q // group  # one kv head a q head
+    return q, kv, cols
+
+
+def _select(grid, i: int, t, idx):
+    """Part i's group value (G B, S, H, d) -> its position value (G M B, S,
+    n, d) of each position's heads ``idx`` (Mp, n)."""
+    p = grid.parts[i]
+    g, s, d = len(p.gs), t.shape[1], t.shape[-1]
+    mp, n = idx.shape
+    sel = t.index_select(2, idx.reshape(-1))
+    return sel.reshape(g, -1, s, mp, n, d).permute(0, 3, 1, 2, 4, 5).reshape(-1, s, n, d)
+
+
+def _columns(grid, i: int, o, cols):
+    """Part i's position value (G M B, S, c) -> each position's ``cols``
+    (Mp, width) of it."""
+    p = grid.parts[i]
+    g, mp, s = len(p.gs), len(p.ms), o.shape[1]
+    o = o.reshape(g, mp, -1, s, o.shape[-1])
+    idx = cols.reshape(1, mp, 1, 1, -1).expand(g, mp, o.shape[2], s, -1)
+    return torch.gather(o, -1, idx).reshape(-1, s, cols.shape[1])
+
+
+def gqa_train_tp(views, cfg, hs, grid) -> list:
+    """``gqa_train`` over a mesh, tensor-parallel: ``views`` the block as
+    each part of ``grid`` holds it (``tensor_parallel.Grid.views``), ``hs``
+    the normed inputs (a group value) -> the output (a group value).
+    ``wq`` / ``wk`` / ``wv`` are column-parallel, so a position holds H /
+    tp heads; where tp does not divide the heads (or the kv heads) their
+    blocks are gathered over the model positions first, and a position
+    attends with the heads that its block of ``wo``'s rows reads. ``wo``
+    is row-parallel."""
+    tp, h, hkv, dh = grid.tp, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = (list(t) for t in zip(*grid.each(gqa_project, views, hs)))
+    split_q = h % tp == 0
+    split_kv = split_q and hkv % tp == 0
+    if not split_q:
+        q = grid.gather(q)
+    if not split_kv:
+        k, v = grid.gather(k), grid.gather(v)
+    out = []
+    for i, ap in enumerate(views):
+        positions = torch.arange(hs[i].shape[1], device=hs[i].device)
+        qi, ki, vi = gqa_heads(cfg, q[i], k[i], v[i], positions)
+        cols = None
+        if not split_kv:
+            qh, kvh, cols = _position_heads(grid, i, h, dh, h // hkv, qi.device)
+            ki, vi = _select(grid, i, ki, kvh), _select(grid, i, vi, kvh)
+            if split_q:  # q holds each position's heads already
+                cols = None
+            else:
+                qi = _select(grid, i, qi, qh)
+        o = chunked_attention(qi, ki, vi, causal=True, chunk=cfg.attn_chunk).flatten(-2)
+        if cols is not None:
+            o = _columns(grid, i, o, cols)
+        out.append(ap.wo(o))
+    return grid.row_sum(out)
 
 
 # ---------------------------------------------------------------------------
@@ -257,42 +355,94 @@ def mla_specs(cfg, mi) -> dict:
     return p
 
 
+def _mla_q_heads(cfg, q):
+    """The q product (N, S, heads (dn + dr)) -> q_nope (N, S, heads, dn),
+    q_rope (N, S, heads, dr), RoPE not yet applied."""
+    q = q.reshape(q.shape[0], q.shape[1], -1, cfg.d_nope + cfg.d_rope)
+    return q[..., : cfg.d_nope], q[..., cfg.d_nope :]
+
+
 def _mla_q(ap: MLAttention, cfg, x):
     """(B, S, D) -> q_nope (B, S, H, dn), q_rope (B, S, H, dr), RoPE not yet
     applied."""
-    b, s, _ = x.shape
     if cfg.q_lora_rank:
-        q = ap.wq_b(ap.q_norm(ap.wq_a(x)))
-    else:
-        q = ap.wq(x)
-    q = q.reshape(b, s, cfg.n_heads, cfg.d_nope + cfg.d_rope)
-    return q[..., : cfg.d_nope], q[..., cfg.d_nope :]
+        return _mla_q_heads(cfg, ap.wq_b(ap.q_norm(ap.wq_a(x))))
+    return _mla_q_heads(cfg, ap.wq(x))
+
+
+def _mla_kv_split(ap: MLAttention, cfg, kv):
+    """The wkv_a product (N, S, r + dr) -> c_kv (N, S, r) normalised, k_rope
+    (N, S, dr) (no RoPE yet)."""
+    r = cfg.kv_lora_rank
+    return ap.kv_norm(kv[..., :r]), kv[..., r:]
 
 
 def _mla_kv_latent(ap: MLAttention, cfg, x):
     """(B, S, D) -> c_kv (B, S, r) normalised, k_rope (B, S, dr) (no RoPE
     yet)."""
-    r = cfg.kv_lora_rank
-    kv = ap.wkv_a(x)
-    return ap.kv_norm(kv[..., :r]), kv[..., r:]
+    return _mla_kv_split(ap, cfg, ap.wkv_a(x))
+
+
+def _mla_attend(cfg, q_nope, q_rope, kv, k_rope, positions):
+    """q = [q_nope ; RoPE(q_rope)], k = [k_nope ; RoPE(k_rope) broadcast over
+    the heads], v of width d_v (kv (N, S, heads, dn + dv) the wkv_b
+    product's heads, k_rope (N, S, dr)): causal chunked attention with
+    chunk ``cfg.attn_chunk`` -> (N, S, heads, dv)."""
+    n, s, heads = q_nope.shape[:3]
+    dn, dr = cfg.d_nope, cfg.d_rope
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    k_rope = apply_rope(k_rope[..., None, :], positions, cfg.rope_theta)  # (N, S, 1, dr)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([kv[..., :dn], k_rope.expand(n, s, heads, dr)], dim=-1)
+    return chunked_attention(q, k, kv[..., dn:], causal=True, chunk=cfg.attn_chunk)
 
 
 def mla_train(ap: MLAttention, cfg, x, positions):
-    """The expanded (not absorbed) MLA of prefill / training: q = [q_nope ;
-    RoPE(q_rope)], k = [k_nope ; RoPE(k_rope) broadcast over the heads], v
-    of width d_v, causal chunked attention with chunk ``cfg.attn_chunk``,
-    then ``wo`` -> (B, S, D)."""
+    """The expanded (not absorbed) MLA of prefill / training
+    (``_mla_attend``), then ``wo`` -> (B, S, D)."""
     b, s, _ = x.shape
-    h, dn, dr, dv = cfg.n_heads, cfg.d_nope, cfg.d_rope, cfg.d_v
     q_nope, q_rope = _mla_q(ap, cfg, x)
-    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     c_kv, k_rope = _mla_kv_latent(ap, cfg, x)
-    k_rope = apply_rope(k_rope[..., None, :], positions, cfg.rope_theta)  # (B, S, 1, dr)
-    kv = ap.wkv_b(c_kv).reshape(b, s, h, dn + dv)
-    q = torch.cat([q_nope, q_rope], dim=-1)
-    k = torch.cat([kv[..., :dn], k_rope.expand(b, s, h, dr)], dim=-1)
-    out = chunked_attention(q, k, kv[..., dn:], causal=True, chunk=cfg.attn_chunk)
-    return ap.wo(out.reshape(b, s, h * dv))
+    kv = ap.wkv_b(c_kv).reshape(b, s, cfg.n_heads, cfg.d_nope + cfg.d_v)
+    return ap.wo(_mla_attend(cfg, q_nope, q_rope, kv, k_rope, positions).flatten(-2))
+
+
+def mla_train_tp(views, cfg, hs, grid) -> list:
+    """``mla_train`` over a mesh, tensor-parallel (``gqa_train_tp``'s
+    arguments). ``wq_a`` and ``wkv_a`` are column-parallel and their
+    outputs gathered over the model positions before ``q_norm`` /
+    ``kv_norm``, which need the whole rank (``wkv_a``'s r + dr columns split
+    across the r / dr boundary); ``wq_b`` (or ``wq``) and ``wkv_b`` are
+    column-parallel, so a position holds H / tp heads (gathered where tp
+    does not divide H, each position then taking the heads its block of
+    ``wo``'s rows reads); ``wo`` is row-parallel."""
+    h, dn, dv = cfg.n_heads, cfg.d_nope, cfg.d_v
+    if cfg.q_lora_rank:
+        a = grid.gather(grid.each(lambda ap, x: ap.wq_a(x), views, hs))
+        q = grid.each(lambda ap, x: ap.wq_b(ap.q_norm(x)), views, a)
+    else:
+        q = grid.each(lambda ap, x: ap.wq(x), views, hs)
+    lat = grid.each(lambda ap, x: _mla_kv_split(ap, cfg, x), views,
+                    grid.gather(grid.each(lambda ap, x: ap.wkv_a(x), views, hs)))
+    kv = grid.each(lambda ap, c: ap.wkv_b(c[0]), views, lat)
+    split = h % grid.tp == 0
+    if not split:
+        q, kv = grid.gather(q), grid.gather(kv)
+    out = []
+    for i, ap in enumerate(views):
+        s = hs[i].shape[1]
+        positions = torch.arange(s, device=hs[i].device)
+        q_nope, q_rope = _mla_q_heads(cfg, q[i])
+        kvi = kv[i].reshape(kv[i].shape[0], s, -1, dn + dv)
+        if not split:
+            heads, _, cols = _position_heads(grid, i, h, dv, 1, q_nope.device)
+            q_nope, q_rope, kvi = (_select(grid, i, t, heads) for t in (q_nope, q_rope, kvi))
+        o = _mla_attend(cfg, q_nope, q_rope, kvi, grid.spread(i, lat[i][1]), positions)
+        o = o.flatten(-2)
+        if not split:
+            o = _columns(grid, i, o, cols)
+        out.append(ap.wo(o))
+    return grid.row_sum(out)
 
 
 def _mla_partial(q_eff, q_rope, entry, c_cache, pos, shard_idx: int, r: int, scale: float):

@@ -37,18 +37,32 @@ branch (``moe.py``). A mesh whose model axis is 1 runs the one-device
 path, as the reference's does.
 
 Training (``lm_loss``) runs on one device or over a mesh. Over a mesh of
-more than one position whose model axis divides E, the routed experts of
-every MoE layer are resident as their blocks (``make_resident``: the
-stacked (L, E, D, Fe) / (L, E, Fe, D) leaves by ``moe_specs`` with a
-leading whole layer axis), and ``lm_loss`` refuses a model whose experts
-are whole there; the other parameters stay whole on the model's device.
+more than one position every leaf is resident as the reference's blocks
+(``make_resident``, by ``param_specs``: the (fs, tp) and (tp, fs) products,
+the embedding (tp, fs), ``lm_head`` and MTP's ``proj`` (fs, tp), the
+experts by ``moe_specs``; the norms' scales and the router one replica a
+device; stacked layer lists with a leading whole layer axis), and
+``lm_loss`` refuses a model with a whole leaf there. The step then runs
+tensor-parallel (``distributed/tensor_parallel.py``): each data group on
+its own row of devices, the residual stream whole on each model position
+of a group, each position computing its own heads (``attention.py``), its
+own feed-forward columns (the dense FFN and the shared experts: ``w1`` /
+``w3`` column-parallel, ``w2`` row-parallel), its own experts
+(``moe.py``) and its own vocabulary block (the embedding's rows, summed
+over the positions; the cross-entropy's logits, combined by the
+log-sum-exp rule). The positions that one device holds (a mesh that
+repeats a device) run as one batched call: a dense model's step over a
+(g, 1) mesh of one device is one device's, bit for bit. ``prefill_logits``
+takes the same path on a resident model; ``decode_step`` serves whole
+parameters only.
 ``cfg.remat`` rematerialises
 each layer and each cross-entropy chunk in the backward where autograd
 records (``"full"``: nothing saved; ``"dots"``: the products without
 batch dimensions saved; ``"none"``: everything saved), as the reference's
 ``jax.checkpoint`` policies do; the serving paths run under
 ``inference_mode`` and never checkpoint. ``sequence_parallel`` shapes the
-reference's layouts and does nothing here.
+reference's layouts and does nothing here: the residual stream is whole on
+every model position of a group.
 """
 from __future__ import annotations
 
@@ -58,6 +72,7 @@ import itertools
 from typing import Any, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import (
     CheckpointPolicy,
@@ -77,8 +92,17 @@ from repro_torch.models.common.modules import (
 from repro_torch.models.recsys.models import fill_normal_
 from repro_torch.models.transformer import attention as attn
 from repro_torch.distributed import layout
+from repro_torch.distributed import tensor_parallel as tpar
 from repro_torch.distributed.layout import Resident, flat_specs, stacked
-from repro_torch.models.transformer.moe import MoE, SwiGLU, moe_specs, router_aux_loss
+from repro_torch.distributed.meshinfo import sum_in_order
+from repro_torch.models.transformer.moe import (
+    MoE,
+    SwiGLU,
+    aux_of_probs,
+    moe_ffn_tp,
+    moe_specs,
+    router_aux_loss,
+)
 from repro_torch.roofline import collectives
 
 
@@ -262,39 +286,46 @@ def param_specs(cfg: TransformerConfig, mi) -> dict:
     return flat_specs(p)
 
 
-EXPERTS = ("w1", "w3", "w2")
-
-
-def resident_expert_names(cfg: TransformerConfig, mi) -> list:
-    """The routed experts' leaves that a train step over ``mi`` holds as
-    their blocks: every MoE layer's, where ``mi`` has more than one position
-    and its axes divide the experts as ``moe_specs`` splits them (E over the
-    model axis, d_model over the data axes); else none."""
-    if mi is None or len(mi.mesh.devices) == 1 or not cfg.n_moe:
+def resident_names(cfg: TransformerConfig, mi) -> list:
+    """The leaves that a train step over ``mi`` holds as their blocks: every
+    leaf of ``param_specs`` where ``mi`` has more than one position, else
+    none."""
+    if mi is None or len(mi.mesh.devices) == 1:
         return []
-    if cfg.n_experts % mi.tp_size or cfg.d_model % mi.dp_size:
-        return []
-    return [f"moe_layers.ffn.experts.{w}" for w in EXPERTS]
+    return list(param_specs(cfg, mi))
 
 
 def make_resident(model: Transformer, mi) -> Transformer:
-    """Over ``mi``, the routed experts of every MoE layer become resident as
-    their blocks (``resident_expert_names``), in place, and their whole
-    tensors are let go; experts already resident, or none to make so, leave
-    the model as it is."""
-    names = resident_expert_names(model.cfg, mi)
+    """Over ``mi``, every leaf of the model becomes resident as its blocks
+    (``resident_names``), in place, and its whole tensor is let go; a leaf
+    already resident is left as it is. A dimension that the mesh does not
+    divide raises (``layout.shard_shape``)."""
+    names = resident_names(model.cfg, mi)
     if names:
         layout.make_resident(model, param_specs(model.cfg, mi), mi, names)
     return model
 
 
-def _check_experts(model: Transformer, mi) -> None:
-    """A step over ``mi`` reads the experts as blocks where its layout says
-    so: whole experts there raise (they are never copied quietly)."""
-    if resident_expert_names(model.cfg, mi) and not all(
-            isinstance(lp.ffn.experts.w1, Resident) for lp in model.moe_layers):
-        raise ValueError("the experts are whole over a mesh whose layout holds them as blocks: "
-                         "make them resident first (models.transformer.model.make_resident)")
+def _check_layout(model: Transformer, mi) -> None:
+    """A train step over a mesh of more than one position reads every leaf
+    as its blocks: a whole leaf there raises (it is never copied
+    quietly)."""
+    if resident_names(model.cfg, mi):
+        whole = layout.whole_leaves(model)
+        if whole:
+            raise ValueError(f"{len(whole)} leaves ({whole[0]}, ...) are whole over a mesh whose "
+                             f"layout holds them as blocks: make the model resident first "
+                             f"(models.transformer.model.make_resident)")
+
+
+def _resident(model: Transformer, mi) -> bool:
+    """Whether ``model`` is resident (the mesh path); it must be resident on
+    ``mi``'s mesh."""
+    if not isinstance(model.embed.table, Resident):
+        return False
+    if mi is None or model.embed.table.layout.mesh != mi.mesh:
+        raise ValueError("a resident model runs over the mesh it was laid out on")
+    return True
 
 
 def _layer_apply(cfg: TransformerConfig, lp: Layer, x, positions, mi):
@@ -328,8 +359,13 @@ def _remat(cfg: TransformerConfig, fn, *args):
 
 def forward_hidden(model: Transformer, tokens, mi=None):
     """tokens (B, S) int32 -> hidden states (B, S, D) in the compute dtype.
-    ``mi`` (a ``MeshInfo``) decides the MoE's branch."""
+    ``mi`` (a ``MeshInfo``) decides the MoE's branch; a resident model runs
+    over it tensor-parallel (``_hidden_tp``), its groups' rows joined on the
+    mesh's first device."""
     cfg = model.cfg
+    if _resident(model, mi):
+        grid = _grid(tokens, mi)
+        return grid.join_groups(_hidden_tp(model, tokens, grid))
     x = model.embed.table[tokens.long()].to(cfg.compute_dtype)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     for lp in model.layers():
@@ -337,12 +373,17 @@ def forward_hidden(model: Transformer, tokens, mi=None):
     return model.final_norm(x)
 
 
+def _ce_terms(logits, labels):
+    """Each token's float32 logsumexp - label logit of its whole-vocabulary
+    ``logits``."""
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]  # the masked max's value
+    return torch.logsumexp(logits, dim=-1) - ll
+
+
 def _ce_chunk(lm_head: nn.Module, hc, lc, wc):
     """sum((logsumexp - label logit) * w) over one chunk, float32: the logits
     ``hc @ lm_head`` in the compute dtype, then float32."""
-    logits = lm_head(hc).float()
-    ll = torch.gather(logits, -1, lc.long()[..., None])[..., 0]  # the masked max's value
-    return ((torch.logsumexp(logits, dim=-1) - ll) * wc).sum()
+    return (_ce_terms(lm_head(hc).float(), lc) * wc).sum()
 
 
 def _chunked_ce(cfg: TransformerConfig, h, lm_head: nn.Module, labels, weights):
@@ -351,9 +392,7 @@ def _chunked_ce(cfg: TransformerConfig, h, lm_head: nn.Module, labels, weights):
     float32 in chunk order; each chunk under ``cfg.remat``'s checkpoint, so
     its float32 logits live one chunk at a time in the backward too."""
     s = h.shape[1]
-    chunk = min(cfg.ce_chunk, s)
-    if s % chunk:
-        raise ValueError(f"a sequence of {s} does not split into chunks of {chunk}")
+    chunk = _ce_chunk_size(cfg, s)
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     wsum = torch.zeros((), dtype=torch.float32, device=h.device)
     for lo in range(0, s, chunk):
@@ -362,6 +401,222 @@ def _chunked_ce(cfg: TransformerConfig, h, lm_head: nn.Module, labels, weights):
                            labels[:, part], weights[:, part])
         wsum = wsum + weights[:, part].sum()
     return tot / torch.clamp_min(wsum, 1.0)
+
+
+def _ce_chunk_size(cfg: TransformerConfig, s: int) -> int:
+    chunk = min(cfg.ce_chunk, s)
+    if s % chunk:
+        raise ValueError(f"a sequence of {s} does not split into chunks of {chunk}")
+    return chunk
+
+
+# ---------------------------------------------------------------------------
+# over a mesh: resident blocks, tensor-parallel (distributed/tensor_parallel.py)
+# ---------------------------------------------------------------------------
+def _grid(tokens, mi) -> tpar.Grid:
+    return tpar.Grid(mi, tpar.n_groups(mi, tokens.shape[0]))
+
+
+def _embed_tp(model: Transformer, tokens, grid) -> list:
+    """The vocabulary-parallel embedding: ``tokens`` (B, S) -> a group value
+    (Bl, S, D) in the compute dtype. Each model position reads the rows of
+    its vocabulary block (zeros for the other ids) from its blocks over the
+    data positions, joined in position order where the data axes split D
+    (one all-gather); the reads are summed over the model positions (one
+    all-reduce), as ``models/recsys/models.py::mesh_lookup`` reads a
+    table's row blocks."""
+    table, mi = model.embed.table, grid.mi
+    blocks = table.grid(mi)  # (data positions, model shards)
+    split = tpar.data_dim(table.layout, mi) is not None
+    vb = table.shape[0] // grid.tp
+    reads = []
+    for i, (p, ids) in enumerate(zip(grid.parts, grid.split(tokens))):
+        g, mp = len(p.gs), len(p.ms)
+        first = grid.model_index(i, ids.device)[:, None, None] * vb
+        local = ids.long()[None] - first  # (Mp, G B, S)
+        hit = (local >= 0) & (local < vb)
+        local = local.clamp(0, vb - 1)
+        at = torch.arange(mp, device=ids.device)[:, None, None]
+        read = []
+        for d in range(blocks.shape[0]) if split else [p.gs[0]]:
+            blk = tpar.stacked([blocks[d, m] for m in p.ms])  # (Mp, V / tp, D / data)
+            read.append(blk[at.to(blk.device), local.to(blk.device)].to(p.device))
+        if split:
+            tallies = collectives.open_tallies() if 0 in p.gs and 0 in p.ms else ()
+            read = tpar.gather_into(tallies, p.device, read, g * mp)
+        else:
+            read = read[0]
+        read = torch.where(hit[..., None], read, 0.0)  # (Mp, G B, S, D)
+        reads.append(read.reshape(mp, g, -1, *read.shape[2:]).transpose(0, 1)
+                     .reshape(-1, *read.shape[2:]))
+    return grid.each(lambda x: x.to(model.cfg.compute_dtype), grid.row_sum(reads))
+
+
+def _layer_tp(cfg: TransformerConfig, lp: Layer, xs: list, grid) -> list:
+    """``_layer_apply`` over a mesh: the residual stream (a group value) ->
+    the same after the layer. Each part reads its blocks (gathered over the
+    data positions where those split them) and its norms' replicas;
+    attention and the feed-forward are tensor-parallel, their outputs
+    summed over the model positions."""
+    views = grid.views(lp)
+    h = grid.each(lambda v, x: v.ln1(x), views, xs)
+    at = [v.attn for v in views]
+    a = (attn.mla_train_tp if cfg.attn_type == "mla" else attn.gqa_train_tp)(at, cfg, h, grid)
+    xs = grid.each(torch.add, xs, a)
+    h = grid.each(lambda v, x: v.ln2(x), views, xs)
+    ffn = [v.ffn for v in views]
+    if lp.kind == "moe":
+        f = moe_ffn_tp(ffn, cfg, h, grid)
+    else:  # w1 / w3 column-parallel, w2 row-parallel
+        f = grid.row_sum(grid.each(lambda v, x: v(x), ffn, h))
+    return grid.join(grid.each(torch.add, xs, f))  # one node recomputes the layer
+
+
+def _apply_tp(module: nn.Module, xs: list, grid) -> list:
+    """``module`` (a norm) as each part holds it, applied to its entry of
+    ``xs``."""
+    return grid.each(lambda v, x: v(x), grid.views(module), xs)
+
+
+def _hidden_tp(model: Transformer, tokens, grid) -> list:
+    """``forward_hidden`` of a resident model over ``grid``: the final
+    normed hidden states, a group value."""
+    cfg = model.cfg
+    xs = _embed_tp(model, tokens, grid)
+    for lp in model.layers():
+        xs = _remat(cfg, functools.partial(_layer_tp, cfg, lp, grid=grid), xs)
+    return _apply_tp(model.final_norm, xs, grid)
+
+
+def _ce_terms_tp(cfg: TransformerConfig, grid, heads: list, hs: list, ls: list) -> list:
+    """A chunk's float32 terms lse - label logit, (Bl, chunk) for each row
+    of ``grid`` on its first device: each model position computes its
+    vocabulary block's float32 logits (``heads``: ``lm_head``'s
+    column-parallel ``Product``), their max, its sum of exponentials and the
+    label's logit where its block holds the label (0 elsewhere); the
+    maxima are combined over the positions, each sum corrected to the
+    combined max, and the sums and label logits added in position order
+    (``attention._lse_combine``'s rule: one pmax and two psums). On one
+    model position the terms are ``_ce_chunk``'s."""
+    vb = cfg.vocab_padded // grid.tp
+    stats = []
+    for i, (p, head, h, lab) in enumerate(zip(grid.parts, heads, hs, ls)):
+        logits = head(h).float()  # a position value (G Mp Bl, chunk, V / tp)
+        first = grid.model_index(i, h.device).reshape(1, -1, 1)
+        first = first.expand(len(p.gs), -1, h.shape[0] // len(p.gs)).reshape(-1, 1) * vb
+        local = grid.spread(i, lab).long() - first
+        if grid.tp == 1:
+            stats.append(_ce_terms(logits, local))
+            continue
+        mx = logits.detach().amax(-1)
+        hit = (local >= 0) & (local < vb)
+        ll = torch.gather(logits, -1, local.clamp(0, vb - 1)[..., None])[..., 0]
+        stats.append((mx, torch.exp(logits - mx[..., None]).sum(-1), torch.where(hit, ll, 0.0)))
+    out = []
+    for row in grid.rows:
+        if grid.tp == 1:
+            out.append(stats[row[0]])
+            continue
+        mx, se, ll = (grid.slices(row, [stats[i][k] for i in range(len(stats))])
+                      for k in range(3))  # (G, Bl, chunk) a model position
+        dev = mx[0].device
+        maxima = [x.to(dev) for x in mx]
+        m_g = maxima[0]
+        for x in maxima[1:]:
+            m_g = torch.maximum(m_g, x)
+        l_g = ll_g = None
+        for x, sx, lx in zip(maxima, se, ll):
+            t = sx.to(dev) * torch.exp(x - m_g)
+            l_g = t if l_g is None else l_g + t
+            ll_g = lx.to(dev) if ll_g is None else ll_g + lx.to(dev)
+        collectives.record_into(grid.tallies(row), "all-reduce", m_g[0], l_g[0], ll_g[0])
+        out.append((torch.log(l_g) + m_g - ll_g).reshape(-1, m_g.shape[-1]))
+    return grid.join(out)
+
+
+def _chunked_ce_tp(cfg: TransformerConfig, grid, hs: list, heads: list, labels, weights):
+    """``_chunked_ce`` over a mesh, vocabulary-parallel: ``hs`` the hidden
+    states (a group value), ``heads`` ``lm_head``'s column-parallel products,
+    ``labels`` / ``weights`` (B, S) on the mesh's first device. Each chunk's
+    per-token terms come under ``cfg.remat``'s checkpoint
+    (``_ce_terms_tp``); the rows' terms are joined in group order on the
+    first device (one all-gather where there are rows to join) and the
+    chunk sums taken there in chunk order, as on one device."""
+    s = hs[0].shape[1]
+    chunk = _ce_chunk_size(cfg, s)
+    lab = grid.split(labels)
+    dev = weights.device
+    tot = torch.zeros((), dtype=torch.float32, device=dev)
+    wsum = torch.zeros((), dtype=torch.float32, device=dev)
+    for lo in range(0, s, chunk):
+        part = slice(lo, lo + chunk)
+        terms = _remat(cfg, functools.partial(_ce_terms_tp, cfg, grid, heads),
+                       [h[:, part] for h in hs], [x[:, part] for x in lab])
+        joined = torch.cat([t.to(dev) for t in terms], dim=0)
+        if grid.groups > 1:
+            collectives.record("all-gather", tpar.one(joined, grid.groups))
+        tot = tot + (joined * weights[:, part]).sum()
+        wsum = wsum + weights[:, part].sum()
+    return tot / torch.clamp_min(wsum, 1.0)
+
+
+def _router_aux_tp(mp: MoE, grid, hs: list):
+    """``router_aux_loss`` over a mesh: each row's tokens through the
+    router's replica on its first part; with more than one data group the
+    groups' top-1 counts and probabilities are summed in group order (one
+    all-reduce each) and divided by the token count."""
+    router = grid.views(mp.router)
+    probs = [torch.softmax(router[row[0]](hs[row[0]].float()), dim=-1) for row in grid.rows]
+    if grid.groups == 1:
+        return aux_of_probs(probs[0])
+    e = probs[0].shape[-1]
+    per_group = [g for p, row in zip(probs, grid.rows)
+                 for g in p.reshape(len(grid.parts[row[0]].gs), -1, e)]
+    counts = [F.one_hot(g.argmax(-1), e).float().sum(0) for g in per_group]
+    sums = [g.sum(0) for g in per_group]
+    dev, n = probs[0].device, sum(g.shape[0] for g in per_group)
+    frac_tokens, frac_probs = sum_in_order(counts, dev) / n, sum_in_order(sums, dev) / n
+    return e * (frac_tokens * frac_probs).sum()
+
+
+def _lm_loss_tp(model: Transformer, tokens, mi):
+    """``lm_loss`` of a resident model over ``mi``: the same terms, each
+    data group on its row of devices and each model position on its
+    blocks; the MTP block's ``proj`` is column-parallel, its output
+    gathered over the model positions before ``mtp.layer``."""
+    cfg = model.cfg
+    grid = _grid(tokens, mi)
+    hs = _hidden_tp(model, tokens, grid)
+    heads = grid.products(model.lm_head)
+    labels, weights = _shifted(tokens, 1)
+    loss = _chunked_ce_tp(cfg, grid, hs, heads, labels, weights)
+    metrics = {"ce": loss}
+    if cfg.mtp:
+        emb_next = _embed_tp(model, labels, grid)
+        both = grid.each(lambda h, e: torch.cat([h.to(cfg.compute_dtype), e], dim=-1), hs,
+                         emb_next)
+        h2 = grid.gather(grid.each(lambda f, x: f(x), grid.products(model.mtp.proj), both))
+        h2 = _apply_tp(model.mtp.norm, _layer_tp(cfg, model.mtp.layer, h2, grid), grid)
+        labels2, weights2 = _shifted(tokens, 2)
+        mtp_loss = _chunked_ce_tp(cfg, grid, h2, heads, labels2, weights2)
+        metrics["mtp_ce"] = mtp_loss
+        loss = loss + cfg.mtp_coef * mtp_loss
+    if cfg.is_moe and cfg.router_aux_coef > 0:
+        aux = _router_aux_tp(model.moe_layers[-1].ffn, grid, hs)
+        metrics["router_aux"] = aux
+        loss = loss + cfg.router_aux_coef * aux
+    metrics["loss"] = loss
+    return loss, metrics
+
+
+def _prefill_tp(model: Transformer, tokens, mi):
+    """``prefill_logits`` of a resident model over ``mi``: each position's
+    vocabulary block of the last position's logits, gathered over the model
+    positions, the groups' rows joined on the mesh's first device."""
+    grid = _grid(tokens, mi)
+    hs = _hidden_tp(model, tokens, grid)
+    logits = grid.each(lambda f, h: f(h[:, -1]).float(), grid.products(model.lm_head), hs)
+    return grid.join_groups(grid.gather(logits))
 
 
 def _shifted(tokens, k: int):
@@ -381,8 +636,10 @@ def lm_loss(model: Transformer, batch: dict, mi=None):
     proxy). metrics: ``ce``, ``mtp_ce``, ``router_aux`` where they apply,
     and ``loss``."""
     cfg = model.cfg
-    _check_experts(model, mi)
     tokens = batch["tokens"]
+    _check_layout(model, mi)
+    if _resident(model, mi):
+        return _lm_loss_tp(model, tokens, mi)
     h = forward_hidden(model, tokens, mi)
     labels, weights = _shifted(tokens, 1)
     loss = _chunked_ce(cfg, h, model.lm_head, labels, weights)
@@ -407,7 +664,9 @@ def lm_loss(model: Transformer, batch: dict, mi=None):
 
 def prefill_logits(model: Transformer, tokens, mi=None):
     """Full-sequence prefill -> the last position's logits (B, vocab_padded)
-    float32."""
+    float32; a resident model's over its mesh (``_prefill_tp``)."""
+    if _resident(model, mi):
+        return _prefill_tp(model, tokens, mi)
     last = forward_hidden(model, tokens, mi)[:, -1]
     return model.lm_head(last).float()
 
@@ -553,6 +812,9 @@ def decode_step(model: Transformer, cache: dict, tokens, mi=None):
     the same tensors. With ``mi`` (model axis > 1) the cache must be laid
     out over it (``init_cache`` / ``shard_cache``)."""
     cfg = model.cfg
+    if isinstance(model.embed.table, Resident):
+        raise ValueError("decode_step over resident blocks is not ported yet (ROADMAP Queue 3, "
+                         "item 5): serve a model whose parameters are whole")
     pos = cache["pos"]
     keys = ("c",) if cfg.attn_type == "mla" else ("k", "v")
     sharded = mi is not None and mi.tp_size > 1

@@ -27,17 +27,16 @@ own token count, so a (2, 2) mesh drops other tokens than a (1, 1) one:
 the reference's semantics, kept. The gate sums and the outputs are summed
 across the shards in shard order on the group's first device.
 
-A train cell over a mesh holds the experts resident as the reference's
-blocks (``moe_specs``: ``w1`` / ``w3`` (tp, fs, None), ``w2`` (tp, None,
-fs); ``distributed.layout.Resident``, one part a position), and a step
-reads them in place: on a mesh whose data axes have one position, shard
-m's part is its experts whole. Where the data axes split D, each data
-group first gathers shard m's blocks from the data positions, joined in
-position order on its own device (the reference's all-gather), and the
-backward sums the groups' gradients in group order, each block's slice
-on the block's device (the reduce-scatter): ``_GatherBlocks``. A model
-whose experts are whole (serving) reads model shard m's slice of them (a
-view on the parameter's device, else a copy made for the call).
+A train cell over a mesh holds every parameter resident as the
+reference's blocks (``moe_specs``: the experts ``w1`` / ``w3`` (tp, fs,
+None), ``w2`` (tp, None, fs); the shared experts (fs, tp) / (tp, fs); the
+router one replica a device) and runs ``moe_ffn_tp`` on each data group's
+row of devices: position (g, m) routes the group's tokens it holds with
+its router replica and runs model shard m's experts in place, gathered
+over the data positions where the data axes split D
+(``distributed/tensor_parallel.py::Grid.shards``). A model whose experts
+are whole (serving) reads model shard m's slice of them (a view on the
+parameter's device, else a copy made for the call).
 """
 from __future__ import annotations
 
@@ -180,82 +179,28 @@ def _scatter_add(top_idx, y, t: int):
     return out
 
 
-def _moe_local(x, probs, shards, *, cfg):
-    """x (Bl, S, D): one data group's tokens; probs (Bl, S, E) in x's dtype;
-    ``shards``: (w1, w3, w2) of each model shard's experts, in shard order,
-    each on its device -> (Bl, S, D) on the first shard's device."""
-    bl, s, d = x.shape
-    e = probs.shape[-1]
+def _moe_local(xs, probs, shards, *, cfg):
+    """One data group: ``xs`` its tokens (Bl, S, D) and ``probs`` (Bl, S, E)
+    in x's dtype, one copy a model shard on that shard's device;
+    ``shards``: (w1, w3, w2) of each model shard's experts, in shard order
+    -> (Bl, S, D) on the first shard's device."""
+    bl, s, d = xs[0].shape
+    e = probs[0].shape[-1]
     t = bl * s
     e_local = shards[0][0].shape[0]
     c = min(capacity(cfg, t, e), t)
-    xf, pf = x.reshape(t, d), probs.reshape(t, e)
     gates, sums = [], []
-    for i, (w1, _, _) in enumerate(shards):
-        gate, local_sum = _gates(pf.to(w1.device), cfg.top_k, i * e_local, e_local)
+    for i, p in enumerate(probs):
+        gate, local_sum = _gates(p.reshape(t, e), cfg.top_k, i * e_local, e_local)
         gates.append(gate)
         sums.append(local_sum)
-    dev0 = shards[0][0].device
+    dev0 = xs[0].device
     denom = sum_in_order(sums, dev0)
     outs = []
-    for gate, (w1, w3, w2) in zip(gates, shards):
-        dev = w1.device
-        gate = gate / denom.to(dev).clamp_min(1e-9)[:, None]
-        outs.append(_dispatch(xf.to(dev), gate, w1, w3, w2, c))
+    for x, gate, (w1, w3, w2) in zip(xs, gates, shards):
+        gate = gate / denom.to(x.device).clamp_min(1e-9)[:, None]
+        outs.append(_dispatch(x.reshape(t, d), gate, w1, w3, w2, c))
     return sum_in_order(outs, dev0).reshape(bl, s, d)
-
-
-class _GatherBlocks(torch.autograd.Function):
-    """One model shard's blocks over the data positions (``parts``, in
-    position order) joined along ``dim`` on each of ``targets`` (the
-    all-gather); the backward adds the targets' gradients in target order,
-    each block's slice on that block's device (the reduce-scatter), and
-    reports it to ``tallies``."""
-
-    @staticmethod
-    def forward(ctx, dim, targets, tallies, *parts):
-        ctx.dim, ctx.tallies = dim, tallies
-        ctx.blocks = [(p.device, p.shape[dim]) for p in parts]
-        out = tuple(torch.cat([p.to(t) for p in parts], dim) for t in targets)
-        collectives.record_into(tallies, "all-gather", out[0])
-        return out
-
-    @staticmethod
-    def backward(ctx, *grads):
-        out, lo = [], 0
-        for dev, size in ctx.blocks:
-            total = None
-            for g in grads:  # the groups in order
-                piece = g.narrow(ctx.dim, lo, size).to(dev)
-                total = piece if total is None else total + piece
-            out.append(total)
-            lo += size
-        collectives.record_into(ctx.tallies, "reduce-scatter", out[0])
-        return (None, None, None, *out)
-
-
-def _split_dim(w: Resident) -> int:
-    """The dimension of a resident expert weight that the data axes split."""
-    return next(d for d, e in enumerate(w.layout.spec) if d > 0 and e is not None)
-
-
-def _resident_shards(w: Resident, mi, targets) -> list:
-    """``targets`` (data groups, model shards) devices -> [g][m] model shard
-    m's experts of ``w`` on ``targets[g][m]``: its part in place where the
-    data axes do not split it, else gathered (``_GatherBlocks``)."""
-    grid = w.grid(mi)  # (data positions, model shards)
-    out = [[None] * len(targets[0]) for _ in targets]
-    for m in range(len(targets[0])):
-        column = list(grid[:, m])
-        devs = [t[m] for t in targets]
-        if len(column) == 1 and all(d == column[0].device for d in devs):
-            for g in range(len(targets)):
-                out[g][m] = column[0]
-            continue
-        got = _GatherBlocks.apply(_split_dim(w), devs, collectives.open_tallies(), *column)
-        for g, t in enumerate(got):
-            out[g][m] = t
-    return out
 
 
 def _expert_parallel(mp: MoE, cfg, mi, x, probs):
@@ -269,37 +214,71 @@ def _expert_parallel(mp: MoE, cfg, mi, x, probs):
     n_groups = mi.dp_size if mi.axes_if_divisible(b, mi.dp_axes) else 1
     bl = b // n_groups
     ex = mp.experts
-    if isinstance(ex.w1, Resident):
-        targets = [list(devs[g]) for g in range(n_groups)]
-        w1, w3, w2 = (_resident_shards(w, mi, targets) for w in (ex.w1, ex.w3, ex.w2))
-        shards = [list(zip(w1[g], w3[g], w2[g])) for g in range(n_groups)]
-    else:
-        shards = [[tuple(w[m * e_local : (m + 1) * e_local].to(devs[g, m])
-                         for w in (ex.w1, ex.w3, ex.w2)) for m in range(tp)]
-                  for g in range(n_groups)]
     outs = []
     for g in range(n_groups):
         rows = slice(g * bl, (g + 1) * bl)
+        shards = [tuple(w[m * e_local : (m + 1) * e_local].to(devs[g, m])
+                        for w in (ex.w1, ex.w3, ex.w2)) for m in range(tp)]
+        xs = [x[rows].to(devs[g, m]) for m in range(tp)]
+        ps = [probs[rows].to(devs[g, m]) for m in range(tp)]
         with collectives.group(g):  # the gate sums' and outputs' psums
-            outs.append(_moe_local(x[rows], probs[rows], shards[g], cfg=cfg).to(x.device))
+            outs.append(_moe_local(xs, ps, shards, cfg=cfg).to(x.device))
     return torch.cat(outs, dim=0)
 
 
 def moe_ffn(mp: MoE, cfg, x, mi=None):
-    """(B, S, D) -> (B, S, D) in x's dtype. With ``mi`` whose model axis is
-    > 1 and divides E, the expert-parallel branch; otherwise every expert
-    over every token on x's device (resident experts gathered there)."""
-    probs = _router_probs(mp, x).to(x.dtype)
+    """(B, S, D) -> (B, S, D) in x's dtype, for a model whose parameters are
+    whole. With ``mi`` whose model axis is > 1 and divides E, the
+    expert-parallel branch; otherwise every expert over every token on x's
+    device. A resident MoE runs ``moe_ffn_tp``."""
     ex = mp.experts
+    if isinstance(ex.w1, Resident):
+        raise ValueError("resident experts run through moe_ffn_tp (the model's mesh path)")
+    probs = _router_probs(mp, x).to(x.dtype)
     if mi is not None and mi.tp_size > 1 and cfg.n_experts % mi.tp_size == 0:
         out = _expert_parallel(mp, cfg, mi, x, probs)
-    elif isinstance(ex.w1, Resident):
-        w = [_resident_shards(w, mi, [[x.device]])[0][0] for w in (ex.w1, ex.w3, ex.w2)]
-        out = _moe_local(x, probs, [tuple(w)], cfg=cfg)
     else:
-        out = _moe_local(x, probs, [(ex.w1, ex.w3, ex.w2)], cfg=cfg)
+        out = _moe_local([x], [probs], [(ex.w1, ex.w3, ex.w2)], cfg=cfg)
     if cfg.n_shared_experts:
         out = out + mp.shared(x)
+    return out
+
+
+def moe_ffn_tp(views, cfg, xs, grid) -> list:
+    """A resident MoE over a mesh: ``views`` the MoE as each part of
+    ``grid`` holds it (``tensor_parallel.Grid.views``: its router's
+    replica, its positions' experts as a list of model shards, its columns
+    of the shared experts), ``xs`` the tokens (a group value) -> the output
+    (a group value). Each data group routes its tokens with the router's
+    replica on each part, and each model position's experts take them in
+    place (``_moe_local``: each group its own capacity, the gate sums and
+    the outputs summed over the positions in position order); the shared
+    experts are a tensor-parallel SwiGLU (``w1`` / ``w3`` column-parallel,
+    ``w2`` row-parallel), its partials' sum added to the routed outputs
+    before the sum is placed on every model position."""
+    routed = []
+    for row in grid.rows:
+        gs = grid.parts[row[0]].gs
+        groups = []
+        for j, g in enumerate(gs):
+            with collectives.group(g):
+                toks, probs, shards = [], [], []
+                for i in row:
+                    x = xs[i].reshape(len(gs), -1, *xs[i].shape[1:])[j]
+                    p = _router_probs(views[i], x).to(x.dtype)
+                    ex = views[i].experts
+                    for w in zip(ex.w1, ex.w3, ex.w2):
+                        toks.append(x)
+                        probs.append(p)
+                        shards.append(w)
+                groups.append(_moe_local(toks, probs, shards, cfg=cfg))
+        routed.append(torch.cat(groups) if len(groups) > 1 else groups[0])
+    if cfg.n_shared_experts:
+        return grid.row_sum(grid.each(lambda v, x: v.shared(x), views, xs), base=routed)
+    out = [None] * len(grid.parts)
+    for row, total in zip(grid.rows, routed):
+        for i, x in zip(row, grid.place(row, total)):
+            out[i] = x
     return out
 
 
@@ -307,7 +286,11 @@ def router_aux_loss(mp: MoE, cfg, x):
     """The Switch-style load-balancing loss E * sum(frac_tokens *
     frac_probs) over x's (B, S) tokens, float32 (top-1 by ``argmax``: the
     first of equal maxima)."""
-    probs = _router_probs(mp, x)
+    return aux_of_probs(_router_probs(mp, x))
+
+
+def aux_of_probs(probs):
+    """``router_aux_loss`` of (B, S, E) float32 router probabilities."""
     e = probs.shape[-1]
     frac_tokens = F.one_hot(probs.argmax(-1), e).float().mean(dim=(0, 1))
     return e * (frac_tokens * probs.mean(dim=(0, 1))).sum()

@@ -25,16 +25,25 @@ The hooks and their kinds:
     (all-reduce): a table read's row blocks, the MoE's gate sums and
     outputs, a graph shard's energies, the int8 compressed mean;
   * ``distributed/layout.py::gather``: a leaf made whole from its blocks
-    (all-gather);
+    (all-gather, a weight move);
   * ``models/recsys/models.py::mesh_lookup``: the join of a field's
     column blocks (all-gather);
-  * ``models/transformer/moe.py``: the expert-parallel dispatch of a data
-    group's tokens to the model shards and the combine of their outputs
-    (all-to-all, one op each); resident experts that the data axes split
-    gathered for each model shard (all-gather, one op a weight and shard,
-    the gathered block), and their gradients' slices summed back onto the
-    blocks by the backward (reduce-scatter, one op a weight and shard, one
-    block);
+  * ``distributed/tensor_parallel.py``: a resident leaf that the data
+    axes split gathered for each model shard (all-gather, one op a leaf and
+    shard, the gathered block), and its gradient's slices summed back onto
+    the blocks by the backward (reduce-scatter, one op a leaf and shard,
+    one block), both also counted as weight moves
+    (``Tally.weight_counts``); a row-parallel product's partials summed
+    over the model positions (all-reduce, one op) and, in the backward,
+    the gradients of the sum placed on each model position summed again
+    (all-reduce, one op); an activation's blocks joined over them
+    (all-gather, one op) and, in the backward, each block's gradients
+    summed back onto it (reduce-scatter, one op); none over a model axis
+    of one position;
+  * ``models/transformer/model.py``: the vocabulary-parallel
+    cross-entropy's max, sum of exponentials and label logit over the
+    model positions (all-reduce, 3 ops a chunk), and the data groups'
+    loss sums (all-reduce, one op each);
   * ``models/transformer/attention.py::_lse_combine``: the sequence
     shards' max, sum and output (all-reduce, 3 ops);
   * ``models/gnn/distributed.py``: each layer's node features gathered
@@ -79,6 +88,8 @@ class Tally:
     def __init__(self):
         self.per_op_bytes: dict = defaultdict(int)
         self.per_op_counts: dict = defaultdict(int)
+        self.weight_counts: dict = defaultdict(int)  # the moves of parameters, by kind
+        self.weight_bytes: dict = defaultdict(int)
 
     def __enter__(self) -> "Tally":
         _open().append(self)
@@ -117,17 +128,22 @@ def open_tallies() -> tuple:
     return () if _local.group else tuple(tallies)
 
 
-def record(kind: str, *tensors: torch.Tensor) -> None:
+def record(kind: str, *tensors: torch.Tensor, weights: bool = False) -> None:
     """One op of ``kind`` for each of ``tensors``, each the op's result at
     one position."""
-    record_into(open_tallies(), kind, *tensors)
+    record_into(open_tallies(), kind, *tensors, weights=weights)
 
 
-def record_into(tallies, kind: str, *tensors: torch.Tensor) -> None:
-    """``record`` into the given tallies."""
+def record_into(tallies, kind: str, *tensors: torch.Tensor, weights: bool = False) -> None:
+    """``record`` into the given tallies; ``weights``: the op moves a
+    parameter's blocks (also counted in ``Tally.weight_counts`` and
+    ``weight_bytes``)."""
     if kind not in KINDS:
         raise ValueError(f"unknown collective {kind!r}")
     for t in tallies:
         for x in tensors:
             t.per_op_bytes[kind] += x.numel() * x.element_size()
             t.per_op_counts[kind] += 1
+            if weights:
+                t.weight_counts[kind] += 1
+                t.weight_bytes[kind] += x.numel() * x.element_size()

@@ -283,7 +283,7 @@ def adafactor(lr: float = 1e-2, decay: float = 0.8, eps: float = 1e-30,
 
     def state_specs(specs, params):
         def full(k):
-            return tuple(specs[k]) + (None,) * (params[k].dim() - len(specs[k]))
+            return tuple(specs[k]) + (None,) * (len(params[k].shape) - len(specs[k]))
 
         out = {"vr": {k: full(k)[:-1] if factored(p) else full(k) for k, p in params.items()},
                "vc": {k: full(k)[:-2] + full(k)[-1:] if factored(p) else (None,)

@@ -19,8 +19,8 @@ one (L, ...) tensor; the layout then presents that tensor as one leaf, named ``<
 the step stacks the layers' gradients to match.
 
 Over a mesh a cell may hold some leaves as their blocks
-(``distributed.layout.Resident``: the recsys tables, the LM's routed
-experts, MACE's parameters). ``param_leaves`` presents such a leaf as one
+(``distributed.layout.Resident``: the recsys tables, every leaf of the
+LM, MACE's parameters). ``param_leaves`` presents such a leaf as one
 ``Blocks`` in the reference's layout (a stacked list's leaf as its (L,
 ...) blocks); its gradient and optimizer state are ``Blocks`` of that
 leaf's layout and of the state's own specs (``init_state``), each part
@@ -290,8 +290,9 @@ def make_train_step(loss_fn: LossFn, optimizer: Optimizer, *, grad_accum: int = 
     result instead). Without it the step never waits on the device.
 
     The step takes no mesh: over one, the loss runs each position's share
-    where the reference's layout puts it (the tables' blocks, the
-    experts, the graph's shards) and combines the shares in shard order,
+    where the reference's layout puts it (the tables' blocks, the LM's
+    heads, columns, experts and vocabulary blocks, the graph's shards) and
+    combines the shares in shard order,
     and autograd carries each share's gradient back onto the resident
     parts it read and through the moves onto the whole parameters, as
     GSPMD's reductions carry the reference's.

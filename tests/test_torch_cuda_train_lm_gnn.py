@@ -19,7 +19,7 @@ float32, 0.3 bf16); each limit below its control (one update's change
 of the loss; a leaf's update dropped or sign-flipped).
 
 smoke-mla-moe's train_4k (Adafactor) over (1, 4) and (2, 2) meshes of
-cuda:0, its experts resident as four parts on the card, against the same
+cuda:0, every leaf resident as its parts on the card, against the same
 mesh of CPU positions from the same weights, by the same limits; the
 parts and Adafactor's statistics keep their storage across the steps.
 """
@@ -88,7 +88,8 @@ def test_resident_experts_on_a_card_mesh_equal_the_cpu_mesh(dev, grid):
         model = tm.make_resident(copy.deepcopy(whole).to(device), mi)
         state = init_state(arch.optimizer(), model)
         before = _ptrs(model, state)
-        assert len(before) == 12  # three expert leaves, each with vr, vc and m
+        # every leaf of the cell resident, each with vr, vc and m
+        assert len(before) == 4 * len(tm.param_specs(arch.cfg, mi))
         with deterministic():
             model, state, m1 = cell.fn(model, state, {k: v.to(device) for k, v in batch.items()})
             p1 = snapshot(model)

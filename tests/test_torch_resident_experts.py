@@ -244,26 +244,39 @@ def test_a_2x2_checkpoint_restores_on_one_device_and_continues(tmp_path):
 
 
 def test_tally_counts_the_experts_gather_where_the_data_axes_split_them():
-    """One step's collectives: on (2, 2) each weight's model shard is
-    gathered from the two data positions (all-gather, the shard's whole
-    experts) and its gradient summed back (reduce-scatter, one block); on
-    (1, 4) no expert weight moves."""
+    """One step's weight moves (``Tally.weight_counts``): on (2, 2) the
+    model shard of every leaf that the data axes split (the experts among
+    them, and every dense leaf but the norms, the router and the embedding,
+    whose rows each data position reads from its own block) is gathered
+    from the two data positions (all-gather, one a leaf, layer and shard)
+    and its gradient summed back (reduce-scatter, one block: a leaf's bytes
+    over the two data positions in all; the activations' gathers add
+    reduce-scatters of their own in the backward); on (1, 4) no weight
+    moves."""
     cfg = arch().cfg
-    counts = {}
+    counts, weights = {}, {}
+    wbytes = None
     for mesh_name, (dp, tp) in MESHES.items():
         cell = arch().make_cell("train_4k", mesh((dp, tp)))
         model, state, _ = cell.make_inputs(0, "cpu")
         with collectives.tally() as t:
             cell.fn(model, state, batches(1)[0])
-        counts[mesh_name] = t.result()
-    assert not {"all-gather", "reduce-scatter"} & set(counts["1x4"]["per_op_counts"])
+        counts[mesh_name], weights[mesh_name] = t.result(), dict(t.weight_counts)
+        wbytes = dict(t.weight_bytes)
+    assert not weights["1x4"]
+    specs = tm.param_specs(cfg, mesh((2, 2)))
+    leaves = {k: v for k, v in param_leaves(tm.Transformer(cfg, device="meta")).items()
+              if "data" in specs[k] and k != "embed.table"}  # the table's rows are read in place
+    assert {k for k in EXPERTS} <= set(leaves)
+    layers = {k: v.shape[0] if k.split(".")[0] in ("dense_layers", "moe_layers") else 1
+              for k, v in leaves.items()}
+    n = 2 * sum(layers.values())  # model shards x (leaf, layer)
     got = counts["2x2"]
-    n = 3 * 2 * cfg.n_moe  # weights x model shards x layers
-    shard = cfg.n_experts // 2 * cfg.d_model * cfg.d_ff_expert * 4
-    assert got["per_op_counts"]["reduce-scatter"] == n
-    assert got["per_op_bytes"]["reduce-scatter"] == n * shard // 2
-    assert got["per_op_counts"]["all-gather"] % n == 0 and got["per_op_counts"]["all-gather"]
-    assert got["per_op_bytes"]["all-gather"] == got["per_op_counts"]["all-gather"] * shard
+    assert weights["2x2"] == {"all-gather": n, "reduce-scatter": n}
+    # each gather's backward reduce-scatters, but for the cross-entropy's 4
+    # joins of per-token terms (2 chunks, the loss's and MTP's)
+    assert got["per_op_counts"]["reduce-scatter"] == got["per_op_counts"]["all-gather"] - 4
+    assert wbytes["reduce-scatter"] == sum(v.numel() * 4 for v in leaves.values()) // 2
 
 
 def test_whole_experts_over_the_mesh_raise():

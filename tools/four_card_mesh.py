@@ -23,19 +23,19 @@ over (1, 4) and (2, 2) (its experts resident as blocks, one a card);
 smoke-mace's ogb_products layout over (1, 4), float32 (its parameters
 four replicas, one a card).
 
-Then two cells that train at full width with their experts resident as
-four parts, one a card, and Adafactor's state beside them (finite
-losses; every leaf moved but the bf16 leaves whose update rounds away, and
-every leaf's first moment non-zero, as chip_smoke.py phase 10 checks; every
-expert part and statistic in its storage after the steps; each card's
-peak): deepseek-v2-236b train_4k at phase 10's cut (1 dense + 1 MoE layer,
-160 experts, batch 2, grad_accum 2), the cell of phase 12c, and
-deepseek-v3-671b train_4k with one MoE layer (256 experts, 11.3e9 expert
-parameters: 22.5 GB in bf16, about 90 GB with their gradients and float32
-accumulation, which no one card holds), its dense depth cut from 3
-layers to 2 and its batch kept at 4 (grad_accum 4): cuda:0 holds the
-dense layers, the embedding, the head and the MTP block whole with their
-state beside its quarter of the experts (PERF.md section 4 has the
+Then two cells that train at full width with every leaf resident as its
+blocks (the experts, attention, the feed-forwards, the embedding and the
+head a quarter a card, the norms and the router a replica a card) and
+Adafactor's state beside them, the step tensor-parallel (finite losses;
+every leaf moved but the bf16 leaves whose update rounds away, and every
+leaf's first moment non-zero, as chip_smoke.py phase 10 checks; every part
+and statistic in its storage after the steps; each card's resident bytes
+and peak): deepseek-v2-236b train_4k at phase 10's cut (1 dense + 1 MoE
+layer, 160 experts, batch 2, grad_accum 2), the cell of phase 12c, and
+deepseek-v3-671b train_4k with its published 3 dense layers and one MoE
+layer (256 experts, 11.3e9 expert parameters: 22.5 GB in bf16, about 90 GB
+with their gradients and float32 accumulation, which no one card holds)
+and its batch kept at 4 (grad_accum 4) (PERF.md section 4 has the
 reckoning and the one-card calibration behind the cut).
 
 Then the training driver on the four cards (its (4, 1) mesh) for
@@ -185,7 +185,7 @@ def driver_walls(arch, device, ckpt_dir) -> dict:
 
 # (name, dense layers, layers, sequences, steps): the cuts of the full-width
 # cells over (1, 4) of the four cards (PERF.md section 4)
-LM_CELLS = (("deepseek-v2-236b", 1, 2, 2, 2), ("deepseek-v3-671b", 2, 3, 4, 2))
+LM_CELLS = (("deepseek-v2-236b", 1, 2, 2, 2), ("deepseek-v3-671b", 3, 4, 4, 2))
 
 
 def part_ptrs(model, state) -> dict:
@@ -208,6 +208,18 @@ def parts_of(v) -> list:
     return v.parts if isinstance(v, Blocks) else [v]
 
 
+def card_bytes(trees, cards) -> list:
+    """Each card's bytes of the parts of ``trees``' resident leaves."""
+    from repro_torch.distributed.layout import Blocks
+
+    out = [0] * len(cards)
+    for tree in trees:
+        for v in tree.values():
+            for p in (v.parts if isinstance(v, Blocks) else []):
+                out[cards.index(p.device)] += p.numel() * p.element_size()
+    return out
+
+
 def leaf_sums(leaves) -> dict:
     return {k: sum(float(p.detach().sum(dtype=torch.float64)) for p in parts_of(v))
             for k, v in leaves.items()}
@@ -219,6 +231,7 @@ def lm_mesh_cell(name, dense, layers, batch, steps, cards) -> bool:
     from repro_torch.archs import get_arch
     from repro_torch.archs.lm import LMArch
     from repro_torch.data import lm_batch
+    from repro_torch.models.transformer.model import param_specs
     from repro_torch.train import param_leaves
 
     base = get_arch(name)
@@ -226,8 +239,10 @@ def lm_mesh_cell(name, dense, layers, batch, steps, cards) -> bool:
     shapes = {"train_4k": dict(base.shapes["train_4k"], global_batch=batch)}
     arch = LMArch(cfg, base.optimizer_name, shapes, base.grad_accum)
     seq = shapes["train_4k"]["seq_len"]
-    cell = arch.make_cell("train_4k", mesh_of(cards, (1, 4)))
+    cell_mesh = mesh_of(cards, (1, 4))
+    cell = arch.make_cell("train_4k", cell_mesh)
     for c in cards:
+        torch.empty(0, device=c)  # a card's allocator starts with its first tensor
         torch.cuda.reset_peak_memory_stats(c)
     t0 = time.perf_counter()
     model, state, data = cell.make_inputs(0, cards[0])
@@ -236,6 +251,9 @@ def lm_mesh_cell(name, dense, layers, batch, steps, cards) -> bool:
     init_s = time.perf_counter() - t0
     leaves = param_leaves(model)
     before, ptrs = leaf_sums(leaves), part_ptrs(model, state)
+    resident_gb = [b / 1e9 for b in card_bytes([leaves], cards)]
+    state_gb = [b / 1e9 for b in card_bytes([v for v in state.values() if isinstance(v, dict)],
+                                             cards)]
     walls, losses = [], []
     for step in range(steps):
         if step:
@@ -252,16 +270,18 @@ def lm_mesh_cell(name, dense, layers, batch, steps, cards) -> bool:
     silent = [k for k, v in state["m"].items() if not any(bool(p.any()) for p in parts_of(v))]
     in_place = part_ptrs(model, state) == ptrs
     finite = all(math.isfinite(v) for m in losses for v in m.values())
-    resident = [k for k in leaves if k.startswith("moe_layers.ffn.experts.")
-                and len(parts_of(leaves[k])) == 4]
-    ok = finite and in_place and not silent and len(resident) == 3 and unmoved == bf16
+    specs = param_specs(cfg, cell_mesh)
+    resident = [k for k in leaves if len(parts_of(leaves[k])) == 4]
+    ok = (finite and in_place and not silent and set(resident) == set(specs) == set(leaves)
+          and unmoved == bf16)
     print("four_cards " + json.dumps(dict(
         case=f"{name} train_4k", mesh=[1, 4], dense_layers=dense, moe_layers=layers - dense,
         experts=cfg.n_experts, batch=batch, grad_accum=arch.grad_accum, seq=seq,
         params=sum(math.prod(v.shape) for v in leaves.values()), init_s=init_s, step_s=walls,
         step_s_warm=sum(walls[1:]) / max(len(walls) - 1, 1), metrics=losses,
         peak_gb=[torch.cuda.max_memory_allocated(c) / 1e9 for c in cards],
-        resident_expert_leaves=resident, parts_in_place=in_place, unmoved_bf16=bf16,
+        resident_gb=resident_gb, state_gb=state_gb, leaves=len(leaves),
+        resident_leaves=len(resident), parts_in_place=in_place, unmoved_bf16=bf16,
         unmoved_other=[k for k in unmoved if k not in bf16], first_moment_zero=silent,
         ok=ok)), flush=True)
     return ok

@@ -1,16 +1,21 @@
-"""chip_smoke.py's phase 12c alone, then the memory of cuda:0's share of the
-four-card deepseek-v3-671b cell on one card.
+"""chip_smoke.py's phase 12c alone, then the memory of one card's share of
+the four-card deepseek-v3-671b cell on one card.
 
     python3 tools/moe_mesh_calibration.py     # on a machine with a CUDA device
 
 12c is deepseek-v2-236b's train_4k at phase 10's cut over a (1, 4) mesh of
-cuda:0, its experts four resident parts (``chip_smoke.moe_mesh_part``).
-In ``tools/four_card_mesh.py``'s deepseek-v3-671b cell cuda:0 holds the
-dense layers, the embedding, the head and the MTP block whole with their
-state, beside a quarter of the 256 experts; here that share runs on one
-device without a mesh (one MoE layer of 64 experts, B 4, grad_accum 4) at
-dense depths 3, 2 and 1, two steps each, one ``v3cal {...}`` line each
-with the peak (an out-of-memory error is reported, not raised).
+cuda:0, every leaf resident (``chip_smoke.moe_mesh_part``). In
+``tools/four_card_mesh.py``'s deepseek-v3-671b cell each card holds a
+quarter of every split leaf (32 of the 128 heads, a quarter of the dense
+feed-forward columns and of the vocabulary, 64 of the 256 experts) with
+its state, and computes on the whole residual stream. Here that share
+runs on one device without a mesh, as the config with those quarters
+(n_heads 32, d_ff 4,608, vocab 32,384 padded to 32,768, 64 experts, B 4, grad_accum 4; the shared
+expert, the low-rank projections and MTP's proj kept whole, which
+overstates the share by ~0.1e9 parameters; the moves' buffers on the
+card that sums a row-parallel product are not in it) at dense depths 3, 2
+and 1, two steps each, one ``v3cal {...}`` line each with the peak (an
+out-of-memory error is reported, not raised).
 """
 import dataclasses
 import gc
@@ -49,7 +54,9 @@ def main() -> None:
     base = get_arch("deepseek-v3-671b")
     for dense in (3, 2, 1):
         cfg = dataclasses.replace(base.cfg, n_layers=dense + 1, n_dense_layers=dense,
-                                  n_experts=64)
+                                  n_experts=64, n_heads=base.cfg.n_heads // 4,
+                                  d_ff=base.cfg.d_ff // 4,
+                                  vocab_size=base.cfg.vocab_padded // 4)
         shapes = {"train_4k": dict(base.shapes["train_4k"], global_batch=4)}
         arch = LMArch(cfg, base.optimizer_name, shapes, base.grad_accum)
         try:
@@ -57,7 +64,8 @@ def main() -> None:
                 arch.make_cell("train_4k"), dev, 0, 2,
                 lambda step: lm_batch(0, step, 4, 4096, cfg.vocab_size, device=dev))
             print("v3cal " + json.dumps(dict(
-                dense=dense, experts=64, peak_gb=row["peak_gb"], step_s=row["step_s"],
+                dense=dense, experts=64, heads=cfg.n_heads, d_ff=cfg.d_ff,
+                vocab_padded=cfg.vocab_padded, peak_gb=row["peak_gb"], step_s=row["step_s"],
                 init_s=row["init_s"], params=row["params"], unmoved=unmoved,
                 metrics=row["metrics"])), flush=True)
         except torch.cuda.OutOfMemoryError as e:
