@@ -89,8 +89,9 @@ Phases, any failure exits non-zero:
      embedding_bag_sum) against its plain version, bit for bit, on integer
      and float gradients, sum and mean, repeated ids, all-padding bags, ids
      >= V, D = 256, 10, 128 and 13; its device time at the two-tower train
-     batch's bag (B = 65,536, L = 50, D = 256, V = 4M, 30% padding) beside
-     its bound (the dense (V, D) output written once, g and the ids read),
+     batch's bag (B = 65,536, L = 50, D = 256, V = 4M, 30% padding), whole
+     and split into the stable sort, the row-bounds kernel and the main
+     kernel, beside its bound (the dense (V, D) output written once, g and the ids read),
      its plain version and one index_add_ of the masked rows into a zeroed
      (V, D). Then AdamW (lr 1e-3) steps through
      get_arch(name).make_cell("train_batch") and shape_batch at B = 65,536,
@@ -102,7 +103,8 @@ Phases, any failure exits non-zero:
      rows; 3 steps) and train_two_tower (published widths: dim 256, towers
      1024-512-256, history 50; cut: user_vocab and item_vocab 50M -> 4M;
      the streamed logsumexp runs 16 chunks of 4,096; 3 steps, each one
-     embedding_bag and one embedding_bag_backward launch). One `train
+     embedding_bag launch and one embedding_bag_backward call: its
+     row-bounds launch and one main launch a column slab). One `train
      {...}` line each (init, first and warm step wall ending in a sync,
      examples/s, every step's loss, peak device memory, launches) and
      `profile train_two_tower`; any loss not finite, any parameter leaf
@@ -143,7 +145,11 @@ Phases, any failure exits non-zero:
      random bf16 cache at its last 4 positions, long_500k again on a (1, 4)
      mesh of the card (four sequence shards, the MoE expert-parallel over
      4) with every step's logits within DS_MESH_TOL of the one-device
-     run's; one `lm {...}` line a cell (as 9c's, plus the share of routed
+     run's, and once more with the model made resident on that mesh by
+     the cell's fn (every leaf four parts or four replicas, the step
+     tensor-parallel, each position on its own shard), its logits within
+     DS_MESH_TOL of the whole-parameter mesh run's (steps that route
+     alike); one `lm {...}` line a cell (as 9c's, plus the share of routed
      (token, expert) pairs each MoE layer's capacity drops) and `profile
      decode_32k_v2` / `profile long_500k_v2`; deepseek-v3-671b's
      param_count on the meta device.
@@ -3341,12 +3347,16 @@ def bag_backward_phase(args, dev):
     """The embedding bag's backward kernel against its plain version, bit
     for bit, on integer and float gradients in both modes (repeated ids,
     all-padding bags, ids >= V, D = 256 / 10 / 128 / 13, the float4 and the
-    scalar paths); then its device time at the two-tower train batch's bag
-    against its bound, the plain version and one index_add_."""
+    scalar paths); then its device time at the two-tower train batch's bag,
+    whole and split into the stable sort, the row-bounds kernel and the main
+    kernel, against its bound, the plain version and one index_add_."""
     from repro_torch.data import two_tower_batch
     from repro_torch.kernels.embedding_bag import (
+        dense_rows_cuda,
         embedding_bag_backward_cuda,
         embedding_bag_backward_plain,
+        row_bounds_cuda,
+        sorted_keys,
     )
 
     gen = torch.Generator(device=dev).manual_seed(args.seed + 41)
@@ -3403,14 +3413,23 @@ def bag_backward_phase(args, dev):
              bound_ms=bd[0], bound_by=bd[1], bytes=n_bytes)
     t["ms_again"] = events_ms(embedding_bag_backward_cuda, (ids, g, BWD_V), reps=10)
     del rows, index
+    # The split: the stable sort of the keys, the row-bounds kernel over
+    # them, the main kernel writing every row of the (V, D) output once.
+    keys, pos = sorted_keys(ids, BWD_V)
+    bounds = row_bounds_cuda(keys, BWD_V)
+    t.update(sort_ms=events_ms(sorted_keys, (ids, BWD_V), reps=10),
+             bounds_ms=events_ms(row_bounds_cuda, (keys, BWD_V), reps=10),
+             kernel_ms=events_ms(dense_rows_cuda, (bounds, pos, g, BWD_L), reps=10))
+    del keys, pos, bounds
     torch.cuda.empty_cache()
     log(f"time embedding_bag_backward train B={BWD_B} L={BWD_L} D={BWD_D} V={BWD_V} "
-        f"({valid} valid ids): kernel {t['ms']:.4f} ms (again {t['ms_again']:.4f} ms; stable "
-        f"sort of the keys, zeroed (V, D) output and the kernel), plain {t['plain_ms']:.4f} ms, "
-        f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}, {n_bytes / 1e9:.4f} GB: the dense "
-        f"output written once + g + ids), {n_bytes / t['ms'] / 1e6:.1f} GB/s; library "
-        f"torch.zeros((V, D)).index_add_(0, ids, masked rows) {t['library_ms']:.4f} ms (max abs "
-        f"diff {lib_err:.3e})")
+        f"({valid} valid ids): {t['ms']:.4f} ms (again {t['ms_again']:.4f} ms): stable sort "
+        f"of the keys {t['sort_ms']:.4f} ms, row bounds {t['bounds_ms']:.4f} ms, main kernel "
+        f"{t['kernel_ms']:.4f} ms (each timed alone); plain {t['plain_ms']:.4f} ms, bound "
+        f"{t['bound_ms']:.4f} ms ({t['bound_by']}, {n_bytes / 1e9:.4f} GB: the dense output "
+        f"written once + g + ids; the main kernel at {t['bound_ms'] / t['kernel_ms']:.3f} of "
+        f"it), {n_bytes / t['ms'] / 1e6:.1f} GB/s; library torch.zeros((V, D)).index_add_(0, "
+        f"ids, masked rows) {t['library_ms']:.4f} ms (max abs diff {lib_err:.3e})")
     return max_err, t
 
 
@@ -3422,6 +3441,7 @@ def train_phase(args, dev, launch: LaunchCounts) -> None:
     once a step). One `train {...}` line each; fails on a loss that is not
     finite, a parameter leaf that did not change, or a bag launch count."""
     from repro_torch.archs.recsys import shape_batch
+    from repro_torch.kernels.embedding_bag import backward_launches
     from repro_torch.train import reference_layout
 
     t_phase = time.perf_counter()
@@ -3467,9 +3487,10 @@ def train_phase(args, dev, launch: LaunchCounts) -> None:
         check(all(math.isfinite(x) for x in losses), f"train {name}: a loss is not finite")
         check(not unchanged, f"train {name}: parameters did not change: {unchanged[:5]}")
         bags = 0 if cfg.model != "two_tower" else steps
-        check(launches["embedding_bag"] == bags and launches["embedding_bag_backward"] == bags,
+        bwd = bags * backward_launches(b, cfg.embed_dim)
+        check(launches["embedding_bag"] == bags and launches["embedding_bag_backward"] == bwd,
               f"train {name}: bag kernels launched {launches['embedding_bag']} / "
-              f"{launches['embedding_bag_backward']} times, expected {bags} each")
+              f"{launches['embedding_bag_backward']} times, expected {bags} / {bwd}")
         if cfg.model == "two_tower":
             profile_batch("train_two_tower",
                           lambda: cell.fn(model, opt_state, shape_batch(
@@ -3877,19 +3898,47 @@ def routes_of(steps) -> list:
     return [[routed_experts(mod, mod.cfg, x) for mod, x in step] for step in steps]
 
 
+def norm_route_hooks(model):
+    """A ``route_hooks`` for a model about to be made resident: it adds
+    forward hooks on each MoE layer's ``ln2`` (their views share the hooks;
+    a resident MoE is never called as a module) appending (a stand-in
+    holding a copy of the layer's router, a copy of the normed input of the
+    first part, which runs first: each part holds the same rows), routed
+    afterwards by ``routes_of``. The routers are copied now, while they
+    are whole."""
+    import copy
+    import types
+
+    routers = [types.SimpleNamespace(router=copy.deepcopy(lp.ffn.router), cfg=lp.ffn.cfg)
+               for lp in model.moe_layers]
+
+    def hooks_of(model, sink: list):
+        seen = set()
+
+        def hook(r, y):
+            if id(r) not in seen:
+                seen.add(id(r))
+                sink.append((r, y.clone()))
+
+        return [lp.ln2.register_forward_hook(lambda mod, a, y, r=r: hook(r, y))
+                for lp, r in zip(model.moe_layers, routers)]
+
+    return hooks_of
+
+
 def timed_decode(model, cache, tokens, fn, same_cache, what,
-                 routes=None) -> tuple[dict, list, list]:
+                 routes=None, hooks_of=route_hooks) -> tuple[dict, list, list]:
     """LM_DECODE_STEPS timed steps, each ending in a sync, its logits checked
     finite and ``same_cache()`` true (the cache written in place) -> (the
     cache after them, each step's wall, each step's logits); with
     ``routes``, each step's list of its MoE layers' (layer, input) pairs is
-    appended to it (``route_hooks``)."""
+    appended to it (``hooks_of``: ``route_hooks``)."""
     walls, logits = [], []
     for t in range(LM_DECODE_STEPS):
         hooks = []
         if routes is not None:
             routes.append([])
-            hooks = route_hooks(model, routes[-1])
+            hooks = hooks_of(model, routes[-1])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         lg, cache = fn(model, cache, tokens[:, t])
@@ -3966,9 +4015,9 @@ def ds_phase(args, dev) -> None:
             bound = lm_serve_bound(cfg, "decode", b, n)
             cache = lm_cache(cfg, b, n, args.seed, dev)
             mesh = None
-            if shape == "long_500k":
+            if shape == "long_500k":  # the whole-parameter and the resident mesh runs' caches
                 mi = MeshInfo(mesh=make_test_mesh(4, model=4, device="cuda:0"))
-                mesh = (mi, shard_cache(cache, mi))
+                mesh = (mi, shard_cache(cache, mi), shard_cache(cache, mi))
             ptr = cache["c"].data_ptr()
             tokens = lm_batch(args.seed, 1, b, LM_DECODE_STEPS, cfg.vocab_size,
                               device=dev)["tokens"]
@@ -4006,47 +4055,93 @@ def ds_phase(args, dev) -> None:
     del model
 
 
+def held_steps(logits, want, routes, routes_want, what) -> dict:
+    """Each step's max abs logit difference against ``want``'s and whether
+    its MoE routes (``routes_of``) differ from ``routes_want``'s; the steps
+    that route alike (at least one) must be within DS_MESH_TOL."""
+    errs = [float((a - b).abs().max()) for a, b in zip(logits, want)]
+    flipped = [any(not torch.equal(a, b) for a, b in zip(r, w))
+               for r, w in zip(routes, routes_want)]
+    held = [e for e, f in zip(errs, flipped) if not f]
+    check(bool(held) and max(held) <= DS_MESH_TOL,
+          f"lm {what}: {len(held)} steps route alike, their logits {held} apart "
+          f"(tolerance {DS_MESH_TOL})")
+    return dict(max_abs_diff=errs, routes_flipped=flipped,
+                expert_sets_differing=[sum(int((a != b).any(-1).sum()) for a, b in zip(r, w))
+                                       for r, w in zip(routes, routes_want)])
+
+
 def ds_mesh_long(mesh, model, tokens, one, walls_one, bound, arch) -> None:
-    """long_500k on the (1, 4) mesh of the card from the same starting cache;
-    one `lm {...}` line (cell long_500k_v2_p4). A step whose MoE layers
-    route its token to the same experts as the one-device run's step holds
-    its logits within DS_MESH_TOL of that run's. The shards' sums round in
-    another order, so a token near a tie at the bf16 threshold may route
-    elsewhere (a flip), and a flipped step's logits part by the experts'
-    difference: flipped steps are counted, and at least one step must be
-    held."""
+    """long_500k on the (1, 4) mesh of the card from the same starting cache,
+    the parameters whole (cell long_500k_v2_p4), then the model made
+    resident on that mesh (the cell's ``fn``: tensor-parallel, each
+    position on its own sequence shard; long_500k_v2_p1x4_resident); one
+    `lm {...}` line each. A step whose MoE layers route its token to the
+    same experts as the run it is held to keeps its logits within
+    DS_MESH_TOL of that run's: the whole-parameter mesh run is held to
+    the one-device run, the resident run to the whole-parameter mesh run.
+    The sums round in other orders, so a token near a tie at the bf16
+    threshold may route elsewhere (a flip), and a flipped step's logits
+    part by the experts' difference: flipped steps are counted, and at
+    least one step must be held."""
+    import functools
+
+    from repro_torch.archs.lm import serve_decode
+    from repro_torch.distributed.layout import whole_leaves
+
     want, routes_one = one
-    mi, cache = mesh
-    fn = arch.make_cell("long_500k", mi).fn
+    mi, cache, cache_resident = mesh
     blocks = cache["c"][0]
     ptrs = [blk.data_ptr() for blk in blocks]
     routes = []
-    cache, walls, logits = timed_decode(model, cache, tokens, fn,
-                                     lambda: [blk.data_ptr() for blk in blocks] == ptrs,
+    cache, walls, logits = timed_decode(model, cache, tokens, functools.partial(
+        serve_decode, mi=mi), lambda: [blk.data_ptr() for blk in blocks] == ptrs,
                                      "long_500k_v2_p4", routes)
     check(all(a is b for a, b in zip(cache["c"][0], blocks))
           and int(cache["pos"]) == blocks[0].shape[2] * len(blocks),
           f"lm long_500k_v2_p4: the cache's blocks were replaced, or pos {int(cache['pos'])}")
-    errs = [float((a - b).abs().max()) for a, b in zip(logits, want)]
-    routes, routes_one = routes_of(routes), routes_of(routes_one)
-    flipped = [any(not torch.equal(a, b) for a, b in zip(r_mesh, r_one))
-               for r_mesh, r_one in zip(routes, routes_one)]
-    held = [e for e, f in zip(errs, flipped) if not f]
-    check(bool(held) and max(held) <= DS_MESH_TOL,
-          f"lm long_500k_v2_p4: {len(held)} steps route as the one-device run's, their logits "
-          f"{held} apart (tolerance {DS_MESH_TOL})")
+    routes = routes_of(routes)  # while the model is whole
+    held = held_steps(logits, want, routes, routes_of(routes_one), "long_500k_v2_p4")
     warm = sorted(walls[1:])[len(walls[1:]) // 2]
     log("lm " + json.dumps(dict(
         cell="long_500k_v2_p4", model=DS_NAME, mesh=[1, 4], shards=len(blocks),
         shard_rows=blocks[0].shape[2], steps=LM_DECODE_STEPS, first_step_s=walls[0],
         step_s_median=warm, step_s=walls, tokens_per_s=1 / warm,
         one_device_step_s_median=sorted(walls_one[1:])[len(walls_one[1:]) // 2],
-        max_abs_diff_vs_one_device=errs, routes_flipped=flipped,
-        expert_sets_differing=[sum(int((a != b).any(-1).sum()) for a, b in zip(rm, ro))
-                               for rm, ro in zip(routes, routes_one)], tolerance=DS_MESH_TOL,
+        max_abs_diff_vs_one_device=held["max_abs_diff"], routes_flipped=held["routes_flipped"],
+        expert_sets_differing=held["expert_sets_differing"], tolerance=DS_MESH_TOL,
         logit_max=float(max(lg.abs().max() for lg in want)),
         peak_gb=torch.cuda.max_memory_allocated() / 1e9, bound_s=bound["bound_s"],
         bound_by=bound["bound_by"], bound_share=bound["bound_s"] / warm)))
+    del cache, blocks
+
+    # The same four steps with the model resident on the mesh: the cell's
+    # fn turns it resident in place at its first step (timed apart).
+    fn = arch.make_cell("long_500k", mi).fn
+    blocks = cache_resident["c"][0]
+    ptrs = [blk.data_ptr() for blk in blocks]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    routes_r = []
+    cache, walls_r, logits_r = timed_decode(
+        model, cache_resident, tokens, fn, lambda: [blk.data_ptr() for blk in blocks] == ptrs,
+        "long_500k_v2_p1x4_resident", routes_r, norm_route_hooks(model))
+    check(not whole_leaves(model), "lm long_500k_v2_p1x4_resident: the model is not resident")
+    check(int(cache["pos"]) == blocks[0].shape[2] * len(blocks),
+          f"lm long_500k_v2_p1x4_resident: pos {int(cache['pos'])}")
+    held_r = held_steps(logits_r, logits, routes_of(routes_r), routes,
+                        "long_500k_v2_p1x4_resident")
+    warm_r = sorted(walls_r[1:])[len(walls_r[1:]) // 2]
+    log("lm " + json.dumps(dict(
+        cell="long_500k_v2_p1x4_resident", model=DS_NAME, mesh=[1, 4], shards=len(blocks),
+        shard_rows=blocks[0].shape[2], steps=LM_DECODE_STEPS,
+        first_step_s=walls_r[0], first_step_note="includes make_resident of the whole model",
+        step_s_median=warm_r, step_s=walls_r, tokens_per_s=1 / warm_r,
+        whole_mesh_step_s_median=warm, max_abs_diff_vs_whole_mesh=held_r["max_abs_diff"],
+        routes_flipped=held_r["routes_flipped"],
+        expert_sets_differing=held_r["expert_sets_differing"], tolerance=DS_MESH_TOL,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9, bound_s=bound["bound_s"],
+        bound_by=bound["bound_by"], bound_share=bound["bound_s"] / warm_r)))
     del cache, blocks
 
 

@@ -21,7 +21,11 @@ logits. decode_32k and long_500k run one decode step: one new token a
 sequence against an S-token KV cache, written in place (the reference
 donates its cache). long_500k decodes over a 524,288-token cache; its
 quadratic prefill is skipped, as the reference skips it for these
-pure full-attention archs.
+pure full-attention archs. Over a mesh of more than one position that
+divides every leaf the serve cells hold the model resident as its blocks,
+as the train cell does (from ``make_inputs`` on, or from a whole model's
+first call), and run tensor-parallel; over a mesh that does not divide
+them, whole, on the whole-parameter mesh path.
 """
 from __future__ import annotations
 
@@ -33,9 +37,10 @@ import torch
 from repro_torch.archs.base import Arch, CellSpec
 from repro_torch.common.device import make_generator, resolve_device
 from repro_torch.data.pipeline import lm_batch
+from repro_torch.distributed import layout
 from repro_torch.models.transformer import model as tm
 from repro_torch.train.optimizer import adafactor, adamw
-from repro_torch.train.train_step import init_state, make_train_step
+from repro_torch.train.train_step import init_state, make_train_step, param_leaves
 
 LM_SHAPES: Dict[str, dict] = {
     "train_4k": dict(kind="train", seq_len=4096, global_batch=256),
@@ -57,6 +62,26 @@ def serve_decode(model: tm.Transformer, cache: dict, tokens, mi=None):
     """decode: tokens (B,) at ``cache["pos"]`` -> (logits, the cache with pos
     + 1), the cache written in place."""
     return tm.decode_step(model, cache, tokens, mi)
+
+
+def resident_mesh(cfg: tm.TransformerConfig, mi):
+    """The mesh a serve cell holds its model resident over: ``mi`` where it
+    has more than one position and divides every leaf of ``param_specs``,
+    else None (the parameters stay whole). An MoE also needs the whole
+    path's expert-parallel branch (a model axis > 1 that divides E): where
+    that branch is not taken, the whole path gives all tokens one capacity,
+    and a resident MoE would give each data group its own."""
+    if not tm.resident_names(cfg, mi):
+        return None
+    if cfg.is_moe and not (mi.tp_size > 1 and cfg.n_experts % mi.tp_size == 0):
+        return None
+    leaves = param_leaves(tm.Transformer(cfg, device="meta"))
+    try:
+        for k, spec in tm.param_specs(cfg, mi).items():
+            layout.shard_shape(leaves[k].shape, spec, mi.mesh)
+    except ValueError:
+        return None
+    return mi
 
 
 class LMArch(Arch):
@@ -86,11 +111,13 @@ class LMArch(Arch):
         metrics)``, over ``mi`` where given. prefill: ``fn(model,
         tokens)``; decode cells: ``fn(model, cache, tokens) -> (logits,
         cache)``, over ``mi`` where given (the MoE's expert-parallel branch,
-        the sequence-sharded cache). ``make_inputs(seed, device)`` draws the
-        model from ``seed`` (``init_params``), the tokens from ``lm_batch``
-        at step 0 (decode: its first column) and, for train_4k, the
-        optimizer's initial state, for decode a zero cache of the shape's
-        length at position 0 laid out for ``mi`` (``init_cache``)."""
+        the sequence-sharded cache; the model resident over a mesh that
+        ``resident_mesh`` admits, tensor-parallel). ``make_inputs(seed,
+        device)`` draws the model from ``seed`` (``init_params``; resident
+        where the cell's step is), the tokens from ``lm_batch`` at step 0
+        (decode: its first column) and, for train_4k, the optimizer's
+        initial state, for decode a zero cache of the shape's length at
+        position 0 laid out for ``mi`` (``init_cache``)."""
         cfg = self.cfg
         sh = self.shapes[shape]
         b, s = sh["global_batch"], sh["seq_len"]
@@ -118,17 +145,22 @@ class LMArch(Arch):
                             make_inputs=make_train_inputs,
                             specs=None if mesh is None else tm.param_specs(cfg, mesh))
         prefill = shape.startswith("prefill")
+        resident = resident_mesh(cfg, mi)
 
         def make_inputs(seed: int = 0, device="cuda"):
             dev = resolve_device(device)
             gen = make_generator(dev, seed)
-            model = tm.init_params(gen, cfg, device=dev)
+            model = tm.make_resident(tm.init_params(gen, cfg, device=dev), resident)
             tokens = lm_batch(seed, 0, b, s if prefill else 1, cfg.vocab_size,
                               device=dev)["tokens"]
             if prefill:
                 return model, tokens
             return model, tm.init_cache(cfg, b, s, device=dev, mi=mi), tokens[:, 0]
 
-        fn = serve_prefill if prefill else serve_decode
-        return CellSpec(name=name, kind="serve", fn=functools.partial(fn, mi=mi),
-                        make_inputs=make_inputs)
+        serve = serve_prefill if prefill else serve_decode
+
+        def fn(model, *args):
+            # a model built whole turns resident at its first call over the mesh
+            return serve(tm.make_resident(model, resident), *args, mi=mi)
+
+        return CellSpec(name=name, kind="serve", fn=fn, make_inputs=make_inputs)

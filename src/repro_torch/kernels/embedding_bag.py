@@ -27,10 +27,13 @@ the dense (V, D) d_table the reference's ``jax.grad`` of
 ``embedding_bag_sum`` gives: d_table[r] = the sum of g[b] over every
 (b, l) with ids[b, l] == r (g[b] divided by its bag's count first in mean
 mode). No TPU kernel stands behind it (the reference differentiates the
-jnp gather); on the card it is the CUDA kernel
+jnp gather); on the card it is the CUDA kernels of
 ``csrc/embedding_bag_backward.cu``, bound by the bytes of the dense
-output. Its order is pinned too: ``torch.sort`` orders the flattened ids
-stably (padding last), and each row's contributions are added in
+output, which they write once: ``torch.sort`` orders the flattened ids
+stably (padding last), a small kernel writes each row's run of the sorted
+order as CSR offsets (``row_bounds_cuda``), and the main one writes every
+row of the (V, D) output once, in row order (``torch.empty``: no zeroing
+pass). Its order is pinned too: each row's contributions are added in
 row-major (b, l) order from +0.0, one rounded add at a time, on the card
 and in the plain version alike.
 """
@@ -46,9 +49,14 @@ MODES = ("sum", "mean")
 # table, ids, out; B, L, D; V; vec4, mean; stream
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_longlong]
              + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-# keys, pos, g, out; n; L, D; V; vec4; stream
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 2
-                 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+# keys, bounds; n, V; stream
+_BOUNDS_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
+# bounds, pos, g, out; L, D; V; vec4, slab; stream
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+                 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+# The backward's main kernel reads random rows of g: it walks the columns in
+# slabs whose share of g (B x slab floats) fits this much of the 50 MB L2.
+SLAB_BYTES = 24 << 20
 
 
 def _check_mode(mode: str) -> None:
@@ -191,27 +199,67 @@ def _check_backward(ids, g, v: int) -> None:
     require(ids.shape[1] >= 1 and g.shape[1] < 2**31, "L must be >= 1 and D < 2**31")
 
 
-def embedding_bag_backward_cuda(ids, g, v: int, mode: str = "sum"):
-    """Launch the backward kernel on the current stream (after the stable
-    sort of the keys and a zeroed (V, D) output); does not synchronise."""
-    _check_backward(ids, g, v)
+def row_bounds_cuda(keys, v: int):
+    """``sorted_keys``' keys (n,) -> the (V + 1,) int32 CSR offsets of their
+    runs, row r's being [bounds[r], bounds[r + 1]) (``torch.searchsorted``
+    of 0..V into the keys), each entry written once by the row-bounds
+    kernel; does not synchronise."""
+    require(keys.numel() < 2**31 - 1, "B * L must be < 2**31 - 1: the offsets are int32")
+    fn = kernel_entry("embedding_bag_backward", "repro_embedding_bag_row_bounds",
+                      _BOUNDS_ARGTYPES)
+    bounds = torch.empty(v + 1, dtype=torch.int32, device=keys.device)
+    launch("embedding_bag_backward", keys.device, fn, keys.data_ptr(), bounds.data_ptr(),
+           keys.numel(), v)
+    embedding_bag_backward.launches += 1
+    return bounds
+
+
+def slab_width(b: int, d: int) -> int:
+    """The main kernel's columns a launch: the most whose share of a (b, d)
+    g fits ``SLAB_BYTES``, in whole warps' spans of float4 (128 columns),
+    at least one span, at most d."""
+    span = 128
+    return min(d, max(span, SLAB_BYTES // (4 * max(b, 1)) // span * span))
+
+
+def backward_launches(b: int, d: int) -> int:
+    """The kernel launches of one ``embedding_bag_backward`` call on a card
+    with a (b, d) upstream gradient: the row bounds, then a slab each."""
+    return 1 + -(-d // slab_width(b, d))
+
+
+def dense_rows_cuda(bounds, pos, gs, length: int, slab=None):
+    """The (V, D) gradient from the runs' offsets (``row_bounds_cuda``), the
+    sorted keys' flat positions and the (scaled) upstream gradient, every
+    element written once by the main kernel, one launch a slab of ``slab``
+    columns (``slab_width``); does not synchronise."""
     fn = kernel_entry("embedding_bag_backward", "repro_embedding_bag_backward", _BWD_ARGTYPES)
+    v, (b, d) = bounds.numel() - 1, gs.shape
+    out = torch.empty((v, d), dtype=torch.float32, device=gs.device)
+    vec4 = int(d % 4 == 0 and gs.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+    slab = slab_width(b, d) if slab is None else slab
+    launch("embedding_bag_backward", gs.device, fn, bounds.data_ptr(), pos.data_ptr(),
+           gs.data_ptr(), out.data_ptr(), length, d, v, vec4, slab)
+    embedding_bag_backward.launches += -(-d // slab)  # the entry point's launches: a slab each
+    return out
+
+
+def embedding_bag_backward_cuda(ids, g, v: int, mode: str = "sum"):
+    """The stable sort of the keys, then the row-bounds and the main kernel
+    on the current stream; does not synchronise."""
+    _check_backward(ids, g, v)
     gs = _scaled_grad(ids, g, mode).contiguous()
     keys, pos = sorted_keys(ids, v)
-    d = g.shape[1]
-    out = torch.zeros((v, d), dtype=torch.float32, device=g.device)
-    vec4 = int(d % 4 == 0 and gs.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
-    launch("embedding_bag_backward", g.device, fn, keys.data_ptr(), pos.data_ptr(), gs.data_ptr(),
-           out.data_ptr(), keys.numel(), ids.shape[1], d, v, vec4)
-    embedding_bag_backward.launches += 1
-    return out
+    return dense_rows_cuda(row_bounds_cuda(keys, v), pos, gs, ids.shape[1])
 
 
 def embedding_bag_backward(ids, g, v: int, *, mode: str = "sum"):
     """(B, L) int32 ids (-1 pads), (B, D) float32 upstream gradient, V ->
     the dense (V, D) gradient of ``embedding_bag``'s table. CUDA tensors
-    launch the kernel (or raise); CPU tensors take the plain version.
-    ``embedding_bag_backward.launches`` counts kernel launches."""
+    launch the kernels (or raise); CPU tensors take the plain version.
+    ``embedding_bag_backward.launches`` counts the kernel launches: one of
+    the row-bounds kernel a call, and one of the main kernel a column slab
+    (``slab_width``; ``backward_launches`` a call in all)."""
     return dispatch(g.device, embedding_bag_backward_cuda, embedding_bag_backward_plain)(
         ids, g, v, mode)
 

@@ -11,9 +11,11 @@ from repro_torch.models.transformer.model import (
     gather_cache,
     init_cache,
     init_params,
+    make_resident,
     prefill_logits,
     shard_cache,
 )
 
 __all__ = ["Transformer", "TransformerConfig", "cache_shape", "decode_step", "forward_hidden",
-           "gather_cache", "init_cache", "init_params", "prefill_logits", "shard_cache"]
+           "gather_cache", "init_cache", "init_params", "make_resident", "prefill_logits",
+           "shard_cache"]

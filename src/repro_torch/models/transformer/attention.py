@@ -24,6 +24,14 @@ max over the shards, lsum and o each corrected and summed in shard order
 0..n-1 (the port's collective rule, ``distributed/meshinfo.py``). The
 reference's ``seq_axis`` is the length of that sequence.
 
+Over a mesh whose parameters are resident (``gqa_decode_tp``,
+``mla_decode_tp``) the cache is a grid of blocks [data group][sequence
+shard], block [g][m] on the device of grid position (g, m), where the
+group's position m works: the projections are tensor-parallel, the new
+token's heads gathered over the model positions, each position writes and
+scores its own shard for every head, the shards' partials are combined by
+the same rule and placed on each position, and ``wo`` is row-parallel.
+
 MLA (DeepSeek-V2 / V3 multi-head latent attention) caches one latent row
 [c_kv ; RoPE(k_rope)] (r + dr values, no head axis) a token. Prefill
 expands it (``mla_train``: k = [k_nope ; k_rope broadcast over the
@@ -40,7 +48,14 @@ from typing import Sequence, Union
 import torch
 from torch import nn
 
-from repro_torch.models.common.modules import Dense, RMSNorm, apply_rope, chunked_attention
+from repro_torch.models.common.modules import (
+    Dense,
+    RMSNorm,
+    apply_rope,
+    chunked_attention,
+    rope_frequencies,
+    rotate_halves,
+)
 from repro_torch.roofline import collectives
 
 DECODE_CHUNK = 8192  # cache rows a chunk of the decode softmax: bounds the f32 score slice
@@ -223,6 +238,61 @@ def _lse_combine(parts):
     return o_g / l_g.clamp_min(1e-30)[..., None]
 
 
+def rope_one(x, pos, theta: float):
+    """RoPE at one position: x (B, H, d), pos a 0-d tensor."""
+    angles = pos.float() * rope_frequencies(x.shape[-1], theta, device=x.device)  # (d / 2,)
+    return rotate_halves(x, torch.cos(angles), torch.sin(angles))
+
+
+def _cache_block(entry, g: int, m: int, groups: int):
+    """Data group g's block of sequence shard m of a layer's cache entry: its
+    grid's block [g][m], or the group's rows of a one-device tensor (a model
+    axis of one position: one shard; a view, so writes land in place)."""
+    if isinstance(entry, torch.Tensor):
+        bl = entry.shape[0] // groups
+        return entry[g * bl : (g + 1) * bl]
+    return entry[g][m]
+
+
+def _attend_shards_tp(grid, inputs: list, partial, caches) -> list:
+    """Each data group's decode attention over its sequence shards, on a
+    ``tensor_parallel.Grid``: ``inputs`` each part's tuple of group values
+    (the new token's rows), ``partial(rows, blocks, m)`` sequence shard m's
+    write and partial softmax (m, lsum, o) on its blocks' device (the
+    blocks of ``caches``, a layer's entries). Each group's partials are
+    combined in shard order (``_lse_combine``: the reference's pmax and
+    psums, reported for group 0) and the row's groups placed on every part
+    of the row -> the output, a group value."""
+    out = [None] * len(grid.parts)
+    for row in grid.rows:
+        gs = grid.parts[row[0]].gs
+        totals = []
+        for j, g in enumerate(gs):
+            parts = []
+            for i in row:
+                rows = [t.reshape(len(gs), -1, *t.shape[1:])[j] for t in inputs[i]]
+                for m in grid.parts[i].ms:
+                    blocks = [_cache_block(c, g, m, grid.groups) for c in caches]
+                    dev = blocks[0].device
+                    parts.append(partial([t.to(dev) for t in rows], blocks, m))
+            with collectives.group(g):
+                totals.append(_lse_combine(parts))
+        dev = grid.parts[row[0]].device
+        total = torch.cat([t.to(dev) for t in totals], dim=0)
+        for i, x in zip(row, grid.place(row, total)):
+            out[i] = x
+    return out
+
+
+def _own_block(grid, i: int, x):
+    """Part i's group value (G B, S, tp w) -> its position value (G M B, S,
+    w): each of its model positions' block of the last dimension."""
+    p = grid.parts[i]
+    g, s = len(p.gs), x.shape[1]
+    x = x.reshape(g, -1, s, grid.tp, x.shape[-1] // grid.tp)[:, :, :, p.ms[0] : p.ms[-1] + 1]
+    return x.permute(0, 3, 1, 2, 4).reshape(-1, s, x.shape[-1])
+
+
 def _chunked_partial_softmax(chunk_fn, s_local: int, init_o_shape, device):
     """Online softmax over cache chunks -> the partial (m, lsum, o).
 
@@ -306,6 +376,39 @@ def gqa_decode_attend(q, k_cache: Cache, v_cache: Cache, k_new, v_new, pos):
         parts.append(_gqa_partial(q.to(dev), kc, vc, k_new.to(dev), v_new.to(dev), pos.to(dev),
                                   i))
     return _lse_combine(parts).reshape(b, h, dh), k_cache, v_cache
+
+
+def gqa_decode_tp(views, cfg, hs, k_cache, v_cache, pos, grid) -> list:
+    """``gqa_decode_attend`` with its projections over a mesh whose
+    parameters are resident: ``views`` the block as each part of ``grid``
+    holds it, ``hs`` the normed new tokens (a group value (G B, 1, D)),
+    ``k_cache`` / ``v_cache`` a layer's grid of blocks [g][m] (or, over a
+    model axis of one position, its one-device tensors), ``pos`` the 0-d
+    position -> the output (a group value). ``wq`` / ``wk`` / ``wv`` are
+    column-parallel and their blocks gathered over the model positions (one
+    all-gather), so every position holds every head of the new token,
+    whatever tp divides; RoPE at ``pos``; each position writes k / v into its
+    shard and scores it for every head (``_gqa_partial``); the combined
+    output's columns that a position's block of ``wo``'s rows reads go
+    through ``wo``, row-parallel."""
+    tp, hds, hkv, dh = grid.tp, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    split = (hds * dh // tp, hkv * dh // tp, hkv * dh // tp)
+    joined = grid.gather(grid.each(lambda ap, x: torch.cat([ap.wq(x), ap.wk(x), ap.wv(x)], -1),
+                                   views, hs))
+    heads = []
+    for x in joined:  # (G B, 1, tp (q + k + v) columns), position-major
+        n, at = x.shape[0], pos.to(x.device)
+        q, k, v = (t.reshape(n, -1, dh) for t in x.reshape(n, tp, -1).split(split, -1))
+        heads.append((rope_one(q, at, cfg.rope_theta), rope_one(k, at, cfg.rope_theta), v))
+
+    def partial(rows, blocks, m):
+        q, k_new, v_new = rows
+        return _gqa_partial(q, blocks[0], blocks[1], k_new, v_new, pos.to(q.device), m)
+
+    o = _attend_shards_tp(grid, heads, partial, (k_cache, v_cache))
+    cols = [_own_block(grid, i, x.reshape(x.shape[0], 1, -1).to(h.dtype))
+            for i, (x, h) in enumerate(zip(o, hs))]
+    return grid.row_sum(grid.each(lambda ap, x: ap.wo(x), views, cols))
 
 
 # ===========================================================================
@@ -499,3 +602,113 @@ def mla_decode_attend(ap: MLAttention, cfg, x_tok, c_cache: Cache, pos):
     o_lat = _lse_combine(parts).to(x_tok.device)  # (B, H, r)
     out = torch.einsum("bhr,rhd->bhd", o_lat, wkv_b[..., dn:])  # (B, H, dv)
     return ap.wo(out.reshape(b, h * dv).to(x_tok.dtype)), c_cache
+
+
+def _wkv_b_blocks(ap):
+    """A part's model shards of ``wkv_b`` as one float32 (Mp, n, r) tensor
+    (n = H (dn + dv) / tp rows of the port's weight, r its input)."""
+    return torch.stack([w.float() for w in ap.wkv_b.ws])
+
+
+def _padded_heads(w, m: int, tp: int, h: int, d: int):
+    """Position m's (n, r) block of a head-major (H d, r) weight -> (its
+    first head, the block zero-padded to whole heads (heads, d, r))."""
+    first, last, off, width = _head_span(m, tp, h, d)
+    pad = w.new_zeros(((last - first) * d, w.shape[-1]))
+    pad[off : off + width] = w
+    return first, pad.reshape(last - first, d, -1)
+
+
+def _mla_q_tp(views, cfg, hs, at, grid) -> list:
+    """The queries of the new token over a mesh -> a group value (G B, H, r +
+    dr) float32: [q_nope W_uk ; RoPE(q_rope)] of every head. Where tp
+    divides H each position's heads of q (column-parallel) meet its head
+    block of ``wkv_b`` and the results are gathered (one all-gather); else q
+    is gathered first and each position's ``wkv_b`` rows, padded to whole
+    heads, give partial products summed over the positions (one
+    all-reduce)."""
+    h, dn, dr, dv, r, tp = (cfg.n_heads, cfg.d_nope, cfg.d_rope, cfg.d_v, cfg.kv_lora_rank,
+                            grid.tp)
+    if cfg.q_lora_rank:
+        a = grid.gather(grid.each(lambda ap, x: ap.wq_a(x), views, hs))
+        q = grid.each(lambda ap, x: ap.wq_b(ap.q_norm(x)), views, a)
+    else:
+        q = grid.each(lambda ap, x: ap.wq(x), views, hs)
+    if h % tp == 0:
+        out = []
+        for i, (ap, qi) in enumerate(zip(views, q)):
+            p, hl = grid.parts[i], h // tp
+            q_nope, q_rope = _mla_q_heads(cfg, qi)  # (G M B, 1, hl, dn), (..., dr)
+            q_rope = apply_rope(q_rope, at.to(qi.device), cfg.rope_theta)[:, 0].float()
+            w = _wkv_b_blocks(ap).reshape(len(p.ms), hl, dn + dv, r)
+            qn = q_nope[:, 0].float().reshape(len(p.gs), len(p.ms), -1, hl, dn)
+            q_eff = torch.einsum("gmbhd,mhdr->gmbhr", qn, w[:, :, :dn]).reshape(-1, hl, r)
+            out.append(torch.cat([q_eff, q_rope], -1).flatten(1))
+        return [x.reshape(x.shape[0], h, r + dr) for x in grid.gather(out)]
+    q = grid.gather(q)
+    rope, partials = [], []
+    for i, (ap, qi) in enumerate(zip(views, q)):
+        p = grid.parts[i]
+        q_nope, q_rope = _mla_q_heads(cfg, qi)  # (G B, 1, H, dn), (..., dr)
+        rope.append(apply_rope(q_rope, at.to(qi.device), cfg.rope_theta)[:, 0].float())
+        qn = q_nope[:, 0].float().reshape(len(p.gs), -1, h, dn)
+        eff = qn.new_zeros((len(p.gs), len(p.ms), qn.shape[1], h, r))
+        for j, (m, w) in enumerate(zip(p.ms, _wkv_b_blocks(ap))):
+            first, wp = _padded_heads(w, m, tp, h, dn + dv)
+            span = slice(first, first + wp.shape[0])
+            eff[:, j, :, span] = torch.einsum("gbhd,hdr->gbhr", qn[:, :, span], wp[:, :dn])
+        partials.append(eff.reshape(-1, h, r))
+    return grid.each(lambda e, x: torch.cat([e, x], -1), grid.row_sum(partials), rope)
+
+
+def mla_decode_tp(views, cfg, hs, c_cache, pos, grid) -> list:
+    """``mla_decode_attend`` over a mesh whose parameters are resident
+    (``gqa_decode_tp``'s arguments, ``c_cache`` a layer's grid of latent
+    blocks). ``wkv_a`` / ``wq_a`` are column-parallel and gathered before
+    ``kv_norm`` / ``q_norm``; q_eff = q_nope W_uk from each position's head
+    block of ``wkv_b`` (``_mla_q_tp``); each position writes the latent row
+    [c_kv ; RoPE(k_rope)] into its shard and scores it for every head
+    (``_mla_partial``); the combined o_lat meets W_uv on each position's own
+    heads (where tp does not divide H: on its rows of ``wkv_b`` padded to
+    whole heads, the products summed over the positions and each position
+    taking the columns its block of ``wo``'s rows reads); ``wo`` is
+    row-parallel."""
+    h, dn, dr, dv, r, tp = (cfg.n_heads, cfg.d_nope, cfg.d_rope, cfg.d_v, cfg.kv_lora_rank,
+                            grid.tp)
+    at = pos.reshape(1)
+    entries = []
+    for ap, x in zip(views, grid.gather(grid.each(lambda ap, x: ap.wkv_a(x), views, hs))):
+        c_new, k_rope = _mla_kv_split(ap, cfg, x)  # (G B, 1, r), (G B, 1, dr)
+        k_rope = apply_rope(k_rope[..., None, :], at.to(x.device), cfg.rope_theta)[..., 0, :]
+        entries.append(torch.cat([c_new, k_rope], dim=-1)[:, 0])
+    q = _mla_q_tp(views, cfg, hs, at, grid)
+    scale = 1.0 / math.sqrt(dn + dr)
+
+    def partial(rows, blocks, m):
+        qm, entry = rows
+        dt = blocks[0].dtype
+        return _mla_partial(qm[..., :r].to(dt), qm[..., r:].to(dt), entry, blocks[0],
+                            pos.to(entry.device), m, r, scale)
+
+    o_lat = _attend_shards_tp(grid, [(a, b) for a, b in zip(q, entries)], partial, (c_cache,))
+    outs = []
+    for i, (ap, o, x) in enumerate(zip(views, o_lat, hs)):
+        p = grid.parts[i]
+        ws = _wkv_b_blocks(ap)
+        o = o.reshape(len(p.gs), -1, h, r)  # (G, B, H, r) float32
+        if h % tp == 0:
+            hl = h // tp
+            w = ws.reshape(len(p.ms), hl, dn + dv, r)[:, :, dn:]
+            own = o.reshape(len(p.gs), -1, tp, hl, r)[:, :, p.ms[0] : p.ms[-1] + 1]
+            out = torch.einsum("gbmhr,mhdr->gmbhd", own, w).reshape(-1, 1, hl * dv)
+        else:
+            out = o.new_zeros((len(p.gs), len(p.ms), o.shape[1], h, dv))
+            for j, (m, w) in enumerate(zip(p.ms, ws)):
+                first, wp = _padded_heads(w, m, tp, h, dn + dv)
+                span = slice(first, first + wp.shape[0])
+                out[:, j, :, span] = torch.einsum("gbhr,hdr->gbhd", o[:, :, span], wp[:, dn:])
+            out = out.reshape(-1, 1, h * dv)
+        outs.append(out)
+    if h % tp:
+        outs = [_own_block(grid, i, x) for i, x in enumerate(grid.row_sum(outs))]
+    return grid.row_sum(grid.each(lambda ap, o, x: ap.wo(o.to(x.dtype)), views, outs, hs))

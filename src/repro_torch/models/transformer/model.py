@@ -53,8 +53,12 @@ over the positions; the cross-entropy's logits, combined by the
 log-sum-exp rule). The positions that one device holds (a mesh that
 repeats a device) run as one batched call: a dense model's step over a
 (g, 1) mesh of one device is one device's, bit for bit. ``prefill_logits``
-takes the same path on a resident model; ``decode_step`` serves whole
-parameters only.
+and ``decode_step`` take the same path on a resident model (the decode
+step: each model position scores its own sequence shard of the cache,
+which lies on its device; ``attention.py``). Over a (g, 1) mesh a resident
+MoE takes each data group's capacity, where the reference's decode and
+train step take one over all tokens (its expert-parallel branch needs a
+model axis > 1): the MoE's routes may differ there (ROADMAP Queue 3).
 ``cfg.remat`` rematerialises
 each layer and each cross-entropy chunk in the backward where autograd
 records (``"full"``: nothing saved; ``"dots"``: the products without
@@ -86,8 +90,6 @@ from repro_torch.models.common.modules import (
     Embedding,
     RMSNorm,
     StackedLayers,
-    rope_frequencies,
-    rotate_halves,
 )
 from repro_torch.models.recsys.models import fill_normal_
 from repro_torch.models.transformer import attention as attn
@@ -452,16 +454,20 @@ def _embed_tp(model: Transformer, tokens, grid) -> list:
     return grid.each(lambda x: x.to(model.cfg.compute_dtype), grid.row_sum(reads))
 
 
-def _layer_tp(cfg: TransformerConfig, lp: Layer, xs: list, grid) -> list:
+def _layer_tp(cfg: TransformerConfig, lp: Layer, xs: list, grid, attend=None) -> list:
     """``_layer_apply`` over a mesh: the residual stream (a group value) ->
     the same after the layer. Each part reads its blocks (gathered over the
     data positions where those split them) and its norms' replicas;
     attention and the feed-forward are tensor-parallel, their outputs
-    summed over the model positions."""
+    summed over the model positions. ``attend(views, h)``: the attention
+    (the decode step's); by default the causal prefill / training one."""
     views = grid.views(lp)
     h = grid.each(lambda v, x: v.ln1(x), views, xs)
     at = [v.attn for v in views]
-    a = (attn.mla_train_tp if cfg.attn_type == "mla" else attn.gqa_train_tp)(at, cfg, h, grid)
+    if attend is None:
+        a = (attn.mla_train_tp if cfg.attn_type == "mla" else attn.gqa_train_tp)(at, cfg, h, grid)
+    else:
+        a = attend(at, h)
     xs = grid.each(torch.add, xs, a)
     h = grid.each(lambda v, x: v.ln2(x), views, xs)
     ffn = [v.ffn for v in views]
@@ -609,14 +615,18 @@ def _lm_loss_tp(model: Transformer, tokens, mi):
     return loss, metrics
 
 
-def _prefill_tp(model: Transformer, tokens, mi):
-    """``prefill_logits`` of a resident model over ``mi``: each position's
-    vocabulary block of the last position's logits, gathered over the model
-    positions, the groups' rows joined on the mesh's first device."""
-    grid = _grid(tokens, mi)
-    hs = _hidden_tp(model, tokens, grid)
+def _last_logits_tp(model: Transformer, grid, hs: list):
+    """The last position's float32 logits of the final hidden states ``hs``
+    (a group value): each position's vocabulary block, gathered over the
+    model positions, the groups' rows joined on the mesh's first device."""
     logits = grid.each(lambda f, h: f(h[:, -1]).float(), grid.products(model.lm_head), hs)
     return grid.join_groups(grid.gather(logits))
+
+
+def _prefill_tp(model: Transformer, tokens, mi):
+    """``prefill_logits`` of a resident model over ``mi``."""
+    grid = _grid(tokens, mi)
+    return _last_logits_tp(model, grid, _hidden_tp(model, tokens, grid))
 
 
 def _shifted(tokens, k: int):
@@ -760,12 +770,6 @@ def _layer_cache(entry, i: int):
     return [[blk[i] for blk in row] for row in entry]
 
 
-def _rope_one(x, pos, theta: float):
-    """RoPE at one position: x (B, H, d), pos a 0-d tensor."""
-    angles = pos.float() * rope_frequencies(x.shape[-1], theta, device=x.device)  # (d / 2,)
-    return rotate_halves(x, torch.cos(angles), torch.sin(angles))
-
-
 def _by_batch_block(fn, x, caches):
     """fn(x rows, the block's caches) for each batch block of a grid, the
     outputs concatenated on x's device; a one-device cache is one block."""
@@ -786,8 +790,8 @@ def _gqa_decode_sharded(ap, cfg: TransformerConfig, h, k_cache, v_cache, pos):
     b = h.shape[0]
     hds, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     posh = pos.to(h.device)
-    q = _rope_one(ap.wq(h).reshape(b, hds, dh), posh, cfg.rope_theta)
-    k_new = _rope_one(ap.wk(h).reshape(b, hkv, dh), posh, cfg.rope_theta)
+    q = attn.rope_one(ap.wq(h).reshape(b, hds, dh), posh, cfg.rope_theta)
+    k_new = attn.rope_one(ap.wk(h).reshape(b, hkv, dh), posh, cfg.rope_theta)
     qkv = torch.cat([q, k_new, ap.wv(h).reshape(b, hkv, dh)], dim=1)  # (B, H + 2 Hkv, dh)
 
     def attend(rows, kc, vc):
@@ -805,22 +809,51 @@ def _mla_decode_sharded(ap, cfg: TransformerConfig, h, c_cache, pos):
                            (c_cache,))
 
 
+def _decode_tp(model: Transformer, cache: dict, tokens, mi, keys: tuple):
+    """``decode_step`` of a resident model over ``mi``, tensor-parallel: the
+    vocabulary-parallel embedding of the new tokens, each layer as
+    ``_layer_tp`` runs it with the decode attention (``attention.py``:
+    ``gqa_decode_tp`` / ``mla_decode_tp``, each position on its own
+    sequence shard of the cache, which lies on its device), the final norm
+    and the head as the resident prefill's -> the logits on the mesh's
+    first device."""
+    cfg = model.cfg
+    grid = _grid(tokens, mi)
+    entry = cache[keys[0]]
+    if not isinstance(entry, torch.Tensor) and (
+            len(entry) != grid.groups or any(len(row) != grid.tp for row in entry)):
+        raise ValueError("the cache's layout does not match the mesh: lay it out with "
+                         "init_cache(..., mi=mi) or shard_cache")
+    pos = cache["pos"]
+    xs = _embed_tp(model, tokens[:, None], grid)  # (G B, 1, D) a part
+    for i, lp in enumerate(model.layers()):
+        layer = [_layer_cache(cache[k], i) for k in keys]
+        if cfg.attn_type == "mla":
+            def attend(views, h, c=layer[0]):
+                return attn.mla_decode_tp(views, cfg, h, c, pos, grid)
+        else:
+            def attend(views, h, k=layer[0], v=layer[1]):
+                return attn.gqa_decode_tp(views, cfg, h, k, v, pos, grid)
+        xs = _layer_tp(cfg, lp, xs, grid, attend)
+    return _last_logits_tp(model, grid, _apply_tp(model.final_norm, xs, grid))
+
+
 def decode_step(model: Transformer, cache: dict, tokens, mi=None):
     """One greedy decode step: tokens (B,) int32 at ``cache["pos"]`` ->
     (logits (B, vocab_padded) float32, the cache with ``pos`` + 1). Layer
     l's rows are written into the cache in place; the returned cache holds
     the same tensors. With ``mi`` (model axis > 1) the cache must be laid
-    out over it (``init_cache`` / ``shard_cache``)."""
+    out over it (``init_cache`` / ``shard_cache``). A resident model
+    decodes over its mesh tensor-parallel (``_decode_tp``)."""
     cfg = model.cfg
-    if isinstance(model.embed.table, Resident):
-        raise ValueError("decode_step over resident blocks is not ported yet (ROADMAP Queue 3, "
-                         "item 5): serve a model whose parameters are whole")
     pos = cache["pos"]
     keys = ("c",) if cfg.attn_type == "mla" else ("k", "v")
     sharded = mi is not None and mi.tp_size > 1
     if sharded != (not isinstance(cache[keys[0]], torch.Tensor)):
         raise ValueError("the cache's layout does not match the mesh: lay it out with "
                          "init_cache(..., mi=mi) or shard_cache")
+    if _resident(model, mi):
+        return _decode_tp(model, cache, tokens, mi, keys), dict(cache, pos=pos + 1)
     x = model.embed.table[tokens.long()].to(cfg.compute_dtype)  # (B, D)
     for i, lp in enumerate(model.layers()):
         layer = [_layer_cache(cache[k], i) for k in keys]

@@ -1,5 +1,6 @@
-"""The embedding_bag CUDA kernel against its plain version, and the two-tower
-serving path through it, on the card.
+"""The embedding_bag CUDA kernel and its backward's kernels against their
+plain versions, and the two-tower serving path through the bag, on the
+card.
 
 Marked ``cuda``; each test skips where there is no CUDA device. This file
 imports no JAX, so it also runs where only the port is installed:
@@ -11,6 +12,15 @@ at a time (kernels/embedding_bag.py), so the kernel equals its plain
 version bit for bit on float tables as well as integer ones, in both
 modes, on the float4 path (D % 4 == 0) and the scalar path; row offsets
 past 2**31 elements are read at 64 bits.
+
+The backward: a stable sort of the keys, the row-bounds kernel (each row's
+run of the sorted order as CSR offsets, equal to ``torch.searchsorted``)
+and the main kernel, which writes every row of the (V, D) gradient once
+(an empty row as zeros, into ``torch.empty``), adding a row's
+contributions in row-major (b, l) order from +0.0 as the plain version
+does, so the two agree bit for bit: on rows no id hits, rows every
+position hits, all-padding batches, V = 1, ids >= V (clamped), D = 3, 4,
+256 and 300 (past a warp's span) and rows written past 2**31 elements.
 """
 import pytest
 import torch
@@ -18,9 +28,16 @@ import torch
 from repro_torch.archs.recsys import serve_fn, shape_batch
 from repro_torch.configs import SMOKE_RECSYS_SHAPES, smoke_two_tower
 from repro_torch.kernels.embedding_bag import (
+    backward_launches,
+    dense_rows_cuda,
     embedding_bag,
+    embedding_bag_backward,
+    embedding_bag_backward_cuda,
+    embedding_bag_backward_plain,
     embedding_bag_cuda,
     embedding_bag_plain,
+    row_bounds_cuda,
+    sorted_keys,
 )
 from repro_torch.models.recsys import two_tower_init
 
@@ -144,3 +161,79 @@ def test_two_tower_serving_card_matches_cpu(dev):
     # lists agree on the set of ids above it.
     for j in torch.nonzero(gap).flatten().tolist():
         assert set(gi[0, : j + 1].tolist()) == set(wi[0, : j + 1].tolist())
+
+
+def backward_cases(dev, d, seed=0):
+    """(name, ids, g, V): rows no id hits (V far above the ids), rows hit by
+    every position (one id everywhere), an all-padding batch, V = 1 (and
+    ids >= V clamped onto it), ids >= V among 30% padding, on float g."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def g_of(b):
+        return torch.randn((b, d), generator=gen, device=dev)
+
+    ids = torch.randint(0, 64, (96, 20), generator=gen, dtype=torch.int32, device=dev)
+    yield "sparse", ids, g_of(96), 50_000
+    yield "every position", torch.full((40, 30), 7, dtype=torch.int32, device=dev), g_of(40), 20
+    yield "all padding", torch.full((33, 12), -1, dtype=torch.int32, device=dev), g_of(33), 500
+    one = torch.randint(-1, 3, (17, 9), generator=gen, dtype=torch.int32, device=dev)
+    yield "V = 1", one, g_of(17), 1
+    mixed = torch.randint(0, 300, (128, 50), generator=gen, dtype=torch.int32, device=dev)
+    mixed[torch.rand((128, 50), generator=gen, device=dev) < 0.3] = -1
+    mixed[1, :4] = torch.tensor([299, 300, 301, 10**6], dtype=torch.int32)
+    yield "ids >= V", mixed, g_of(128), 300
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [3, 4, 256, 300])
+def test_backward_kernels_equal_plain_on_edge_rows(dev, d):
+    """The gradient written into ``torch.empty`` equals the plain version
+    bit for bit in both modes; one count a kernel launch. The main kernel over
+    column slabs of 128 (one launch each) writes the same bits."""
+    for name, ids, g, v in backward_cases(dev, d, seed=d):
+        for mode in ("sum", "mean"):
+            before = embedding_bag_backward.launches
+            got = embedding_bag_backward(ids, g, v, mode=mode)
+            torch.cuda.synchronize()
+            assert embedding_bag_backward.launches == before + backward_launches(*g.shape)
+            want = embedding_bag_backward_plain(ids, g, v, mode)
+            assert got.shape == (v, d) and torch.equal(got, want), (name, mode, d)
+        if d > 128:
+            keys, pos = sorted_keys(ids, v)
+            slabs = dense_rows_cuda(row_bounds_cuda(keys, v), pos, g, ids.shape[1], slab=128)
+            assert torch.equal(slabs, embedding_bag_backward_plain(ids, g, v)), name
+
+
+@pytest.mark.cuda
+def test_row_bounds_equal_searchsorted(dev):
+    """The row-bounds kernel's offsets equal ``torch.searchsorted`` of 0..V
+    into the sorted keys (left), gaps of one row and of more than a warp's
+    32 alike, and on no keys at all."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    cases = [torch.randint(0, 4_000_000, (65_536, 50), generator=gen, dtype=torch.int32,
+                           device=dev),
+             torch.tensor([[3, 3, 70, -1, 1000, 70]], dtype=torch.int32, device=dev),
+             torch.full((4, 4), -1, dtype=torch.int32, device=dev),
+             torch.empty((0, 3), dtype=torch.int32, device=dev)]
+    for ids, v in zip(cases, (4_000_000, 5000, 64, 10)):
+        keys, _ = sorted_keys(ids, v)
+        got = row_bounds_cuda(keys, v)
+        torch.cuda.synchronize()
+        want = torch.searchsorted(keys, torch.arange(v + 1, dtype=torch.int32, device=dev))
+        assert torch.equal(got.long(), want), (tuple(ids.shape), v)
+
+
+@pytest.mark.cuda
+def test_backward_writes_rows_past_2_31_elements(dev):
+    """A (2**23 + 64, 256) gradient (2**31 + 2**14 floats, 8.6 GB): rows at
+    and above 2**31 / D written at 64-bit offsets, equal to the plain
+    version bit for bit."""
+    d, v = 256, 2**23 + 64
+    gen = torch.Generator(device=dev).manual_seed(9)
+    ids = torch.randint(v - 300, v, (64, 8), generator=gen, dtype=torch.int32, device=dev)
+    ids[0, :3] = torch.tensor([0, 2**23, v + 5], dtype=torch.int32)
+    g = torch.randn((64, d), generator=gen, device=dev)
+    got = embedding_bag_backward_cuda(ids, g, v)
+    torch.cuda.synchronize()
+    want = embedding_bag_backward_plain(ids, g, v)
+    assert torch.equal(got, want)

@@ -30,6 +30,7 @@ cross through ``interop.lm_params_from_reference``. Checked:
   reference's in test_torch_lm_train.py and, over meshes,
   test_torch_train_mesh_lm.py).
 """
+import copy
 import dataclasses
 
 import jax
@@ -45,6 +46,7 @@ from repro.roofline import model as ref_roof
 from repro_torch.archs import get_arch
 from repro_torch.configs import NOT_PORTED
 from repro_torch.distributed import MeshInfo
+from repro_torch.distributed.layout import whole_leaves
 from repro_torch.interop import lm_params_from_reference
 from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.models.transformer import decode_step, init_cache, prefill_logits
@@ -178,19 +180,24 @@ def test_roofline_terms_match_reference(name):
 
 
 def test_cells_serve_on_one_device_and_a_mesh():
+    """The serve cells over a (1, 4) mesh turn a whole model resident at
+    their first call (``make_resident``, in place: a copy of the one-device
+    model here) and serve it tensor-parallel, equal to one device's."""
     arch = get_arch("smoke-mla-moe")
     cfg = arch.cfg
     model, toks = arch.make_cell("prefill_32k").make_inputs(0, "cpu")
     assert toks.shape == (2, 64)
     want = arch.make_cell("prefill_32k").fn(model, toks)
     mi = MeshInfo(mesh=make_test_mesh(4, model=4, device="cpu"))
-    close(arch.make_cell("prefill_32k", mi).fn(model, toks).numpy(), want.numpy(), rtol=1e-6)
+    resident = copy.deepcopy(model)
+    close(arch.make_cell("prefill_32k", mi).fn(resident, toks).numpy(), want.numpy(), rtol=1e-6)
+    assert not whole_leaves(resident)
     _, cache, tok = arch.make_cell("decode_32k").make_inputs(0, "cpu")
     _, mesh_cache, _ = arch.make_cell("decode_32k", mi).make_inputs(0, "cpu")
     assert len(mesh_cache["c"]) == 1 and len(mesh_cache["c"][0]) == 4
     assert tuple(mesh_cache["c"][0][0].shape) == (cfg.n_layers, 4, 16, 24)
     logits, cache = arch.make_cell("decode_32k").fn(model, cache, tok)
-    mesh_logits, mesh_cache = arch.make_cell("decode_32k", mi).fn(model, mesh_cache, tok)
+    mesh_logits, mesh_cache = arch.make_cell("decode_32k", mi).fn(resident, mesh_cache, tok)
     assert logits.shape == (4, cfg.vocab_padded) and int(mesh_cache["pos"]) == 1
     close(mesh_logits.numpy(), logits.numpy(), rtol=1e-6)
     with pytest.raises(ValueError, match="layout"):

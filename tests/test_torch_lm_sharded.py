@@ -7,7 +7,8 @@ in-process), on meshes of ``AxisType.Auto`` axes with its inputs placed
 replicated (``device_put(..., NamedSharding(mesh, P()))``): with jax
 0.9's default ``Explicit`` axes its ``with_sharding_constraint`` fails
 (``distributed/meshinfo.py:100``). For ``smoke-gqa`` and ``smoke-mla-moe``
-(PRNGKey(0) parameters) on (1, 4) and (2, 2) meshes it runs
+(PRNGKey(0) parameters) on (1, 4) and (2, 2) meshes, and ``smoke-mla-moe``
+also on (4, 1), it runs
 ``prefill_logits`` on (2, 8) tokens and eight ``decode_step``s from a zero
 8-token cache at batch 4 (split over the data axis on (2, 2)) and at batch
 1 (which the data axis does not split), and writes every logit and the
@@ -20,6 +21,16 @@ reference's on that mesh within 1e-5 of the largest element (float32;
 the log-sum-exp and the shard sums add in other orders), not the (1, 1)
 result: on (2, 2) each data group computes its own MoE capacity, and
 ``smoke-mla-moe``'s decode then differs from its (1, 1) decode.
+
+On (4, 1) the reference's MoE has no expert-parallel branch (it needs a
+model axis > 1) and gives all tokens one capacity: the port's decode cell
+keeps ``smoke-mla-moe`` whole there and equals the reference.
+
+The same decode steps of a model made resident on the mesh
+(``models/transformer/model.py::make_resident``: every leaf its blocks,
+the step tensor-parallel) are held to the same reference values by the
+same tolerance (``tests/test_torch_resident_decode.py`` holds them to the
+port's whole-parameter decode and counts their collectives).
 """
 import functools
 import os
@@ -36,10 +47,19 @@ import torch
 from repro.archs.base import get_arch as ref_get_arch
 from repro.models.transformer import model as ref_tm
 from repro_torch.archs import get_arch
+from repro_torch.archs.lm import LMArch
+from repro_torch.configs.lm_configs import SMOKE_LM_SHAPES
 from repro_torch.distributed import MeshInfo
+from repro_torch.distributed.layout import whole_leaves
 from repro_torch.interop import lm_params_from_reference
 from repro_torch.launch.mesh import make_test_mesh
-from repro_torch.models.transformer import decode_step, gather_cache, init_cache, prefill_logits
+from repro_torch.models.transformer import (
+    decode_step,
+    gather_cache,
+    init_cache,
+    make_resident,
+    prefill_logits,
+)
 from test_torch_lm import close
 from test_torch_parity_world import torch_threads  # noqa: F401 (autouse)
 
@@ -65,7 +85,10 @@ SCRIPT = textwrap.dedent(
     for name in ("smoke-gqa", "smoke-mla-moe"):
         cfg = get_arch(name).cfg
         params = tm.init_params(jax.random.PRNGKey(0), cfg)
-        for mesh_name, shape in (("1x4", (1, 4)), ("2x2", (2, 2))):
+        meshes = (("1x4", (1, 4)), ("2x2", (2, 2)))
+        if name == "smoke-mla-moe":  # no expert-parallel branch on a model axis of 1
+            meshes += (("4x1", (4, 1)),)
+        for mesh_name, shape in meshes:
             mesh = jax.make_mesh(shape, ("data", "model"),
                                  axis_types=(AxisType.Auto, AxisType.Auto))
             mi = MeshInfo(mesh=mesh)
@@ -105,12 +128,16 @@ def ref(tmp_path_factory):
     return reference(str(tmp_path_factory.mktemp("mesh_decode")))
 
 
-@functools.lru_cache(maxsize=2)
-def port_model(name: str):
+def fresh_model(name: str):
     cfg = get_arch(name).cfg
     params = ref_tm.init_params(jax.random.PRNGKey(0), ref_get_arch(name).cfg)
     model = lm_params_from_reference(jax.tree.map(np.asarray, params), cfg, device="cpu")
     return model.requires_grad_(False)
+
+
+@functools.lru_cache(maxsize=2)
+def port_model(name: str):
+    return fresh_model(name)
 
 
 def mesh_info(mesh_name: str) -> MeshInfo:
@@ -160,3 +187,47 @@ def test_per_group_capacity_changes_the_result(ref):
         got_mesh, mesh = decode_step(model, mesh, toks[:, t], mi)
         assert np.abs(got_mesh.numpy() - got_one.numpy()).max() > 1e-2
         close(got_mesh.numpy(), want)
+
+
+@pytest.mark.parametrize("mesh_name", sorted(MESHES))
+@pytest.mark.parametrize("name", NAMES)
+def test_resident_decode_equals_reference_on_the_mesh(ref, name, mesh_name):
+    """Eight decode steps of the model made resident on the mesh, at batch 4
+    and at batch 1, and the final caches, against the reference on the
+    same mesh (tolerance: 1e-5 of the largest element); the cache's blocks
+    are written in place."""
+    mi = mesh_info(mesh_name)
+    model = make_resident(fresh_model(name), mi)
+    key = f"{name}_{mesh_name}"
+    toks = torch.from_numpy(ref["tokens"])
+    for b in (4, 1):
+        cache = init_cache(model.cfg, b, STEPS, mi=mi)
+        grid = next(v for k, v in cache.items() if k != "pos")
+        ptrs = [blk.data_ptr() for row in grid for blk in row]
+        with torch.inference_mode():
+            for t in range(STEPS):
+                logits, cache = decode_step(model, cache, toks[:b, t], mi)
+                close(logits.numpy(), ref[f"{key}_b{b}_step{t}"])
+        assert [blk.data_ptr() for row in grid for blk in row] == ptrs
+        for k, v in gather_cache(cache).items():
+            close(v.numpy(), ref[f"{key}_b{b}_cache_{k}"])
+
+
+def test_moe_decode_cell_on_a_data_mesh_equals_reference(ref):
+    """The decode cell of ``LMArch.make_cell`` over a (4, 1) mesh keeps
+    smoke-mla-moe whole (``archs/lm.py::resident_mesh``: the whole path
+    gives all tokens one capacity there, as the reference does); its eight
+    steps at batch 4 and at batch 1, and the final caches, equal the
+    reference's on that mesh (tolerance: 1e-5 of the largest element)."""
+    model = fresh_model("smoke-mla-moe")
+    mi = MeshInfo(mesh=make_test_mesh(4, model=1, device="cpu"))
+    cell = LMArch(model.cfg, "adamw", SMOKE_LM_SHAPES).make_cell("decode_32k", mi)
+    toks = torch.from_numpy(ref["tokens"])
+    for b in (4, 1):
+        cache = init_cache(model.cfg, b, STEPS, mi=mi)
+        for t in range(STEPS):
+            logits, cache = cell.fn(model, cache, toks[:b, t])
+            close(logits.numpy(), ref[f"smoke-mla-moe_4x1_b{b}_step{t}"])
+        for k, v in cache.items():  # one-device tensors: a model axis of 1
+            close(v.numpy(), ref[f"smoke-mla-moe_4x1_b{b}_cache_{k}"])
+    assert whole_leaves(model)

@@ -210,8 +210,10 @@ def test_resident_prefill_equals_the_one_device_logits(name):
 
 def test_whole_dense_leaves_over_the_mesh_raise():
     """``lm_loss`` over a mesh refuses a model with any whole leaf (all
-    whole, or all resident but one); a resident model refuses another
-    mesh, no mesh, and the decode step (not ported over blocks)."""
+    whole, or all resident but one); a resident model refuses another mesh
+    and no mesh. Its decode step over the mesh gives finite logits equal
+    to the whole model's on the same mesh (within 1e-5 of the largest),
+    and refuses a cache laid out for one device or for another mesh."""
     mi = mesh((1, 4))
     b = batches("smoke-mla-moe", 1)[0]
     with pytest.raises(ValueError, match="resident"):
@@ -225,8 +227,17 @@ def test_whole_dense_leaves_over_the_mesh_raise():
         with pytest.raises(ValueError, match="mesh"):
             tm.lm_loss(model, b, other)
     cache = tm.init_cache(model.cfg, 4, 64, device="cpu", mi=mi)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        tm.decode_step(model, cache, b["tokens"][:, 0], mi)
+    with torch.inference_mode():
+        got, _ = tm.decode_step(model, cache, b["tokens"][:, 0], mi)
+        want, _ = tm.decode_step(whole_model("smoke-mla-moe"),
+                                 tm.init_cache(model.cfg, 4, 64, device="cpu", mi=mi),
+                                 b["tokens"][:, 0], mi)
+    assert bool(torch.isfinite(got).all()) and got.shape == want.shape
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    for other in (tm.init_cache(model.cfg, 4, 64, device="cpu"),
+                  tm.init_cache(model.cfg, 4, 64, device="cpu", mi=mesh((2, 2)))):
+        with pytest.raises(ValueError, match="layout"):
+            tm.decode_step(model, other, b["tokens"][:, 0], mi)
     loss, _ = tm.lm_loss(model, b, mi)
     assert torch.isfinite(loss)
 

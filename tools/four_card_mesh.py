@@ -38,6 +38,16 @@ with their gradients and float32 accumulation, which no one card holds)
 and its batch kept at 4 (grad_accum 4) (PERF.md section 4 has the
 reckoning and the one-card calibration behind the cut).
 
+Then serving over the four cards: deepseek-v2-236b's long_500k decode at
+chip_smoke.py phase 9d's cut (1 dense + 2 MoE layers, one sequence against
+a 524,288-token latent cache, four steps from one random cache), the model
+made resident over (1, 4) of the cards by the cell's ``fn`` (each card a
+quarter of every split leaf and its own sequence shard of the cache), the
+step tensor-parallel, against the same over (1, 4) of cuda:0: each step
+whose MoE layers route its token alike held within 9d's bf16 limit
+(``DS_MESH_TOL``), at least one step held, no weight moved (the tally),
+each card's peak and the step walls.
+
 Then the training driver on the four cards (its (4, 1) mesh) for
 smoke-two-tower and smoke-gqa, the two at once: 8 steps, then a second
 process resuming to 12. Last, the driver's default on a machine of
@@ -287,6 +297,71 @@ def lm_mesh_cell(name, dense, layers, batch, steps, cards) -> bool:
     return ok
 
 
+def resident_decode(cards) -> bool:
+    """deepseek-v2-236b long_500k at phase 9d's cut, resident over (1, 4) of
+    the four cards against (1, 4) of cuda:0 (the module docstring)."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    from repro_torch.data import lm_batch
+    from repro_torch.distributed.layout import whole_leaves
+    from repro_torch.models.transformer import init_params, shard_cache
+    from repro_torch.roofline import collectives
+
+    arch = cs.ds_arch()
+    cfg, n = arch.cfg, arch.shapes["long_500k"]["seq_len"]
+    tokens = lm_batch(0, 1, 1, cs.LM_DECODE_STEPS, cfg.vocab_size, device=cards[0])["tokens"]
+    runs = {}
+    for label, devs in (("cuda:0", [cards[0]] * 4), ("four cards", cards)):
+        for c in cards:
+            torch.empty(0, device=c)
+            torch.cuda.reset_peak_memory_stats(c)
+        mi = mesh_of(devs, (1, 4))
+        model = init_params(torch.Generator(device=cards[0]).manual_seed(0), cfg,
+                            device=cards[0])
+        hooks_of = cs.norm_route_hooks(model)
+        fn = arch.make_cell("long_500k", mi).fn
+        cache = shard_cache(cs.lm_cache(cfg, 1, n, 0, cards[0]), mi)
+        walls, logits, routes, weights = [], [], [], None
+        for t in range(cs.LM_DECODE_STEPS):
+            routes.append([])
+            hooks = hooks_of(model, routes[-1])
+            for c in cards:
+                torch.cuda.synchronize(c)
+            t0 = time.perf_counter()
+            with collectives.tally() as tally:
+                lg, cache = fn(model, cache, tokens[:, t])
+            for c in cards:
+                torch.cuda.synchronize(c)
+            walls.append(time.perf_counter() - t0)
+            for h in hooks:
+                h.remove()
+            logits.append(lg.float().cpu())
+            weights = dict(tally.weight_counts)
+        runs[label] = dict(walls=walls, logits=logits, routes=cs.routes_of(routes),
+                           resident=not whole_leaves(model), weight_moves=weights,
+                           peak_gb=[torch.cuda.max_memory_allocated(c) / 1e9 for c in cards])
+        del model, cache, fn
+        gc.collect()
+        for c in cards:
+            with torch.cuda.device(c):
+                torch.cuda.empty_cache()
+    one, four = runs["cuda:0"], runs["four cards"]
+    errs = [float((a - b).abs().max()) for a, b in zip(four["logits"], one["logits"])]
+    flipped = [any(not torch.equal(a, b) for a, b in zip(r4, r1))
+               for r4, r1 in zip(four["routes"], one["routes"])]
+    held = [e for e, f in zip(errs, flipped) if not f]
+    finite = all(bool(torch.isfinite(lg).all()) for lg in four["logits"])
+    ok = (finite and bool(held) and max(held) <= cs.DS_MESH_TOL and four["resident"]
+          and one["resident"] and not four["weight_moves"] and not one["weight_moves"])
+    print("four_cards " + json.dumps(dict(
+        case="deepseek-v2-236b long_500k resident", mesh=[1, 4], layers=cfg.n_layers,
+        cache_len=n, steps=cs.LM_DECODE_STEPS, step_s=four["walls"],
+        one_card_step_s=one["walls"], max_abs_diff=errs, routes_flipped=flipped,
+        tolerance=cs.DS_MESH_TOL, weight_moves=four["weight_moves"],
+        peak_gb=four["peak_gb"], one_card_peak_gb=one["peak_gb"][0], ok=ok)), flush=True)
+    return ok
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--repeat", type=int, default=1, help="rounds of every case")
@@ -351,6 +426,7 @@ def main() -> int:
         lambda: mace.batch("ogb_products", 0, 1, cards[0], mesh_of(cards, (1, 4))))))
     for cut in LM_CELLS:
         cases.append((cut[0], lambda tmp, c=cut: lm_mesh_cell(*c, cards)))
+    cases.append(("resident decode", lambda tmp: resident_decode(cards)))
     cases += [("drivers", drivers), ("driver deepfm", deepfm)]
     if args.only:
         unknown = set(args.only) - {name for name, _ in cases}
